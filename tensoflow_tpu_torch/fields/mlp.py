@@ -1,0 +1,108 @@
+"""MLP building blocks of the port (counterpart of tensoflow_tpu/fields/mlp.py).
+
+Parameters are plain dicts of tensors with the JAX package's names and
+layouts (``w`` is [d_in, d_out]; weight-normalised layers carry ``v``,
+``g``, ``b``), so convert.params_from_jax maps them one to one.  Random
+init draws from an explicit torch.Generator: it does not reproduce
+jax.random's numbers, and parity tests carry the JAX params over instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+Params = Dict[str, Any]
+
+
+def _uniform(gen, shape, lo, hi, device):
+    u = torch.rand(shape, generator=gen, dtype=torch.float32)
+    return (lo + (hi - lo) * u).to(device)
+
+
+def init_linear(gen, d_in: int, d_out: int, weight_norm: bool = False,
+                device='cpu') -> Params:
+    """torch.nn.Linear default init (uniform, bound 1/sqrt(d_in))."""
+    bound = 1.0 / math.sqrt(d_in)
+    w = _uniform(gen, (d_in, d_out), -bound, bound, device)
+    b = _uniform(gen, (d_out,), -bound, bound, device)
+    if weight_norm:
+        return {'v': w, 'g': torch.linalg.norm(w, dim=0), 'b': b}
+    return {'w': w, 'b': b}
+
+
+def apply_linear(p: Params, x):
+    if 'v' in p:
+        v = p['v']
+        w = v * (p['g'] / torch.clamp(torch.linalg.norm(v, dim=0),
+                                      min=1e-12))
+        return x @ w + p['b']
+    return x @ p['w'] + p['b']
+
+
+def make_activation(name: str, exp_max: float = 0.0):
+    if name == 'sigmoid':
+        return torch.sigmoid
+    if name == 'exp':
+        return lambda x: torch.exp(torch.clamp(x, max=exp_max))
+    if name == 'none':
+        return lambda x: x
+    if name == 'relu':
+        return torch.relu
+    raise NotImplementedError(name)
+
+
+def softplus100(x):
+    """Softplus(beta=100): (max(zs,0) + log1p(exp(-|zs|)))/100, zs = 100x.
+
+    The exact form without F.softplus's linear switch above threshold=20
+    (the JAX reference has no such switch).  torch.maximum splits the
+    gradient at zs == 0, so the slope there is sigmoid(0) = 1/2 as in
+    jax.nn.softplus; torch.clamp would pass all of it (slope 1)."""
+    zs = 100.0 * x
+    return (torch.maximum(zs, torch.zeros_like(zs))
+            + torch.log1p(torch.exp(-zs.abs()))) / 100.0
+
+
+def init_predictor(gen, d_in: int, d_out: int, n_layers: int = 3,
+                   run_dim: Optional[int] = None, weight_norm: bool = True,
+                   final_bias: Optional[float] = None,
+                   device='cpu') -> Params:
+    """k hidden ReLU layers + linear head (ref: other_field.py)."""
+    if run_dim is None:
+        run_dim = 256 if n_layers >= 4 else 128
+    dims = [d_in] + [run_dim] * (n_layers - 1) + [d_out]
+    layers = [init_linear(gen, dims[i], dims[i + 1], weight_norm, device)
+              for i in range(len(dims) - 1)]
+    if final_bias is not None:
+        layers[-1]['b'] = torch.full_like(layers[-1]['b'], final_bias)
+    return {'layers': layers}
+
+
+def apply_predictor(p: Params, x, activation: str = 'sigmoid',
+                    exp_max: float = 0.0):
+    act = make_activation(activation, exp_max)
+    h = x
+    n = len(p['layers'])
+    for i, layer in enumerate(p['layers']):
+        h = apply_linear(layer, h)
+        if i < n - 1:
+            h = torch.relu(h)
+    return act(h)
+
+
+def init_variance(init_val: float, device='cpu') -> Params:
+    return {'variance': torch.tensor(float(init_val), device=device)}
+
+
+def apply_variance(p: Params, activation: str = 'exp'):
+    """Returns the scalar inv_s."""
+    v = p['variance']
+    if activation == 'exp':
+        return torch.exp(v * 10.0)
+    if activation == 'linear':
+        return v * 10.0
+    if activation == 'square':
+        return (v * 10.0) ** 2
+    raise NotImplementedError(activation)

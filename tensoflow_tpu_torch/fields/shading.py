@@ -1,0 +1,164 @@
+"""Stage-1 shading network of the port (counterpart of
+tensoflow_tpu/fields/shading.py): split-sum PBR at each ray sample.
+
+Material MLP -> albedo/roughness/metallic; diffuse = albedo x cosine-
+prefiltered envlight(normal); specular = FG-LUT(NoV, roughness) x the
+light blended between an indirect-light MLP and the prefiltered envlight
+by a learned occlusion probability.  The FG LUT is read from the port's
+own asset (assets/fg_lut_256_1024.npy, the JAX package's table).
+"""
+from __future__ import annotations
+
+import functools
+import os
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import device_constant
+from ..ops.math import (ide_dim, integrated_dir_encoding, linear_to_srgb,
+                        pe_dim, positional_encoding, safe_normalize)
+from ..ops.tensor_field import sample_bilinear_packed
+from . import light as envlight_mod
+from . import mlp
+
+FG_LUT_PATH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'assets', 'fg_lut_256_1024.npy')
+
+
+class ShadingConfig(NamedTuple):
+    human_light: bool = False
+    sphere_direction: bool = False
+    light_pos_freq: int = 8
+    inner_init: float = -0.95
+    light_exp_max: float = 0.0
+    app_feats_dim: int = 128
+    has_radiance_field: bool = False
+    radiance_field_step: int = 0
+    mat_pos_multires: int = -1
+    env: envlight_mod.EnvLightConfig = envlight_mod.EnvLightConfig()
+
+
+@functools.lru_cache(maxsize=1)
+def _fg_lut_packed_np():
+    """The split-sum LUT [roughness, NoV, 2] as 2x2 patch rows."""
+    lut = np.load(FG_LUT_PATH)
+    h, w, c = lut.shape
+    pad = np.pad(lut, ((1, 1), (1, 1), (0, 0)), mode='edge')
+    slots = [pad[d0:d0 + h + 1, d1:d1 + w + 1]
+             for d0 in (0, 1) for d1 in (0, 1)]
+    packed = np.concatenate(slots, -1).reshape((h + 1) * (w + 1), 4 * c)
+    return packed.astype(np.float32), (h, w)
+
+
+@functools.lru_cache(maxsize=4)
+def fg_lut_packed(device: str):
+    """Packed LUT on ``device`` (uploaded once per device)."""
+    packed, hw = _fg_lut_packed_np()
+    return torch.as_tensor(packed, device=device), hw
+
+
+def init_shading(gen: torch.Generator, cfg: ShadingConfig,
+                 device='cpu') -> Dict[str, Any]:
+    if cfg.human_light:
+        raise NotImplementedError('human_light is not ported')
+    feats = cfg.app_feats_dim
+    sph_dim = ide_dim(5)
+    dir_dim = pe_dim(3, 6)
+    pos_dim = pe_dim(3, cfg.light_pos_freq)
+    pos_in = (pe_dim(3, cfg.mat_pos_multires) if cfg.mat_pos_multires > 0
+              else 3 if cfg.mat_pos_multires == 0 else 0)
+    kw = dict(device=device)
+    params = {
+        'mat_mlp': mlp.init_predictor(gen, feats + pos_in, 5, 3, run_dim=128,
+                                      **kw),
+        'outer_light': mlp.init_predictor(
+            gen, sph_dim * (2 if cfg.sphere_direction else 1), 3, 3,
+            final_bias=float(np.log(0.5)), **kw),
+        'envlight': envlight_mod.init_env_light(cfg.env, device),
+        'inner_light': mlp.init_predictor(gen, pos_dim + sph_dim, 3, 3,
+                                          final_bias=float(np.log(0.5)),
+                                          **kw),
+        'inner_weight': mlp.init_predictor(gen, pos_dim + dir_dim, 1, 3,
+                                           final_bias=cfg.inner_init, **kw),
+    }
+    if cfg.has_radiance_field:
+        params['rad_mlp'] = mlp.init_predictor(
+            gen, feats + 3 + pe_dim(3, 4) + 3, 3, 3, run_dim=128, **kw)
+    return params
+
+
+def _fix_normals(normals):
+    """(ref: fields.py:484-485) avoid exactly-vertical zero-xy normals."""
+    normals = safe_normalize(normals)
+    degen = (normals[:, 0:1] + normals[:, 1:2]) == 0.0
+    fallback = device_constant('normal_fallback', lambda: [0.0, 1e-6, 1.0],
+                               normals.device, normals.dtype)
+    return torch.where(degen, fallback[None, :], normals)
+
+
+def apply_shading(params, cfg: ShadingConfig, mips, points, normals,
+                  view_dirs, feature_vectors, step: Optional[int] = None):
+    """Forward shading (ref: fields.py:448-567).  step=None disables the
+    radiance head.  Returns (color [N,3], radiance or None, occ_info)."""
+    if cfg.human_light:
+        raise NotImplementedError('human_light is not ported')
+    normals = _fix_normals(normals)
+    view_dirs = safe_normalize(view_dirs)
+    reflective = torch.sum(view_dirs * normals, -1, keepdim=True) \
+        * normals * 2 - view_dirs
+    nov = torch.sum(normals * view_dirs, -1, keepdim=True)
+
+    if cfg.mat_pos_multires > 0:
+        mat_in = torch.cat([feature_vectors, positional_encoding(
+            points, cfg.mat_pos_multires)], -1)
+    elif cfg.mat_pos_multires == 0:
+        mat_in = torch.cat([feature_vectors, points], -1)
+    else:
+        mat_in = feature_vectors
+    mat = mlp.apply_predictor(params['mat_mlp'], mat_in, 'sigmoid')
+    albedo, roughness, metallic = mat[..., :3], mat[..., 3:4], mat[..., 4:]
+    albedo = albedo * 0.77 + 0.03
+    roughness = roughness * 0.9 + 0.09
+
+    radiance = None
+    if cfg.has_radiance_field and step is not None \
+            and step > cfg.radiance_field_step:
+        rad_in = torch.cat([feature_vectors, points,
+                            positional_encoding(view_dirs, 4), normals], -1)
+        radiance = mlp.apply_predictor(params['rad_mlp'], rad_in, 'sigmoid')
+
+    diffuse_albedo = (1.0 - metallic) * albedo
+    diffuse_light = envlight_mod.shade(mips, normals, None, cfg.env)
+    diffuse_color = diffuse_albedo * diffuse_light
+
+    specular_albedo = 0.04 * (1.0 - metallic) + metallic * albedo
+    ref_rough = integrated_dir_encoding(reflective, roughness, 5)
+    direct_light = envlight_mod.shade(mips, reflective, roughness, cfg.env)
+    pts_enc = positional_encoding(points, cfg.light_pos_freq)
+    indirect_light = mlp.apply_predictor(
+        params['inner_light'], torch.cat([pts_enc, ref_rough], -1),
+        'exp', cfg.light_exp_max)
+    ref_enc = positional_encoding(reflective, 6)
+    occ_in = torch.cat([pts_enc, ref_enc], -1).detach()
+    occ_prob = mlp.apply_predictor(params['inner_weight'], occ_in, 'none')
+    occ_prob = occ_prob * 0.5 + 0.5
+    occ_prob_c = torch.clamp(occ_prob, 0.0, 1.0)
+
+    specular_light = (indirect_light * occ_prob_c
+                      + direct_light * (1.0 - occ_prob_c))
+
+    lut_p, (res_h, res_w) = fg_lut_packed(str(points.device))
+    fg = sample_bilinear_packed(
+        lut_p, res_h, res_w,
+        torch.clamp(roughness[:, 0], 0.0, 1.0) * res_h - 0.5,
+        torch.clamp(nov[:, 0], 0.0, 1.0) * res_w - 0.5)
+    specular_ref = specular_albedo * fg[:, 0:1] + fg[:, 1:2]
+    specular_color = specular_ref * specular_light
+
+    color = torch.clamp(linear_to_srgb(diffuse_color + specular_color),
+                        0.0, 1.0)
+    occ_info = {'reflective': reflective, 'occ_prob': occ_prob,
+                'roughness': roughness}
+    return color, radiance, occ_info

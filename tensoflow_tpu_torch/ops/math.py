@@ -1,0 +1,156 @@
+"""Math primitives of the port (counterpart of tensoflow_tpu/ops/math.py).
+
+Only the pieces the stage-1 training step reaches are ported.  Channel
+layouts match the JAX package exactly.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from .. import device_constant
+
+EPS = 1e-6
+
+
+def dot(a, b, keepdim: bool = True):
+    return torch.sum(a * b, dim=-1, keepdim=keepdim)
+
+
+def safe_normalize(x, eps: float = 1e-20):
+    """Normalize along the last axis with NaN-free gradients at 0."""
+    n2 = torch.sum(x * x, dim=-1, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(n2, min=eps))
+
+
+def charbonnier(pred, gt, eps: float = 1e-3):
+    """Charbonnier RGB loss summed over channels (ref: shapeRenderer.py:803-805)."""
+    return torch.sqrt(torch.sum((gt - pred) ** 2, dim=-1) + eps)
+
+
+def linear_to_srgb(linear):
+    """(ref: utils/raw_utils.py:4-13)"""
+    eps = float(np.finfo(np.float32).eps)
+    srgb0 = 323.0 / 25.0 * linear
+    srgb1 = (211.0 * torch.clamp(linear, min=eps) ** (5.0 / 12.0)
+             - 11.0) / 200.0
+    return torch.where(linear <= 0.0031308, srgb0, srgb1)
+
+
+def contraction(xyz, aabb):
+    """Map world coords into the unit cube [0,1]^3 (ref: network_utils.py:90-91)."""
+    lo, hi = aabb[0], aabb[1]
+    return (xyz - lo) / (hi - lo)
+
+
+def get_sphere_intersection(pts, dirs, radius: float = 1.0):
+    """Distance along ``dirs`` from ``pts`` (inside) to the radius-1 sphere
+    (ref: utils/network_utils.py:108-114)."""
+    dtx = dot(pts, dirs)
+    xtx = dot(pts, pts)
+    disc = dtx * dtx - xtx + radius * radius
+    return -dtx + torch.sqrt(torch.clamp(disc, min=0.0) + 1e-6)
+
+
+def positional_encoding(x, n_freqs: int, include_input: bool = True):
+    """NeRF-style PE: [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...]."""
+    outs = [x] if include_input else []
+    for i in range(n_freqs):
+        f = 2.0 ** i
+        outs.append(torch.sin(x * f))
+        outs.append(torch.cos(x * f))
+    return torch.cat(outs, dim=-1) if outs else x
+
+
+def pe_dim(input_dims: int, n_freqs: int, include_input: bool = True) -> int:
+    return input_dims * ((1 if include_input else 0) + 2 * n_freqs)
+
+
+def _generalized_binomial_coeff(a, k):
+    return np.prod(a - np.arange(k)) / math.factorial(k)
+
+
+def _assoc_legendre_coeff(l, m, k):
+    return ((-1) ** m * 2 ** l * math.factorial(l) / math.factorial(k)
+            / math.factorial(l - k - m)
+            * _generalized_binomial_coeff(0.5 * (l + k + m - 1.0), l))
+
+
+def _sph_harm_coeff(l, m, k):
+    return (np.sqrt((2.0 * l + 1.0) * math.factorial(l - m)
+                    / (4.0 * np.pi * math.factorial(l + m)))
+            * _assoc_legendre_coeff(l, m, k))
+
+
+@functools.lru_cache(maxsize=8)
+def _ide_tables(deg_view: int):
+    """(ref: utils/ref_utils.py:40-83) host-side tables (numpy)."""
+    ml_list = []
+    for i in range(deg_view):
+        l = 2 ** i
+        for m in range(l + 1):
+            ml_list.append((m, l))
+    ml_array = np.array(ml_list).T
+    l_max = 2 ** (deg_view - 1)
+    mat = np.zeros((l_max + 1, ml_array.shape[1]))
+    for i, (m, l) in enumerate(ml_array.T):
+        for k in range(l - m + 1):
+            mat[k, i] = _sph_harm_coeff(l, m, k)
+    sigma = 0.5 * ml_array[1, :] * (ml_array[1, :] + 1)
+    return (mat.astype(np.float32), ml_array.astype(np.int32),
+            sigma.astype(np.float32))
+
+
+def ide_dim(deg_view: int) -> int:
+    _, ml_array, _ = _ide_tables(deg_view)
+    return 2 * ml_array.shape[1]
+
+
+def integrated_dir_encoding(xyz, kappa_inv, deg_view: int = 5):
+    """Ref-NeRF integrated directional encoding (ref: ref_utils.py:85-115),
+    in real arithmetic as in the JAX package."""
+    dev, dt = xyz.device, xyz.dtype
+    mat = device_constant(('ide_mat', deg_view),
+                          lambda: _ide_tables(deg_view)[0], dev, dt)
+    m_f = device_constant(('ide_m', deg_view),
+                          lambda: _ide_tables(deg_view)[1][0, :], dev, dt)
+    sigma = device_constant(('ide_sigma', deg_view),
+                            lambda: _ide_tables(deg_view)[2], dev, dt)
+    x, y, z = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
+    vmz = torch.cat([z ** i for i in range(mat.shape[0])], dim=-1)
+    zpart = vmz @ mat
+    r = torch.sqrt(torch.clamp(x * x + y * y, min=0.0))
+    phi = torch.atan2(y, x)
+    r_pow = torch.where((r == 0.0) & (m_f > 0), torch.zeros_like(r * m_f),
+                        torch.clamp(r, min=1e-30) ** m_f)
+    re_xy = r_pow * torch.cos(m_f * phi)
+    im_xy = r_pow * torch.sin(m_f * phi)
+    atten = torch.exp(-sigma * kappa_inv)
+    return torch.cat([re_xy * zpart * atten, im_xy * zpart * atten], dim=-1)
+
+
+def sample_pdf(bins, weights, n_samples: int, u=None):
+    """Inverse-transform sampling of piecewise-constant pdfs; u None ->
+    deterministic midpoints (ref: network_utils.py:117-147)."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    if u is None:
+        u = torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples,
+                           dtype=cdf.dtype, device=cdf.device)
+        u = u.expand(cdf.shape[:-1] + (n_samples,))
+    inds = torch.sum(cdf[..., None, :] <= u[..., :, None], dim=-1)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_g0 = torch.gather(cdf, -1, below)
+    cdf_g1 = torch.gather(cdf, -1, above)
+    bins_g0 = torch.gather(bins, -1, below)
+    bins_g1 = torch.gather(bins, -1, above)
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)

@@ -1,0 +1,432 @@
+"""Fused VM-field stencil MLP head: plain PyTorch version + Hopper kernels.
+
+Counterpart of tensoflow_tpu/ops/pallas_stencil.py.  Per row it takes 3
+plane patches (4x4 texels, [N, 16C]) and 3 line patches (4 texels,
+[N, 4C]) per mip branch, the fraction/sigma lanes ``fr`` [N, 64] and the
+centre-point PE, and computes the 7-point FD stencil's shifted bilinear
+taps (hat weights over the patch slots, factorised separable form), the
+per-plane plane*line products plus the stencil-point PEs (trig addition,
+see tenso_sdf._pe_rot_table) as one X row, ``z = X.W0 + b0``,
+softplus(beta=100) and layer 1: the full head at the centre point, the
+sdf column only at the 6 offset points.
+
+  * ``stencil_head_plain`` — plain PyTorch on the same inputs; autograd
+    through it is the backward's oracle.  The CPU path and the tests use
+    it.
+  * ``StencilHead`` — autograd.Function whose forward launches
+    csrc/stencil_head_fwd.cu (saving the tap variants V) and whose
+    backward launches csrc/stencil_head_bwd.cu.  CUDA tensors only.
+  * ``stencil_head`` / ``point_head`` — the public wrappers: the plain
+    version for CPU tensors, the kernels for CUDA tensors (no fallback).
+
+bf16 rounding points follow the TPU kernel: the [N, C]-wide madds run in
+the patch dtype, the [N, 1] weight products are f32 and cast once, V is
+stored in the compute dtype, and h is cast to it before layer 1.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from ..fields.mlp import softplus100
+from . import cuda_build
+from .tensor_field import FRAC_STRIDE as FS, MAT_MODE, VEC_MODE
+
+_PVAR_SIGN = ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1))
+_LVAR_SIGN = (0, 1, -1)
+_STENCIL = ((None, 0), (0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
+
+# launches of each kernel wrapper (read by chip_smoke.py)
+LAUNCHES = {'stencil_head_fwd': 0, 'stencil_head_bwd': 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _stencil_mapping():
+    """mapping[s][i] = (plane_variant, line_variant) for stencil point s."""
+    out = []
+    for d, sign in _STENCIL:
+        row = []
+        for i in range(3):
+            a, b = MAT_MODE[i]
+            c = VEC_MODE[i]
+            pi, li = 0, 0
+            if d == a:
+                pi = 1 if sign > 0 else 2
+            elif d == b:
+                pi = 3 if sign > 0 else 4
+            elif d == c:
+                li = 1 if sign > 0 else 2
+            row.append((pi, li))
+        out.append(tuple(row))
+    return tuple(out)
+
+
+MAPPING7 = _stencil_mapping()
+MAPPING1 = (((0, 0), (0, 0), (0, 0)),)
+
+
+def xw(C: int, E: int) -> int:
+    """X row width: 3 plane products + PE, padded to a multiple of 16."""
+    return -(-(3 * C + E) // 16) * 16
+
+
+def vw(S: int, C: int) -> int:
+    """Saved-variant row width: (n_pv + n_lv) * 3 planes * C."""
+    return ((5 + 3) if S > 1 else 2) * 3 * C
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _hat_terms(frac, sigma, sign):
+    """[(k, weight [N,1])] for a clamped-bilinear lookup shifted by
+    sign*sigma texels; only statically-possible taps for a static sigma."""
+    if isinstance(sigma, (int, float)):
+        s = float(sigma) * sign
+        r = frac + s if s != 0.0 else frac
+        ks = [k for k in (-1, 0, 1, 2) if s - 1.0 < k < s + 2.0]
+    elif sign == 0:
+        r, ks = frac, [0, 1]
+    else:
+        r, ks = frac + sign * sigma, [-1, 0, 1, 2]
+    return [(k, torch.clamp(1.0 - torch.abs(r - k), min=0.0)) for k in ks]
+
+
+def _acc(acc, t):
+    return t if acc is None else acc + t
+
+
+def _variants(P, L, fr, S, B, C, sigmas):
+    """Blended stencil tap variants (PV 3x5 / LV 3x3 lists of [N, C] in the
+    patch dtype), in the TPU kernel's factorised order."""
+    bd = P[0].dtype
+    n_pv = 5 if S > 1 else 1
+    n_lv = 3 if S > 1 else 1
+    PV = [[None] * n_pv for _ in range(3)]
+    LV = [[None] * n_lv for _ in range(3)]
+    for b in range(B):
+        def f(j):
+            return fr[:, b * FS + j:b * FS + j + 1]
+        wgt = f(9)
+        for i in range(3):
+            pref = P[b * 3 + i]
+
+            def slot(ku, kv):
+                q = (ku + 1) * 4 + kv + 1
+                return pref[:, q * C:(q + 1) * C]
+            fu, fv = f(2 * i), f(2 * i + 1)
+            if sigmas[b] is not None:
+                su, sv, _ = sigmas[b][i]
+            else:
+                su, sv = f(10 + 2 * i), f(11 + 2 * i)
+            wv0 = [(kv, (wgt * w).to(bd)) for kv, w in _hat_terms(fv, sv, 0)]
+            wu0 = [(ku, (wgt * w).to(bd)) for ku, w in _hat_terms(fu, su, 0)]
+            rv = {}
+            for ku in ((0, 1) if n_pv == 1 else (-1, 0, 1, 2)):
+                acc = None
+                for kv, wv in wv0:
+                    acc = _acc(acc, wv * slot(ku, kv))
+                rv[ku] = acc
+            for pv in range(min(n_pv, 3)):           # centre, u+, u-
+                acc = None
+                for ku, wu in _hat_terms(fu, su, _PVAR_SIGN[pv][0]):
+                    acc = _acc(acc, wu.to(bd) * rv[ku])
+                PV[i][pv] = _acc(PV[i][pv], acc)
+            if n_pv > 1:
+                ru = {}
+                for kv in (-1, 0, 1, 2):
+                    acc = None
+                    for ku, wu in wu0:
+                        acc = _acc(acc, wu * slot(ku, kv))
+                    ru[kv] = acc
+                for pv in (3, 4):                    # v+, v-
+                    acc = None
+                    for kv, wv in _hat_terms(fv, sv, _PVAR_SIGN[pv][1]):
+                        acc = _acc(acc, wv.to(bd) * ru[kv])
+                    PV[i][pv] = _acc(PV[i][pv], acc)
+            lslots = [L[b * 3 + i][:, s * C:(s + 1) * C] for s in range(4)]
+            fx = f(6 + i)
+            sx = sigmas[b][i][2] if sigmas[b] is not None else f(16 + i)
+            wgt_b = wgt.to(bd)
+            for lv in range(n_lv):
+                tap = None
+                for k, w in _hat_terms(fx, sx, _LVAR_SIGN[lv]):
+                    tap = _acc(tap, w.to(bd) * lslots[k + 1])
+                LV[i][lv] = _acc(LV[i][lv], wgt_b * tap)
+    return PV, LV
+
+
+def _pe_offsets(pe, rot, S):
+    """The S stencil-point PEs from the centre PE via the [S,4,E] table:
+    pe_s = pe*A0 + roll(pe,-3)*A1 + roll(pe,+3)*A2 + A3."""
+    if S == 1:
+        return [pe]
+    pe_m3 = torch.roll(pe, -3, dims=1)
+    pe_p3 = torch.roll(pe, 3, dims=1)
+    return [pe] + [pe * rot[s, 0] + pe_m3 * rot[s, 1] + pe_p3 * rot[s, 2]
+                   + rot[s, 3] for s in range(1, S)]
+
+
+def _compute_dtype(pp):
+    """bf16 patches compute in bf16, float64 ones in float64 (the plain
+    version's oracle mode), anything else in float32."""
+    if pp[0].dtype in (torch.bfloat16, torch.float64):
+        return pp[0].dtype
+    return torch.float32
+
+
+def stencil_head_plain(pp, lp, fr, sigmas, pe_c, rot, w0_parts, b0, w1, b1,
+                       S: int = 7):
+    """Plain PyTorch stencil head.  pp/lp: B*3 patch tensors (b-major) in
+    float32 or bfloat16 (float64 computes the same function in float64,
+    the oracle a float32 kernel is held to on the card);
+    fr [N, 64]; sigmas: per-branch static (su, sv, sx) triples or None
+    (dynamic: read from the fr lanes); pe_c [N, E]; rot [S, 4, E];
+    w0_parts = (w0a, w0b, w0c, w0pe) row splits of W0 [3C+E, H]; b0 [H];
+    w1 [H, O]; b1 [O].  Returns (out_c [N, O], sdf_off [S-1, N] or None)
+    with the biases applied."""
+    cd = _compute_dtype(pp)
+    acc = torch.float64 if cd == torch.float64 else torch.float32
+    B = len(sigmas)
+    C = pp[0].shape[-1] // 16
+    n = fr.shape[0]
+    P = [p.to(cd) for p in pp]
+    L = [l.to(cd) for l in lp]
+    PV, LV = _variants(P, L, fr.to(acc), S, B, C, sigmas)
+    pes = _pe_offsets(pe_c.to(cd).to(acc), rot.to(acc), S)
+    mapping = MAPPING7 if S == 7 else MAPPING1
+    X = torch.cat([torch.cat([(PV[i][mapping[s][i][0]]
+                               * LV[i][mapping[s][i][1]]).to(cd)
+                              for i in range(3)] + [pes[s].to(cd)], dim=1)
+                   for s in range(S)], dim=0)                 # [S*N, 3C+E]
+    w0 = torch.cat(list(w0_parts), dim=0).to(cd)
+    z = X.to(acc) @ w0.to(acc) + b0.to(acc)
+    h = softplus100(z).to(cd)
+    out_c = h[:n].to(acc) @ w1.to(cd).to(acc) + b1
+    if S == 1:
+        return out_c, None
+    hh = h[n:].to(acc).reshape(S - 1, n, -1)
+    out_off = torch.sum(hh * w1[:, 0].to(cd).to(acc), dim=-1) + b1[0]
+    return out_c, out_off
+
+
+# ---------------------------------------------------------------------------
+# Hopper kernels
+# ---------------------------------------------------------------------------
+
+_FWD_ARGS = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 14
+_BWD_ARGS = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 20
+
+
+def _lib(name, argtypes):
+    lib = cuda_build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        if name == 'stencil_head_bwd':
+            lib.stencil_head_bwd_workspace.argtypes = [ctypes.c_int] * 10
+            lib.stencil_head_bwd_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def _ptr_array(ts):
+    arr = (ctypes.c_void_p * 6)(*([t.data_ptr() for t in ts]
+                                  + [0] * (6 - len(ts))))
+    return arr
+
+
+def _dtype_code(cd):
+    return 1 if cd == torch.bfloat16 else 0
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_cuda(ts, what):
+    for t in ts:
+        if t.device.type != 'cuda':
+            raise ValueError(f'{what}: all tensors must be on the card')
+        if not t.is_contiguous():
+            raise ValueError(f'{what}: tensors must be contiguous')
+
+
+def _check_shapes(S, B, C, n, E, H, O, pp, lp, fr, rot, w0_parts, b0):
+    """The kernels index every input by these sizes: refuse a mismatch."""
+    want = ([(p, (n, 16 * C)) for p in pp] + [(l, (n, 4 * C)) for l in lp]
+            + [(fr, (n, 2 * FS)), (rot, (S, 4, E)), (b0, (H,))])
+    bad = [tuple(t.shape) for t, s in want if tuple(t.shape) != s]
+    rows = [w.shape for w in w0_parts]
+    if (bad or len(pp) != 3 * B or len(lp) != 3 * B
+            or sum(r[0] for r in rows) != 3 * C + E
+            or any(r[1:] != (H,) for r in rows)):
+        raise ValueError(f'stencil head: inconsistent shapes {bad or rows}')
+
+
+def _fr_with_static_sigmas(fr, sigmas):
+    """f32 fr with static per-branch sigmas written into their lanes (the
+    kernels always read the lanes)."""
+    fr = fr.float().contiguous()
+    if all(s is None for s in sigmas):
+        return fr
+    fr = fr.clone()
+    for b, sg in enumerate(sigmas):
+        if sg is None:
+            continue
+        for i in range(3):
+            su, sv, sx = sg[i]
+            fr[:, b * FS + 10 + 2 * i] = su
+            fr[:, b * FS + 11 + 2 * i] = sv
+            fr[:, b * FS + 16 + i] = sx
+    return fr
+
+
+class StencilHead(torch.autograd.Function):
+    """Kernel-backed stencil head (no biases): forward = stencil_head_fwd,
+    backward = stencil_head_bwd.  Inputs as for stencil_head_plain."""
+
+    @staticmethod
+    def forward(ctx, static, fr, pe, rot, b0, w1, *rest):
+        S, B, C, cd, sigmas, save_v = static
+        pp, lp = rest[:3 * B], rest[3 * B:6 * B]
+        w0_parts = rest[6 * B:]
+        n, E = pe.shape
+        H, O = w1.shape
+        XW = xw(C, E)
+        dev = fr.device
+        _check_shapes(S, B, C, n, E, H, O, pp, lp, fr, rot, w0_parts, b0)
+        pp = [p.to(cd).contiguous() for p in pp]
+        lp = [l.to(cd).contiguous() for l in lp]
+        fr32 = _fr_with_static_sigmas(fr, sigmas)
+        pe_cd = pe.to(cd).contiguous()
+        rot32 = rot.float().contiguous()
+        w0 = torch.cat([w.to(cd) for w in w0_parts], dim=0)
+        w0big = torch.cat([w0, w0.new_zeros((XW - w0.shape[0], H))],
+                          dim=0).contiguous()
+        w0t = w0big.t().contiguous()       # [H, XW]: the bf16 mma operand
+        b0f = b0.float().contiguous()
+        w1cd = w1.to(cd).contiguous()
+        w1row = w1[:, 0].to(cd).contiguous()
+        out_c = torch.empty((n, O), dtype=torch.float32, device=dev)
+        out_off = torch.empty((max(S - 1, 1), n), dtype=torch.float32,
+                              device=dev)
+        v = (torch.empty((n, vw(S, C)), dtype=cd, device=dev) if save_v
+             else None)
+        _check_cuda(pp + lp + [fr32, pe_cd, rot32, w0big, w0t, b0f, w1cd,
+                               w1row], 'stencil_head_fwd')
+        lib = _lib('stencil_head_fwd', _FWD_ARGS)
+        pa, la = _ptr_array(pp), _ptr_array(lp)
+        err = lib.stencil_head_fwd(
+            _dtype_code(cd), S, B, n, C, E, H, O, XW,
+            ctypes.addressof(pa), ctypes.addressof(la), fr32.data_ptr(),
+            pe_cd.data_ptr(), rot32.data_ptr(), w0big.data_ptr(),
+            w0t.data_ptr(), b0f.data_ptr(), w1cd.data_ptr(), w1row.data_ptr(),
+            out_c.data_ptr(), out_off.data_ptr(),
+            v.data_ptr() if v is not None else None, _stream(dev))
+        cuda_build.check(err, 'stencil_head_fwd')
+        LAUNCHES['stencil_head_fwd'] += 1
+        if save_v:
+            ctx.save_for_backward(fr32, v, pe_cd, rot32, w0big, w0t, b0f,
+                                  w1cd, w1row)
+        ctx.static = static
+        ctx.meta = (pe.dtype, b0.dtype, w1.dtype,
+                    [(w.shape[0], w.dtype) for w in w0_parts])
+        return out_c, (out_off if S > 1 else None)
+
+    @staticmethod
+    def backward(ctx, g_c, g_off):
+        S, B, C, cd, sigmas, save_v = ctx.static
+        if not save_v:
+            raise RuntimeError('StencilHead: forward ran without saving V')
+        fr32, v, pe_cd, rot32, w0big, w0t, b0f, w1cd, w1row = \
+            ctx.saved_tensors
+        pe_dtype, b0_dtype, w1_dtype, parts = ctx.meta
+        n, E = pe_cd.shape
+        H, O = w1cd.shape
+        XW = w0big.shape[0]
+        dev = fr32.device
+        g_c = (torch.zeros((n, O), dtype=torch.float32, device=dev)
+               if g_c is None else g_c.float().contiguous())
+        if S > 1 and g_off is not None:
+            g_off = g_off.float().contiguous()
+        else:
+            g_off = torch.zeros((max(S - 1, 1), n), dtype=torch.float32,
+                                device=dev)
+        w1t = w1cd.t().contiguous()
+        dP = [torch.empty((n, 16 * C), dtype=cd, device=dev)
+              for _ in range(3 * B)]
+        dL = [torch.empty((n, 4 * C), dtype=cd, device=dev)
+              for _ in range(3 * B)]
+        dpe = torch.empty((n, E), dtype=torch.float32, device=dev)
+        lib = _lib('stencil_head_bwd', _BWD_ARGS)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        shape = (_dtype_code(cd), S, B, n_sm, n, C, E, H, O, XW)
+        ws_bytes = lib.stencil_head_bwd_workspace(*shape)
+        if ws_bytes <= 0:
+            raise ValueError(f'stencil_head_bwd: unsupported shape {shape}')
+        workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+        dw0 = torch.empty((XW, H), dtype=torch.float32, device=dev)
+        db0 = torch.empty((H,), dtype=torch.float32, device=dev)
+        dw1 = torch.empty((H, O), dtype=torch.float32, device=dev)
+        dw1row = torch.empty((H,), dtype=torch.float32, device=dev)
+        _check_cuda([g_c, g_off, w1t], 'stencil_head_bwd')
+        pa, la = _ptr_array(dP), _ptr_array(dL)
+        err = lib.stencil_head_bwd(
+            *shape, fr32.data_ptr(), v.data_ptr(), pe_cd.data_ptr(),
+            rot32.data_ptr(), w0big.data_ptr(), w0t.data_ptr(),
+            b0f.data_ptr(), w1t.data_ptr(), w1row.data_ptr(), g_c.data_ptr(),
+            g_off.data_ptr(), ctypes.addressof(pa), ctypes.addressof(la),
+            dpe.data_ptr(), workspace.data_ptr(), dw0.data_ptr(),
+            db0.data_ptr(), dw1.data_ptr(), dw1row.data_ptr(), _stream(dev))
+        cuda_build.check(err, 'stencil_head_bwd')
+        LAUNCHES['stencil_head_bwd'] += 1
+        if S > 1:
+            dw1[:, 0] += dw1row
+        dw0_parts, off = [], 0
+        for rows, dt in parts:
+            dw0_parts.append(dw0[off:off + rows].to(dt))
+            off += rows
+        # fr (stop-gradient coords) and rot (static offsets) get no grads
+        return (None, None, dpe.to(pe_dtype), None, db0.to(b0_dtype),
+                dw1.to(w1_dtype), *dP, *dL, *dw0_parts)
+
+
+def _head(S, pp, lp, fr, sigmas, pe, rot, w0_parts, b0, w1, b1):
+    if fr.device.type == 'cpu':
+        return stencil_head_plain(pp, lp, fr, sigmas, pe, rot, w0_parts, b0,
+                                  w1, b1, S=S)
+    if fr.device.type != 'cuda':
+        raise ValueError(f'stencil head: unsupported device {fr.device}')
+    cd = _compute_dtype(pp)
+    B = len(sigmas)
+    C = pp[0].shape[-1] // 16
+    tensors = [fr, pe, rot, b0, w1, *pp, *lp, *w0_parts]
+    save_v = torch.is_grad_enabled() and any(t.requires_grad
+                                             for t in tensors)
+    static = (S, B, C, cd, tuple(sigmas), save_v)
+    out_c, out_off = StencilHead.apply(static, fr, pe, rot, b0, w1, *pp,
+                                       *lp, *w0_parts)
+    out_c = out_c + b1[None, :]
+    return out_c, (out_off + b1[0] if out_off is not None else None)
+
+
+def stencil_head(pp, lp, fr, sigmas, pe_c, pe_rot, w0_parts: Sequence, b0,
+                 w1, b1):
+    """7-point stencil MLP head -> (out_centre [N, O], sdf_off [6, N]).
+    CPU tensors: the plain version; CUDA tensors: the Hopper kernels."""
+    return _head(7, pp, lp, fr, sigmas, pe_c, pe_rot, w0_parts, b0, w1, b1)
+
+
+def point_head(pp, lp, fr, sigmas, pe, w0_parts: Sequence, b0, w1, b1):
+    """Single-point MLP head (centre taps only): -> [N, O]."""
+    rot = torch.zeros((1, 4, pe.shape[-1]), dtype=torch.float32,
+                      device=pe.device)
+    return _head(1, pp, lp, fr, sigmas, pe, rot, w0_parts, b0, w1, b1)[0]

@@ -1,0 +1,479 @@
+"""VM-decomposed tensor fields (counterpart of tensoflow_tpu/ops/tensor_field.py).
+
+A field is 3 planes ``[H, W, C]`` + 3 lines ``[L, C]`` (matMode
+[[0,1],[0,2],[1,2]], vecMode [2,1,0]).  The port keeps the JAX package's
+layouts and atlas formats so its tests compare like with like:
+
+  * ``pack_vm_field``  — 2x2 patch rows for the single-point field eval
+    (occupancy update, sdf_only);
+  * ``pack_vm_patches`` — 4x4 (p16) patch rows feeding the stencil head
+    (ops/stencil.py), one gathered row per texture per mip branch.
+
+Coordinates are detached (FD stencil, ref fields.py:268-270); the field
+gradient flows through the row gathers, whose backward is index_add_.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+MAT_MODE = ((0, 1), (0, 2), (1, 2))
+VEC_MODE = (2, 1, 0)
+FRAC_STRIDE = 32        # fr lanes per mip branch (see vm_patch_gather)
+SMALL_TABLE_ROWS = 4096
+
+FieldParams = Dict[str, Any]   # {'planes': [3 x (H,W,C)], 'lines': [3 x (L,C)]}
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def circle_init_plane(grid_hw: Sequence[int], radius: float) -> np.ndarray:
+    """2D circle SDF used to initialise the SDF planes -> [H, W, 1]."""
+    x = np.linspace(-1, 1, grid_hw[0])
+    y = np.linspace(-1, 1, grid_hw[1])
+    xx, yy = np.meshgrid(x, y, indexing='ij')
+    return (np.sqrt(xx ** 2 + yy ** 2) - radius)[..., None].astype(np.float32)
+
+
+def init_vm_circle(grid_size: Sequence[int], n_comp: int,
+                   radius: float = 0.2, device='cpu') -> FieldParams:
+    """Circle-SDF init of a VM field (ref: fields.py:101-111)."""
+    planes, lines = [], []
+    for i in range(3):
+        hw = [grid_size[MAT_MODE[i][0]], grid_size[MAT_MODE[i][1]]]
+        ln = grid_size[VEC_MODE[i]]
+        plane = np.broadcast_to(circle_init_plane(hw, radius),
+                                (hw[0], hw[1], n_comp)).copy()
+        line = np.full((ln, n_comp), 1.0 / (n_comp * 3), np.float32)
+        planes.append(torch.tensor(plane, device=device))
+        lines.append(torch.tensor(line, device=device))
+    return {'planes': planes, 'lines': lines}
+
+
+# ---------------------------------------------------------------------------
+# mip pyramids
+# ---------------------------------------------------------------------------
+
+def _avg_pool_2x2(tex):
+    h, w, c = tex.shape
+    return tex.reshape(h // 2, 2, w // 2, 2, c).mean(dim=(1, 3))
+
+
+def _avg_pool_2x1d(tex):
+    l, c = tex.shape
+    return tex.reshape(l // 2, 2, c).mean(dim=1)
+
+
+def build_pyramid_2d(tex, n_levels: int) -> List[torch.Tensor]:
+    pyr = [tex]
+    for _ in range(n_levels - 1):
+        pyr.append(_avg_pool_2x2(pyr[-1]))
+    return pyr
+
+
+def build_pyramid_1d(tex, n_levels: int) -> List[torch.Tensor]:
+    pyr = [tex]
+    for _ in range(n_levels - 1):
+        pyr.append(_avg_pool_2x1d(pyr[-1]))
+    return pyr
+
+
+def _edge_pad_2d(tex, p: int):
+    """[H,W,C] edge-replicated by p texels on both spatial axes."""
+    x = tex.permute(2, 0, 1)[None]
+    return F.pad(x, (p, p, p, p), mode='replicate')[0].permute(1, 2, 0)
+
+
+def _edge_pad_1d(tex, p: int):
+    """[L,C] edge-replicated by p texels."""
+    return F.pad(tex.t()[None], (p, p), mode='replicate')[0].t()
+
+
+def _take(buf, idx):
+    """Row gather with clamped indices (jnp.take mode='clip')."""
+    idx = torch.clamp(idx, 0, buf.shape[0] - 1)
+    return torch.index_select(buf, 0, idx.reshape(-1)).reshape(
+        idx.shape + buf.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# 2x2 patch atlas (single-point field evaluation)
+# ---------------------------------------------------------------------------
+
+def patch_pack_2d(tex):
+    """[H,W,C] -> [(H+1)*(W+1), 4C] rows of 2x2 edge-clamped texel blocks."""
+    h, w, c = tex.shape
+    pad = _edge_pad_2d(tex, 1)
+    slots = [pad[d0:d0 + h + 1, d1:d1 + w + 1]
+             for d0 in (0, 1) for d1 in (0, 1)]
+    return torch.cat(slots, -1).reshape((h + 1) * (w + 1), 4 * c)
+
+
+def sample_bilinear_packed(buf, h, w, t0, t1, base=0):
+    """One-gather clamped bilinear on a patch_pack_2d buffer at continuous
+    texel coords t0/t1; h/w/base: ints or [N] int64 tensors."""
+    f0 = torch.floor(t0)
+    f1 = torch.floor(t1)
+    w0 = (t0 - f0)[:, None]
+    w1 = (t1 - f1)[:, None]
+    a0 = _clip_idx(f0.long() + 1, h)
+    a1 = _clip_idx(f1.long() + 1, w)
+    rows = _take(buf, base + a0 * (w + 1) + a1)
+    c = rows.shape[-1] // 4
+    return (((1 - w0) * (1 - w1)) * rows[:, :c] + ((1 - w0) * w1)
+            * rows[:, c:2 * c] + (w0 * (1 - w1)) * rows[:, 2 * c:3 * c]
+            + (w0 * w1) * rows[:, 3 * c:]).float()
+
+
+def _clip_idx(a, hi):
+    """clip(a, 0, hi) for an int or per-row tensor upper bound."""
+    if isinstance(hi, int):
+        return torch.clamp(a, 0, hi)
+    return torch.minimum(torch.clamp(a, min=0), hi)
+
+
+class PackedMeta(NamedTuple):
+    plane_offsets: Tuple[Tuple[int, ...], ...]
+    plane_shapes: Tuple[Tuple[Tuple[int, int], ...], ...]
+    line_offsets: Tuple[Tuple[int, ...], ...]
+    line_lens: Tuple[Tuple[int, ...], ...]
+    n_levels: int
+    n_comp: int
+
+
+class PackedVMField(NamedTuple):
+    """A VM field flattened into one gather atlas [T, 4C]."""
+    buffer: torch.Tensor
+    meta: PackedMeta
+
+
+def pack_vm_field(field: FieldParams, n_levels: int = 1,
+                  gather_dtype=None) -> PackedVMField:
+    """All planes, lines and mip levels as 2x2 patch rows in one buffer
+    (lines: [2C texels + 2C zero pad]).  Differentiable."""
+    parts = []
+    offset = 0
+    p_offs, p_shapes, l_offs, l_lens = [], [], [], []
+    for i in range(3):
+        offs, shps = [], []
+        for tex in build_pyramid_2d(field['planes'][i], n_levels):
+            h, w, _ = tex.shape
+            parts.append(patch_pack_2d(tex))
+            offs.append(offset)
+            shps.append((h, w))
+            offset += (h + 1) * (w + 1)
+        p_offs.append(tuple(offs))
+        p_shapes.append(tuple(shps))
+    for i in range(3):
+        offs, lens = [], []
+        for tex in build_pyramid_1d(field['lines'][i], n_levels):
+            l, c = tex.shape
+            pad = _edge_pad_1d(tex, 1)
+            row = torch.cat([pad[0:l + 1], pad[1:l + 2]], -1)
+            parts.append(F.pad(row, (0, 2 * c)))
+            offs.append(offset)
+            lens.append(l)
+            offset += l + 1
+        l_offs.append(tuple(offs))
+        l_lens.append(tuple(lens))
+    buf = torch.cat(parts, dim=0)
+    if gather_dtype is not None:
+        buf = buf.to(gather_dtype)
+    meta = PackedMeta(tuple(p_offs), tuple(p_shapes), tuple(l_offs),
+                      tuple(l_lens), n_levels,
+                      int(field['planes'][0].shape[-1]))
+    return PackedVMField(buf, meta)
+
+
+def _level_branches(n_levels: int, level, n):
+    """Adjacent-mip branches [(l0 int or [N] int64, weight [N] or None)]."""
+    if n_levels == 1 or level is None:
+        return [(0, None)]
+    lv = torch.clamp(level.reshape(n), 0.0, n_levels - 1.0)
+    l0 = torch.clamp(torch.floor(lv).long(), 0, n_levels - 2)
+    f = lv - l0.to(lv.dtype)
+    return [(l0, 1.0 - f), (l0 + 1, f)]
+
+
+def _table(vals, like_idx):
+    return torch.as_tensor(vals, dtype=torch.int64, device=like_idx.device)
+
+
+def _plane_params(meta, i: int, l0):
+    """(base, h, w, hf, wf) for plane i at mip l0 (int or [N] tensor)."""
+    if isinstance(l0, int):
+        h, w = meta.plane_shapes[i][l0]
+        return meta.plane_offsets[i][l0], h, w, float(h), float(w)
+    h = _table([s[0] for s in meta.plane_shapes[i]], l0)[l0]
+    w = _table([s[1] for s in meta.plane_shapes[i]], l0)[l0]
+    base = _table(meta.plane_offsets[i], l0)[l0]
+    return base, h, w, h.float(), w.float()
+
+
+def _line_params(meta, i: int, l0):
+    if isinstance(l0, int):
+        ln = meta.line_lens[i][l0]
+        return meta.line_offsets[i][l0], ln, float(ln)
+    ln = _table(meta.line_lens[i], l0)[l0]
+    base = _table(meta.line_offsets[i], l0)[l0]
+    return base, ln, ln.float()
+
+
+def vm_features_split(packed: PackedVMField, xyz01, level=None):
+    """Per-plane features [3 x [N, C]] (plane_i * line_i) on the 2x2 atlas."""
+    meta = packed.meta
+    xyz01 = torch.clamp(xyz01.detach(), 0.0, 1.0)
+    n = xyz01.shape[0]
+    if level is not None:
+        level = level.detach()
+    cols = [xyz01[:, 0], xyz01[:, 1], xyz01[:, 2]]
+    P = [None, None, None]
+    L = [None, None, None]
+    for l0, mw in _level_branches(meta.n_levels, level, n):
+        mwc = None if mw is None else mw[:, None]
+        idxs, pw, lw = [], [], []
+        for i in range(3):
+            base, h, w, hf, wf = _plane_params(meta, i, l0)
+            t0 = cols[MAT_MODE[i][0]] * hf - 0.5
+            t1 = cols[MAT_MODE[i][1]] * wf - 0.5
+            f0 = torch.floor(t0)
+            f1 = torch.floor(t1)
+            a0 = _clip_idx(f0.long() + 1, h)
+            a1 = _clip_idx(f1.long() + 1, w)
+            idxs.append(base + a0 * (w + 1) + a1)
+            pw.append(((t0 - f0)[:, None], (t1 - f1)[:, None]))
+        for i in range(3):
+            base, ln, lf = _line_params(meta, i, l0)
+            xt = cols[VEC_MODE[i]] * lf - 0.5
+            x0 = torch.floor(xt)
+            idxs.append(base + _clip_idx(x0.long() + 1, ln))
+            lw.append((xt - x0)[:, None])
+        rows = _take(packed.buffer, torch.cat(idxs))
+        c = rows.shape[-1] // 4
+        for i in range(3):
+            r = rows[i * n:(i + 1) * n]
+            w0, w1 = pw[i]
+            p = (((1 - w0) * (1 - w1)) * r[:, :c]
+                 + ((1 - w0) * w1) * r[:, c:2 * c]
+                 + (w0 * (1 - w1)) * r[:, 2 * c:3 * c]
+                 + (w0 * w1) * r[:, 3 * c:]).float()
+            r = rows[(3 + i) * n:(4 + i) * n]
+            f = lw[i]
+            ll = ((1 - f) * r[:, :c] + f * r[:, c:2 * c]).float()
+            if mwc is not None:
+                p = p * mwc
+                ll = ll * mwc
+            P[i] = p if P[i] is None else P[i] + p
+            L[i] = ll if L[i] is None else L[i] + ll
+    return [P[i] * L[i] for i in range(3)]
+
+
+# ---------------------------------------------------------------------------
+# 4x4 patch atlas (stencil head input)
+# ---------------------------------------------------------------------------
+
+class PatchMeta(NamedTuple):
+    plane_offsets: Tuple[Tuple[int, ...], ...]
+    plane_shapes: Tuple[Tuple[Tuple[int, int], ...], ...]
+    line_offsets: Tuple[Tuple[int, ...], ...]
+    line_lens: Tuple[Tuple[int, ...], ...]
+    n_levels: int
+    n_comp: int
+
+
+class PatchAtlas(NamedTuple):
+    """Planes [Tp, 16C] (p16 rows), lines [Tl, 4C]."""
+    plane_buf: torch.Tensor
+    line_buf: torch.Tensor
+    meta: PatchMeta
+
+
+def pack_vm_patches(field: FieldParams, n_levels: int = 1,
+                    gather_dtype=None) -> PatchAtlas:
+    """p16 patch atlas: row a_u*(W+1)+a_v holds the 16 edge-clamped texels
+    (clip(a_u-1+du), clip(a_v-1+dv)), du,dv in [-1,2], slot-major du*4+dv;
+    each line row holds the 4 texels clip(a-1+dx).  Differentiable; built
+    once per step.  (The JAX package's p4 rows, used from 256^2 planes up,
+    are not ported.)"""
+    pparts, lparts = [], []
+    p_offs, p_shapes, l_offs, l_lens = [], [], [], []
+    poff = loff = 0
+    for i in range(3):
+        offs, shps = [], []
+        for tex in build_pyramid_2d(field['planes'][i], n_levels):
+            h, w, c = tex.shape
+            pad = _edge_pad_2d(tex, 2)
+            slots = [pad[du + 1:du + 2 + h, dv + 1:dv + 2 + w]
+                     for du in (-1, 0, 1, 2) for dv in (-1, 0, 1, 2)]
+            pparts.append(torch.cat(slots, -1).reshape(
+                (h + 1) * (w + 1), 16 * c))
+            offs.append(poff)
+            shps.append((h, w))
+            poff += (h + 1) * (w + 1)
+        p_offs.append(tuple(offs))
+        p_shapes.append(tuple(shps))
+    for i in range(3):
+        offs, lens = [], []
+        for tex in build_pyramid_1d(field['lines'][i], n_levels):
+            l, c = tex.shape
+            pad = _edge_pad_1d(tex, 2)
+            slots = [pad[dx + 1:dx + 2 + l] for dx in (-1, 0, 1, 2)]
+            lparts.append(torch.cat(slots, -1))
+            offs.append(loff)
+            lens.append(l)
+            loff += l + 1
+        l_offs.append(tuple(offs))
+        l_lens.append(tuple(lens))
+    pbuf = torch.cat(pparts, dim=0)
+    lbuf = torch.cat(lparts, dim=0)
+    if gather_dtype is not None:
+        pbuf = pbuf.to(gather_dtype)
+        lbuf = lbuf.to(gather_dtype)
+    meta = PatchMeta(tuple(p_offs), tuple(p_shapes), tuple(l_offs),
+                     tuple(l_lens), n_levels,
+                     int(field['planes'][0].shape[-1]))
+    return PatchAtlas(pbuf, lbuf, meta)
+
+
+class _TakeRowsSmall(torch.autograd.Function):
+    """Row gather whose backward is index_add_ of the cotangent rounded to
+    bfloat16 and summed in float32 — the arithmetic of the JAX package's
+    one-hot-matmul VJP (tensor_field._take_rows_small_bwd), which casts
+    the cotangent to bf16 before its f32-accumulated product."""
+
+    @staticmethod
+    def forward(ctx, buf, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.dtype = buf.shape[0], buf.dtype
+        return torch.index_select(buf, 0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        g = g.to(torch.bfloat16).float()
+        dbuf = torch.zeros((ctx.rows, g.shape[1]), dtype=torch.float32,
+                           device=g.device)
+        dbuf.index_add_(0, idx, g)
+        return dbuf.to(ctx.dtype), None
+
+
+def take_rows_small(buf, idx):
+    """Row gather for small tables (<= SMALL_TABLE_ROWS rows)."""
+    idx = torch.clamp(idx, 0, buf.shape[0] - 1)
+    return _TakeRowsSmall.apply(buf, idx)
+
+
+def vm_patch_gather(atlas: PatchAtlas, xyz01, delta01, level=None):
+    """Gather stencil patches + pack fractions for the stencil head.
+
+    Returns (pp, lp, fr, sigmas): pp[b][i] [N, 16C] plane patches and
+    lp[b][i] [N, 4C] line patches per mip branch b; fr [N, 64] f32 with
+    branch b at lanes 32b+: 0..5 = (fu_i, fv_i), 6..8 = fx_i,
+    9 = branch blend weight, 10..15 = (sigma_u_i, sigma_v_i),
+    16..18 = sigma_x_i.  sigmas[b][i] = (su, sv, sx) python floats when the
+    branch's mip is static (n_levels == 1), else None (the head reads the
+    sigma lanes).  Same layout as the JAX package (tensor_field.py:785-791).
+    """
+    meta = atlas.meta
+    xyz01 = torch.clamp(xyz01.detach(), 0.0, 1.0)
+    n = xyz01.shape[0]
+    if level is not None:
+        level = level.detach()
+    cols = [xyz01[:, 0], xyz01[:, 1], xyz01[:, 2]]
+    d01 = [float(delta01[0]), float(delta01[1]), float(delta01[2])]
+    ones = torch.ones((n,), dtype=torch.float32, device=xyz01.device)
+
+    pp, lp, sigmas, fr_cols = [], [], [], []
+    for l0, mw in _level_branches(meta.n_levels, level, n):
+        static = isinstance(l0, int)
+        sgs, fracs, sig_lanes, p_idx, l_idx, sig_x = [], [], [], [], [], []
+        for i in range(3):
+            a, b = MAT_MODE[i]
+            base, hi, wi, hf, wf = _plane_params(meta, i, l0)
+            ut = cols[a] * hf - 0.5
+            vt = cols[b] * wf - 0.5
+            u0 = torch.floor(ut)
+            v0 = torch.floor(vt)
+            fracs += [ut - u0, vt - v0]
+            sig_lanes += [d01[a] * hf * ones, d01[b] * wf * ones]
+            au = _clip_idx(u0.long() + 1, hi)
+            av = _clip_idx(v0.long() + 1, wi)
+            p_idx.append(base + au * (wi + 1) + av)
+            sgs.append((d01[a] * hf, d01[b] * wf) if static else None)
+        for i in range(3):
+            c = VEC_MODE[i]
+            base, li, lf = _line_params(meta, i, l0)
+            xt = cols[c] * lf - 0.5
+            x0 = torch.floor(xt)
+            fracs.append(xt - x0)
+            sig_x.append(d01[c] * lf * ones)
+            l_idx.append(_clip_idx(x0.long() + 1, li) + base)
+            if static:
+                sgs[i] = sgs[i] + (d01[c] * lf,)
+        pps = [_take(atlas.plane_buf, ix) for ix in p_idx]
+        small = atlas.line_buf.shape[0] <= SMALL_TABLE_ROWS
+        lps = [take_rows_small(atlas.line_buf, ix) if small
+               else _take(atlas.line_buf, ix) for ix in l_idx]
+        wcol = ones if mw is None else mw.float()
+        fr_b = fracs + [wcol] + sig_lanes + sig_x
+        blk = torch.stack(fr_b, dim=1).float()                  # [N, 19]
+        fr_cols.append(F.pad(blk, (0, FRAC_STRIDE - 19)))
+        pp.append(pps)
+        lp.append(lps)
+        sigmas.append(tuple(sgs) if static else None)
+    fr = torch.cat(fr_cols, dim=-1)
+    if fr.shape[-1] < 2 * FRAC_STRIDE:
+        fr = F.pad(fr, (0, 2 * FRAC_STRIDE - fr.shape[-1]))
+    return pp, lp, fr, tuple(sigmas)
+
+
+# ---------------------------------------------------------------------------
+# regularizers
+# ---------------------------------------------------------------------------
+
+def tv_loss_vm(field: FieldParams):
+    """Total-variation regularizer over planes+lines
+    (ref: other_field.py:170-191 applied at fields.py:133-138)."""
+    total = 0.0
+    for p in field['planes']:
+        h, w, c = p.shape
+        dh = torch.sum((p[1:, :, :] - p[:-1, :, :]) ** 2) / ((h - 1) * w * c)
+        dw = torch.sum((p[:, 1:, :] - p[:, :-1, :]) ** 2) / (h * (w - 1) * c)
+        total = total + 2.0 * (dh + dw)
+    for l in field['lines']:
+        ln, c = l.shape
+        total = total + 2.0 * torch.sum((l[1:] - l[:-1]) ** 2) / (
+            (ln - 1) * c)
+    return total
+
+
+def _gaussian_kernel_1d(kernel_size: int, sigma: float) -> np.ndarray:
+    x = np.arange(-(kernel_size // 2), kernel_size // 2 + 1, dtype=np.float64)
+    k = np.exp(-x ** 2 / (2 * sigma ** 2))
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_smooth_loss_vm(field: FieldParams, kernel_size: int = 5,
+                            sigma: float = 0.5):
+    """Squared difference between the grids and their Gaussian blur,
+    borders excluded (ref: fields.py:301-309)."""
+    dev = field['planes'][0].device
+    k1 = torch.as_tensor(_gaussian_kernel_1d(kernel_size, sigma), device=dev)
+    k2 = k1[:, None] * k1[None, :]
+    kk = kernel_size // 2
+    total = 0.0
+    for p in field['planes']:
+        x = p.permute(2, 0, 1)[:, None]                    # [C,1,H,W]
+        blur = F.conv2d(x, k2[None, None], padding=kk)[:, 0].permute(1, 2, 0)
+        total = total + torch.sum(
+            (p[kk:-kk, kk:-kk] - blur[kk:-kk, kk:-kk]) ** 2)
+    for l in field['lines']:
+        x = l.t()[:, None, :]                              # [C,1,L]
+        blur = F.conv1d(x, k1[None, None], padding=kk)[:, 0].t()
+        total = total + torch.sum((l[kk:-kk] - blur[kk:-kk]) ** 2)
+    return total

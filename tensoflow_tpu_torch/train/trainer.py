@@ -1,0 +1,343 @@
+"""Stage-1 (shape) trainer of the port (counterpart of
+tensoflow_tpu/train/trainer.py).
+
+One eager PyTorch step per training iteration: build the envlight mips,
+render the ray batch through the occupancy-grid sampler, the TensoSDF
+stencil head and the split-sum shading, sum the loss terms, backpropagate
+and take one Adam step over three parameter groups (``xyz`` = tensor
+grids, ``env`` = envlight cubemap, ``net`` = everything else) with the
+JAX package's cosine learning-rate factor.  The occupancy grid is
+refreshed every ``occ_update_interval`` steps.
+
+Entry points run on the card: ``ShapeTrainer(cfg)`` means CUDA and raises
+when CUDA is absent; the CPU runs only when the caller passes
+``device='cpu'``.  Random draws come from explicit torch.Generators
+(``init_gen`` on the CPU for the initial parameters, ``gen`` on the
+device for the per-step noise); ``step_noise`` / ``occ_jitter`` are the
+only places the loop draws, so a caller can substitute its own draws.
+
+Not ported yet (see ROADMAP.md): grid upsampling, the alpha mask,
+checkpoints, render_image/validate and the multi-device mesh.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import config as config_mod
+from .. import resolve_device
+from ..data import database as db_mod
+from ..data import rays as rays_mod
+from ..fields import light as light_mod
+from ..fields import shading as shading_mod
+from ..fields import tenso_sdf
+from ..models import shape_renderer as sr
+from ..ops import grid as grid_mod
+from . import losses
+
+# adaptive sample-budget buckets and margin (trainer.py:46-47 of the JAX
+# package)
+BUDGET_BUCKETS = (16, 24, 32, 48, 64, 96, 128)
+BUDGET_MARGIN = 1.5
+
+
+def build_shape_config(cfg: Dict[str, Any], grid_size, n_levels: int
+                       ) -> sr.ShapeRendererConfig:
+    sdf_cfg = tenso_sdf.SDFConfig(
+        grid_size=tuple(int(g) for g in grid_size),
+        n_comp=cfg['sdf_n_comp'], sdf_dim=cfg['sdf_dim'],
+        app_dim=cfg['app_dim'], n_levels=n_levels,
+        sdf_multires=cfg['sdf_multires'],
+        init_radius=float(cfg.get('init_radius', 0.2)),
+        gather_dtype=cfg.get('gather_dtype', 'float32'))
+    shading_cfg = shading_mod.ShadingConfig(
+        app_feats_dim=cfg['app_dim'],
+        has_radiance_field=cfg['has_radiance_field'],
+        radiance_field_step=cfg['radiance_field_step'],
+        env=light_mod.EnvLightConfig(max_res=128))
+    return sr.ShapeRendererConfig(
+        sdf=sdf_cfg, shading=shading_cfg,
+        aabb=tuple(tuple(x) for x in cfg['aabb']),
+        std_act=cfg['std_act'], inv_s_init=cfg['inv_s_init'],
+        freeze_inv_s_step=cfg['freeze_inv_s_step'],
+        anneal_end=cfg['anneal_end'], train_ray_num=cfg['train_ray_num'],
+        use_occ_grid=cfg['use_occ_grid'], occ_grid_reso=cfg['occ_grid_reso'],
+        step_ratio=cfg['step_ratio'], occ_max_samples=cfg['occ_max_samples'],
+        compact_samples_per_ray=cfg.get('compact_samples_per_ray', 64),
+        rgb_loss=cfg['rgb_loss'], apply_occ_loss=cfg['apply_occ_loss'],
+        apply_tv_loss=cfg['apply_tv_loss'],
+        apply_sparse_loss=cfg['apply_sparse_loss'],
+        apply_hessian_loss=cfg['apply_hessian_loss'],
+        apply_gaussian_loss=cfg['apply_gaussian_loss'],
+        gaussian_loss_step=cfg['gaussianLoss_step'],
+        occ_loss_step=cfg['occ_loss_step'],
+        occ_loss_max_pn=cfg['occ_loss_max_pn'],
+        occ_sdf_thresh=cfg['occ_sdf_thresh'],
+        apply_mask_loss=cfg['apply_mask_loss'],
+        has_radiance_field=cfg['has_radiance_field'],
+        radiance_field_step=cfg['radiance_field_step'],
+        isBGWhite=cfg['isBGWhite'])
+
+
+def lr_factor_fn(cfg):
+    """Cosine decay factor (ref: trainer_inv.py:339-343)."""
+    ratio = cfg['lr_decay_target_ratio']
+    iters = cfg['lr_decay_iters']
+
+    def factor(step):
+        return ((math.cos(math.pi * step / iters) + 1.0) * 0.5 * (1 - ratio)
+                + ratio)
+    return factor
+
+
+def param_group_label(path) -> str:
+    """xyz = tensor grids; env = envlight cubemap; net = everything else
+    (ref: trainer_inv.py:111-126)."""
+    if 'field' in path:
+        return 'xyz'
+    if 'envlight' in path:
+        return 'env'
+    return 'net'
+
+
+def named_leaves(tree, path=()):
+    """[(path tuple, tensor)] of a nested dict/list parameter tree."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, path + (i,))]
+    return [(path, tree)]
+
+
+class ScheduledAdam:
+    """Adam (betas 0.9/0.99, eps 1e-8) over the xyz/net/env groups with
+    the cosine factor of lr_factor_fn normalised by its value at the reset
+    step: optimizer step k (from 0) uses base_lr * factor(reset + k) / f0,
+    the count semantics of the JAX package's optax chain
+    (trainer.py:136-160)."""
+
+    def __init__(self, cfg, params, reset_step: int):
+        self.factor = lr_factor_fn(cfg)
+        self.reset_step = reset_step
+        self.f0 = self.factor(reset_step)
+        self.count = 0
+        base = {'xyz': cfg['lr_xyz_init'], 'net': cfg['lr_net_init'],
+                'env': cfg['lr_env_init']}
+        groups = {'xyz': [], 'net': [], 'env': []}
+        for path, t in named_leaves(params):
+            groups[param_group_label(path)].append(t)
+        self.params = [t for g in groups.values() for t in g]
+        self.opt = torch.optim.Adam(
+            [{'params': ts, 'lr': base[k], 'base_lr': base[k]}
+             for k, ts in groups.items() if ts],
+            betas=(0.9, 0.99), eps=1e-8)
+
+    def zero_grad(self):
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self):
+        # every leaf takes a step, as in optax (a leaf without a gradient
+        # decays its moments)
+        for t in self.params:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        scale = self.factor(self.reset_step + self.count) / self.f0
+        for g in self.opt.param_groups:
+            g['lr'] = g['base_lr'] * scale
+        self.opt.step()
+        self.count += 1
+
+
+def _batch_to_device(batch: Dict[str, np.ndarray], device):
+    """The ray batch in one host-to-device copy (each copy waits for the
+    device to run what is queued before it)."""
+    arrs = {k: np.asarray(v, np.float32) for k, v in batch.items()}
+    flat = torch.as_tensor(np.concatenate([a.reshape(-1)
+                                           for a in arrs.values()]),
+                           device=device)
+    parts = torch.split(flat, [a.size for a in arrs.values()])
+    return {k: t.view(a.shape) for (k, a), t in zip(arrs.items(), parts)}
+
+
+class ShapeTrainer:
+    """End-to-end stage-1 training (geometry reconstruction)."""
+
+    def __init__(self, cfg: Dict[str, Any], device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.init_gen = torch.Generator().manual_seed(cfg['random_seed'])
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            cfg['random_seed'])
+        self.n_voxel_list = config_mod.voxel_schedule(cfg)
+        n0 = self.n_voxel_list.pop(0)
+        grid_size = config_mod.n_to_reso(n0, cfg['aabb'])
+        self.rcfg = build_shape_config(cfg, grid_size, cfg['max_levels'])
+        params = sr.init_shape_renderer(self.init_gen, self.rcfg, self.device)
+        self.occ_cfg = grid_mod.OccGridConfig(resolution=cfg['occ_grid_reso'])
+        self.occ_state = grid_mod.init_occ_grid(self.occ_cfg, self.device)
+        self.start_step = 0
+        self.occ_update_interval = 100
+        self._budget_ema = None
+        self.set_params(params)
+
+    def set_params(self, params, reset_step: int = 0):
+        """Install a parameter tree (e.g. convert.params_from_jax) and a
+        fresh optimizer rebased at ``reset_step``."""
+        for _, t in named_leaves(params):
+            t.requires_grad_(True)
+        self.params = params
+        self.opt = ScheduledAdam(self.cfg, params, reset_step)
+
+    # ------------------------------------------------------------------
+    def init_dataset(self):
+        cfg = self.cfg
+        self.database = db_mod.parse_database_name(
+            cfg['database_name'], cfg['dataset_dir'],
+            isWhiteBG=cfg['isBGWhite'])
+        train_ids, test_ids = db_mod.get_database_split(
+            self.database, split_manul=cfg['split_manul'])
+        self.train_ids, self.test_ids = list(train_ids), list(test_ids)
+        info = rays_mod.build_imgs_info(self.database, self.train_ids,
+                                        cfg['apply_mask_loss'])
+        if cfg['nerfDataType']:
+            batch, _, _, _ = rays_mod.construct_ray_batch_nerf(
+                info, cfg['apply_mask_loss'])
+        else:
+            batch, _, _, _ = rays_mod.construct_ray_batch_w2c(
+                info, cfg['apply_mask_loss'])
+        batch = rays_mod.filter_rays_aabb(batch, cfg['aabb'])
+        self.batcher = rays_mod.RayBatcher(batch, cfg['train_ray_num'],
+                                           cfg['random_seed'])
+
+    # ------------------------------------------------------------------
+    # random draws
+    # ------------------------------------------------------------------
+    def step_noise(self, step: int) -> Dict[str, torch.Tensor]:
+        """The training step's draws (sampler jitter, occ-loss scores)."""
+        return sr.draw_noise(self.gen, self.rcfg, self.cfg['train_ray_num'],
+                             self.device)
+
+    def occ_jitter(self, step: int) -> torch.Tensor:
+        """Uniform [R^3, 3] draws jittering the occ-update cell centers."""
+        r = self.occ_cfg.resolution
+        return torch.rand((r ** 3, 3), generator=self.gen,
+                          device=self.device)
+
+    # ------------------------------------------------------------------
+    # one occupancy update / one training step
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def occ_update(self, step: int, prune: bool):
+        occ_cfg = self.occ_cfg
+        centers = grid_mod.occ_grid_cell_centers(occ_cfg, self.device)
+        cell = (occ_cfg.aabb_max - occ_cfg.aabb_min) / occ_cfg.resolution
+        pts = centers + (self.occ_jitter(step) - 0.5) * cell
+        alphas = sr.compute_occ_alpha_chunked(self.params, self.rcfg, pts)
+        # bake the SDF at the unjittered lattice in the same pass: the
+        # occ-loss march reads it instead of the live field
+        sdf = sr.compute_sdf_chunked(self.params, self.rcfg, centers)
+        self.occ_state = grid_mod.update_occ_grid(
+            self.occ_state, occ_cfg, alphas, sdf=sdf, prune=prune)
+
+    def train_step(self, step: int, batch: Dict[str, torch.Tensor],
+                   weights: Dict[str, float], noise, radiance_on: bool,
+                   occ_on: bool) -> Dict[str, torch.Tensor]:
+        """Forward, backward and one Adam step; returns the detached loss
+        terms (``loss`` = their sum), psnr, std and sample_num."""
+        self.opt.zero_grad()
+        p = self.params
+        mips = light_mod.build_mips(p['shading']['envlight'],
+                                    self.rcfg.shading.env)
+        outputs = sr.train_step_outputs(p, self.rcfg, mips, self.occ_state,
+                                        batch, step, noise, radiance_on,
+                                        occ_on)
+        total, terms = losses.total_loss_shape(outputs, weights)
+        total.backward()
+        self.opt.step()
+        aux = {'psnr': outputs['psnr'], 'std': outputs['std'],
+               'sample_num': outputs['sample_num'], **terms, 'loss': total}
+        return {k: v.detach() for k, v in aux.items()}
+
+    # ------------------------------------------------------------------
+    def occ_warmup_steps(self) -> int:
+        return int(self.cfg.get('occ_warmup_steps', 10000))
+
+    def maybe_set_march_stride(self, step: int):
+        """During the occ no-prune warmup the binary grid is fully
+        occupied, so the per-ray budget strides the candidate lattice to
+        cover the whole ray; afterwards the stride returns to 1."""
+        if not self.rcfg.use_occ_grid:
+            return
+        if step < self.occ_warmup_steps():
+            want = max(-(-sr.n_march_candidates(self.rcfg)
+                         // self.rcfg.occ_max_samples), 1)
+        else:
+            want = 1
+        if want != self.rcfg.march_stride:
+            self.rcfg = self.rcfg._replace(march_stride=want)
+
+    def phase_flags(self, step: int):
+        radiance_on = (self.cfg['has_radiance_field']
+                       and step > self.cfg['radiance_field_step'])
+        occ_on = step >= self.cfg['occ_loss_step']
+        return radiance_on, occ_on
+
+    def maybe_adapt_budget(self, step: int, aux):
+        """Right-size the compaction budget to the live occupancy every
+        occ-update interval (EMA of mean valid samples per ray x margin,
+        rounded up to a bucket)."""
+        if not (self.rcfg.use_occ_grid
+                and self.cfg.get('adaptive_sample_budget', True)):
+            return
+        if step % self.occ_update_interval != 0 or 'sample_num' not in aux:
+            return
+        mean = float(aux['sample_num'])
+        self._budget_ema = (mean if self._budget_ema is None
+                            else 0.5 * self._budget_ema + 0.5 * mean)
+        cap = int(self.cfg.get('compact_samples_per_ray', 64))
+        need = self._budget_ema * BUDGET_MARGIN
+        bucket = next((b for b in BUDGET_BUCKETS if b >= need and b <= cap),
+                      cap)
+        if bucket != self.rcfg.compact_samples_per_ray:
+            self.rcfg = self.rcfg._replace(compact_samples_per_ray=bucket)
+
+    def check_schedule(self, step: int):
+        """Raise at a step whose schedule needs a part not ported yet."""
+        if step in (self.cfg.get('upsample_list') or ()) \
+                and self.n_voxel_list:
+            raise NotImplementedError(
+                f'step {step}: grid upsampling is not ported yet')
+
+    # ------------------------------------------------------------------
+    def train(self, n_steps: Optional[int] = None, log_every: int = 100,
+              callback=None):
+        if not hasattr(self, 'batcher'):
+            self.init_dataset()
+        total = n_steps if n_steps is not None else self.cfg['total_step']
+        end_step = min(self.start_step + total, self.cfg['total_step'])
+        logs = []
+        for step in range(self.start_step, end_step):
+            self.check_schedule(step)
+            self.maybe_set_march_stride(step)
+            if self.rcfg.use_occ_grid and step % self.occ_update_interval == 0:
+                self.occ_update(step, prune=step >= self.occ_warmup_steps())
+            batch = _batch_to_device(self.batcher.next_batch(), self.device)
+            weights = losses.schedule_weights(self.cfg, step)
+            radiance_on, occ_on = self.phase_flags(step)
+            aux = self.train_step(step, batch, weights,
+                                  self.step_noise(step), radiance_on, occ_on)
+            if (step + 1) % log_every == 0 or step == self.start_step:
+                vals = torch.stack([v.float() for v in aux.values()])
+                host = dict(zip(aux, vals.tolist()))   # one device read
+                host['step'] = step + 1
+                logs.append(host)
+                if callback:
+                    callback(host)
+            self.maybe_adapt_budget(step, aux)
+        self.start_step = end_step
+        return logs

@@ -1,0 +1,153 @@
+"""Rules of the PyTorch port that no parity test covers.
+
+  * The port and chip_smoke.py import nothing of JAX, optax or the JAX
+    package: checked by AST over every module, and by importing every
+    port module in a fresh interpreter where ``import jax`` fails.
+  * No silent CPU: an entry point without an explicit device means the
+    card and raises where CUDA is absent.
+  * The kernel wrappers take the plain version only for CPU tensors.
+  * A training step copies nothing from the host but its ray batch.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, 'tensoflow_tpu_torch')
+BANNED = ('jax', 'jaxlib', 'optax', 'tensoflow_tpu')
+
+
+def _port_files():
+    files = [os.path.join(ROOT, 'chip_smoke.py')]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith('.py')]
+    return sorted(files)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ''
+
+
+@pytest.mark.parametrize('path', _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_module_imports_no_jax(path):
+    bad = [m for m in _imports(path)
+           if m.split('.')[0] in BANNED]
+    assert not bad, f'{os.path.relpath(path, ROOT)} imports {bad}'
+
+
+def test_port_imports_with_jax_unavailable():
+    mods = sorted(
+        os.path.relpath(p, ROOT)[:-3].replace(os.sep, '.').replace(
+            '.__init__', '')
+        for p in _port_files() if p.startswith(PKG))
+    code = ('import sys\n'
+            "for m in ('jax', 'jaxlib', 'optax', 'tensoflow_tpu'):\n"
+            '    sys.modules[m] = None\n'
+            'import importlib\n'
+            f'for m in {mods!r}:\n'
+            '    importlib.import_module(m)\n'
+            "assert 'jax' not in [k for k, v in sys.modules.items() "
+            'if v is not None]\n'
+            "print('ok', len(" f'{mods!r}' "))\n")
+    res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith('ok')
+
+
+def test_trainer_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a card is present: device=None means the card')
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    cfg = pconfig.load_config(extra={'database_name': 'toy/sphere_16_2'})
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        ShapeTrainer(cfg)
+
+
+def test_stencil_head_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrapper computes the plain version and launches
+    nothing; the kernel path refuses anything but CUDA tensors."""
+    from tensoflow_tpu_torch.ops import stencil as st
+    st.reset_launches()
+    n, C, E, H, O = 8, 2, 5, 32, 3
+    g = torch.Generator().manual_seed(0)
+    pp = [torch.randn(n, 16 * C, generator=g) for _ in range(3)]
+    lp = [torch.randn(n, 4 * C, generator=g) for _ in range(3)]
+    fr = torch.rand(n, 64, generator=g)
+    fr[:, 9] = 1.0
+    sig = (((1.0, 1.0, 1.0),) * 3,)
+    pe = torch.randn(n, E, generator=g)
+    rot = torch.randn(7, 4, E, generator=g)
+    w0 = [torch.randn(k, H, generator=g) for k in (C, C, C, E)]
+    b0, w1, b1 = (torch.randn(H, generator=g), torch.randn(H, O, generator=g),
+                  torch.randn(O, generator=g))
+    out = st.stencil_head(pp, lp, fr, sig, pe, rot, w0, b0, w1, b1)
+    ref = st.stencil_head_plain(pp, lp, fr, sig, pe, rot, w0, b0, w1, b1)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert st.LAUNCHES == {'stencil_head_fwd': 0, 'stencil_head_bwd': 0}
+    with pytest.raises(ValueError, match='on the card'):
+        st._check_cuda(pp, 'stencil_head_fwd')
+    st._check_shapes(7, 1, C, n, E, H, O, pp, lp, fr, rot, w0, b0)
+    with pytest.raises(ValueError, match='inconsistent shapes'):
+        st._check_shapes(7, 1, C, n, E, H, O, pp, [l[:, :-1] for l in lp],
+                         fr, rot, w0, b0)
+
+
+def test_training_step_copies_only_the_batch_to_the_device():
+    """Every host-to-device copy makes PyTorch wait for the device's
+    queue, so a step takes its constants from device_constant and copies
+    only the ray batch.  Counted on the CPU as the tensors the port builds
+    from host data during a step (after a first step has filled the
+    constant cache)."""
+    from torch.overrides import TorchFunctionMode
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    cfg = pconfig.load_config(
+        os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml'),
+        overrides=['database_name=toy/sphere_16_2', 'sdf_n_comp=2',
+                   'sdf_dim=16', 'app_dim=8', 'N_voxel_init=4096',
+                   'N_voxel_final=4096', 'occ_grid_reso=8',
+                   'train_ray_num=16', 'occ_max_samples=16',
+                   'occ_loss_max_pn=16', 'upsample_list=null',
+                   'compact_samples_per_ray=8'])
+    trainer = ShapeTrainer(cfg, device='cpu')
+    trainer.train(n_steps=1, log_every=1)
+    made = []
+
+    class FromHost(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.tensor, torch.as_tensor) \
+                    and not isinstance(args[0], torch.Tensor):
+                made.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with FromHost():
+        trainer.train(n_steps=1, log_every=1)
+    assert made == ['as_tensor'], made
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_the_card():
+    """Kernel fwd + bwd against the plain version on the card (the
+    checks chip_smoke.py makes), at a small N."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (run: python3 chip_smoke.py)')
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    for cd in (torch.bfloat16, torch.float32):
+        chip_smoke.check_case('S=7 B=1', 4096, 7, 1, cd, seed=1)
+        chip_smoke.check_case('S=7 B=2', 4096, 7, 2, cd, seed=2)
+        chip_smoke.check_case('S=1 B=1', 4096, 1, 1, cd, seed=3)
+        chip_smoke.check_case('S=7 B=1 ragged', 1003, 7, 1, cd, seed=6)
