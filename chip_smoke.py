@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py            # needs one CUDA card
 
-Phases (any failure exits nonzero; no phase's failure is caught):
+Phases (any failure exits nonzero; no phase's failure is caught; the
+two training phases run before the kernel phases, and their profiled
+steps last, because a profiler session slows every later launch of the
+process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
                (one nvcc per source, started together) and print the seconds.
   2. kernels — hold the stencil-head fwd and bwd kernels to their plain
@@ -23,6 +26,28 @@ Phases (any failure exits nonzero; no phase's failure is caught):
                and one fwd + one bwd kernel launch per step; then 10 more
                steps for the step time and one profiled step (device time
                by kernel, launches, host operators, idle share).
+  4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
+               their plain versions at every shape of the gather probes
+               (exact equality), timed beside the byte bound and
+               torch.index_select / torch.gather; then the microbench entry
+               point tensoflow_tpu_torch.bench.microbench_r3 in-process,
+               with the launch counts reset just before.
+  5. stage 2 — small: one stage-2 step of a small float32 configuration
+               on the card against the same step on the CPU (same
+               parameters, grid, batch and noise), loss terms compared;
+               and sphere_trace_budget on 1.77 M rays against the
+               two-lobe analytic grid at 256^3, beside the unbudgeted
+               trace.  Full width: a ShapeTrainer at the compressor_occ
+               widths on toy/blobs_128_12 trains in rounds of 8 steps
+               until a probe trace of its SDF keeps surface hits, and
+               saves a checkpoint under build/; MaterialTrainer at the
+               widths of
+               configs/mat/syn/compressor.yaml (512 + 256 analytic and
+               64 + 32 flow samples, 512^3 field grids, 256^3 bake, 2048
+               rays, bf16 estimator) runs init_dataset and 12 steps across
+               its three phases (no NIS, NIS loss, NIS sampling); then
+               one profiled step.  The cuts are the database and the NIS
+               schedule, both printed.
 Then it prints the card's name and power limit, one JSON line listing
 every hand-written kernel, and as the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
@@ -55,6 +80,19 @@ TPU_KERNELS = {
     'stencil_head_fwd': 'tensoflow_tpu/ops/pallas_stencil.py:274',
     'stencil_head_bwd': 'tensoflow_tpu/ops/pallas_stencil.py:368',
 }
+# the gather probes: wrapper -> (source, probe it replaces, the case of
+# microbench_r3.gather_cases whose numbers go into the kernels line)
+GATHER_KERNELS = {
+    'row_gather_tile': ('scripts/microbench_r3.py:68',
+                        'row_gather_tile lanes=1280'),
+    'row_gather_grid': ('scripts/microbench_r3.py:98',
+                        'row_gather_grid 512x[256,1280]'),
+    'lane_gather_tile': ('scripts/microbench_r3.py:126',
+                         'lane_gather_tile lanes=512'),
+    'row_gather_tile_bf16': ('scripts/microbench_r3.py:155',
+                             'row_gather_tile_bf16 lanes=1280'),
+}
+SOURCES = ('stencil_head_fwd', 'stencil_head_bwd', 'tile_gather')
 
 
 def card_line() -> str:
@@ -395,7 +433,7 @@ def check_slice_small(steps=2):
           f'{[round(r["loss"], 6) for r in logs["cpu"]]}', flush=True)
 
 
-def profile_step(trainer, card, step_ms, top=12):
+def profile_step(trainer, card, step_ms, top=12, tag='slice'):
     """One more training step under torch.profiler: device time by
     kernel, kernel launches, the host's busiest operators, and the
     device's idle share of an unprofiled step (step_ms)."""
@@ -420,16 +458,16 @@ def profile_step(trainer, card, step_ms, top=12):
     rows.sort(reverse=True)
     host.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f'[slice] profiled step on {card}: wall {wall_ms:.1f} ms '
+    print(f'[{tag}] profiled step on {card}: wall {wall_ms:.1f} ms '
           f'(unprofiled {step_ms:.1f} ms), device kernels {busy_ms:.1f} ms '
           f'in {sum(r[1] for r in rows)} launches, idle share of the '
           f'unprofiled step {max(0.0, 1 - busy_ms / step_ms):.2f}',
           flush=True)
     for dev_us, count, key in rows[:top]:
-        print(f'[slice]   device {dev_us / 1e3:8.3f} ms  x{count:<4d} '
+        print(f'[{tag}]   device {dev_us / 1e3:8.3f} ms  x{count:<4d} '
               f'{key[:80]}')
     for cpu_us, count, key in host[:top // 2]:
-        print(f'[slice]   host   {cpu_us / 1e3:8.3f} ms  x{count:<4d} '
+        print(f'[{tag}]   host   {cpu_us / 1e3:8.3f} ms  x{count:<4d} '
               f'{key[:80]}')
 
 
@@ -477,8 +515,386 @@ def phase_slice(card, steps=5, timed_steps=10):
     step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
     print(f'[slice] {timed_steps} more steps on {card}: {step_ms:.1f} '
           f'ms/step = {rays / (step_ms / 1e3):.0f} rays/s', flush=True)
-    profile_step(trainer, card, step_ms)
-    return launches
+    return launches, trainer, step_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the tile-gather probes
+# ---------------------------------------------------------------------------
+
+def phase_probes(card):
+    """Each gather kernel against its plain version at every probe shape
+    (exact equality: a gather copies bits), its device time, the plain
+    version's and the one-call library version's time, and the byte bound
+    (table + indices read once, output written once); then the microbench
+    entry point, whose launches are the ones counted."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from tensoflow_tpu_torch.bench import microbench_r3
+    from tensoflow_tpu_torch.ops import tile_gather as tg
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    rows = {}
+    for case in microbench_r3.gather_cases():
+        name, fn, plain = case[:3]
+        table, idx = microbench_r3.make_case(case, rng, dev)
+        lane = name.startswith('lane_gather')
+        idx64 = idx.long() if lane else idx.reshape(-1).long()
+
+        def library():
+            return (torch.gather(table, 1, idx64) if lane
+                    else torch.index_select(table, 0, idx64))
+        got = fn(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain(table, idx)):
+            raise AssertionError(f'{name}: kernel differs from its plain '
+                                 'version')
+        if not torch.equal(got, library()):
+            raise AssertionError(f'{name}: plain version differs from the '
+                                 'library call')
+        nbytes = (table.numel() * table.element_size() + idx.numel() * 4
+                  + got.numel() * got.element_size())
+        del got
+        iters = 5 if 'grid' in name else 20
+        t = {}
+        for which, f in (('plain', lambda: plain(table, idx)),
+                         ('kernel', lambda: fn(table, idx)),
+                         ('library', library),
+                         ('kernel', lambda: fn(table, idx)),
+                         ('plain', lambda: plain(table, idx))):
+            ms = cuda_ms(f, iters=iters)
+            t[which] = min(t.get(which, ms), ms)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn(table, idx)
+            torch.cuda.synchronize()
+        dev_ms = _device_ms(prof, ['row_gather_kernel', 'lane_gather_kernel'],
+                            iters)
+        k_ms = dev_ms if dev_ms > 0 else t['kernel']
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f'[probes] {name}: exact; kernel {k_ms:.4f} ms (wrapper '
+              f'{t["kernel"]:.4f}), plain {t["plain"]:.4f} ms, library '
+              f'{t["library"]:.4f} ms, bound {bound:.5f} ms '
+              f'({nbytes / 1e6:.2f} MB) on {card}', flush=True)
+        rows[name] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=t['plain'],
+                          bound_ms=bound, bound_by='bytes',
+                          library_ms=t['library'])
+        del table, idx, idx64
+    # the entry point a user would call; its launches are the counted ones
+    tg.reset_launches()
+    microbench_r3.main([])
+    launches = dict(tg.LAUNCHES)
+    print(f'[probes] microbench_r3 launches {launches}', flush=True)
+    return ({k: rows[case] for k, (_, case) in GATHER_KERNELS.items()},
+            launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the stage-2 (material / NIS) slice
+# ---------------------------------------------------------------------------
+
+MAT_YAML = 'configs/mat/syn/compressor.yaml'
+SMALL_SHADER = {
+    'diffuse_sample_num': 32, 'specular_sample_num': 16,
+    'nis_diffuse_sample_num': 8, 'nis_specular_sample_num': 8,
+    'nis_start_iter': 1, 'nis_loss_iter': 0, 'nis_update_interval': 5,
+    'grid_size': (32, 32, 32), 'light_reso': 16, 'mat_n_comp': 4,
+    'estimator_dtype': 'f32'}
+# the NIS schedule of the full-width run, cut to single digits so that 12
+# steps cross the three phases (published: 500 / 1000 / 1000)
+NIS_CUT = {'nis_loss_iter': 4, 'nis_start_iter': 8, 'nis_update_interval': 4}
+LOBE_CENTERS = ((-0.3, 0.0, 0.0), (0.3, 0.0, 0.0))
+LOBE_RADIUS = 0.45
+
+
+def _root():
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _mat_cfg(extra):
+    from tensoflow_tpu_torch import config as config_mod
+    return config_mod.load_config(os.path.join(_root(), MAT_YAML),
+                                  extra=extra)
+
+
+def check_stage2_small():
+    """One stage-2 training step in its last phase (NIS loss + sampling
+    from frozen flow copies) on the card against the same step on the CPU
+    at a small float32 configuration: same initial parameters (both
+    trainers seed the same CPU generator), the same baked grid and hit
+    batch (made on the CPU and copied) and the same noise (drawn on the
+    CPU and copied).  Loss terms and psnr agree to rtol 1e-4 at the first
+    step (float32 sums of Monte-Carlo samples in another order) and 2e-2
+    at the second: Adam's first update is sign(g) * lr, so tiny gradients
+    may step either way, and the estimator's few samples with a small pdf
+    carry that into the colours."""
+    from tensoflow_tpu_torch.data import rays as rays_mod
+    from tensoflow_tpu_torch.fields import mc_shading
+    from tensoflow_tpu_torch.ops.sdf_trace import PackedSDFGrid
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
+
+    class CpuDraws(MaterialTrainer):
+        def step_noise(self, step, phase):
+            noise = mc_shading.draw_shade_noise(
+                self.cpu_gen, self.rcfg.shader, self.cfg['train_ray_num'],
+                phase, 'cpu')
+            return {k: v.to(self.device) for k, v in noise.items()}
+
+    geo = os.path.join(_root(), 'build', 'smoke_geo_small.pt')
+    ShapeTrainer(_load_cfg(SMALL_OVERRIDES + ['init_radius=0.5']),
+                 device='cpu').save(geo)
+    cfg = _mat_cfg({'database_name': 'toy/sphere_32_4', 'train_ray_num': 64,
+                    'bake_resolution': 32, 'shader_cfg': SMALL_SHADER})
+    ref = CpuDraws(cfg, geo, device='cpu')
+    ref.init_dataset()
+    card = CpuDraws(cfg, geo, device='cuda')
+    g = ref.grid
+    card.grid = PackedSDFGrid(
+        g.mid_rows.cuda(), g.blocks.cuda(), g.coarse_rows.cuda(),
+        g.aabb.cuda(), g.reso, g.vis_rows.cuda(), g.vis_pad)
+    logs, hits = {}, dict(ref.batcher.batch)
+    for name, tr in (('cuda', card), ('cpu', ref)):
+        tr.cpu_gen = torch.Generator().manual_seed(cfg['random_seed'])
+        tr.batcher = rays_mod.RayBatcher(dict(hits), cfg['train_ray_num'],
+                                         cfg['random_seed'])
+        logs[name] = tr.train(n_steps=2, log_every=1)
+    _check_finite(logs['cuda'])
+    assert card.phase(1).nis_sample_diffuse and card.phase(1).nis_loss_diffuse
+    worst, bad = 0.0, []
+    for i, (gl, cl) in enumerate(zip(logs['cuda'], logs['cpu'])):
+        rtol = 1e-4 if i == 0 else 2e-2
+        for k, v in cl.items():
+            err = abs(gl[k] - v)
+            if k.startswith('secondary_'):
+                tol = 5e-3              # a rate: a few rays of thousands
+            elif k == 'variance':
+                # a diagnostic, not a loss term: the variance of f / pdf
+                # over all samples, carried by the few samples whose pdf
+                # is small
+                tol = 10 * rtol * abs(v)
+            else:
+                tol = rtol * abs(v) + 1e-6
+                if abs(v) > 1e-6:
+                    worst = max(worst, err / abs(v))
+            if err > tol:
+                bad.append(f'step {i} {k}: card {gl[k]!r} vs CPU {v!r}')
+    if bad:
+        raise AssertionError('small stage-2 step: ' + '; '.join(bad)
+                             + f'; card {logs["cuda"]}; cpu {logs["cpu"]}')
+    print(f'[stage2] small float32 config ({ref.tbn} hits kept): 2 steps '
+          f'on the card match the CPU (worst term rel err {worst:.2e}, tol '
+          f'1e-4 then 2e-2); card {json.dumps({k: round(v, 6) for k, v in logs["cuda"][-1].items()})}',
+          flush=True)
+
+
+def check_budget_trace(card, pn=2048, sn=864):
+    """sphere_trace_budget at the full-width ray count (pn x sn = 1.77 M
+    rays) on the two-lobe analytic grid at 256^3 (a union of two spheres:
+    self-occluding, with a concave crease), launched as get_lights
+    launches its rays, beside the unbudgeted sphere_trace_packed."""
+    from tensoflow_tpu_torch.ops import sdf_trace as st
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(0)
+    res, unit = 256, 2.0 / 511.0
+    centers = torch.tensor(LOBE_CENTERS, device=dev)
+
+    def sdf(p):
+        return (torch.linalg.norm(p[..., None, :] - centers, dim=-1)
+                - LOBE_RADIUS).min(-1).values
+    xs = torch.linspace(-1, 1, res, device=dev)
+    vals = sdf(torch.stack(torch.meshgrid(xs, xs, xs, indexing='ij'), -1))
+    aabb = torch.tensor([[-1.0] * 3, [1.0] * 3], device=dev)
+    t0 = time.perf_counter()
+    pg = st.bake_vis_cache(st.pack_sdf_grid(st.SDFGrid(vals, aabb)),
+                           apex_pad=2.0 * unit)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    # surface points with analytic normals on both lobes, outside the
+    # other lobe; hemisphere directions about the normal
+    n = torch.randn((4 * pn, 3), generator=g, device=dev)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    lobe = centers[torch.randint(0, 2, (4 * pn,), generator=g, device=dev)]
+    pts = lobe + n * LOBE_RADIUS
+    keep = torch.nonzero(sdf(pts) > -1e-3)[:pn, 0]
+    pts, n = pts[keep], n[keep]
+    d = torch.randn((pn, sn, 3), generator=g, device=dev)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    d = torch.where(torch.sum(d * n[:, None], -1, keepdim=True) < 0, -d, d)
+    m_cell = 2.0 / (res // 2 - 1)
+    nrm = n[:, None, :].expand(pn, sn, 3).reshape(-1, 3)
+    d = d.reshape(-1, 3)
+    o = pts[:, None, :].expand(pn, sn, 3).reshape(-1, 3) \
+        + 2.0 * unit * d + 1.5 * m_cell * nrm
+    h0 = torch.sum(d * nrm, -1)
+    n_rays = o.shape[0]
+    from tensoflow_tpu_torch.train import trainer_mat as tm
+    budget_frac = 0.375
+
+    def budget():
+        return st.sphere_trace_budget(
+            pg, o, d, st.budget_slots(n_rays, budget_frac), h0=h0,
+            a1_budget=0.625)
+    res_b = budget()
+    first_rate = float(res_b.cand.float().mean())
+    if first_rate * tm.SEC_BUDGET_MARGIN > budget_frac:
+        # re-bucket as MaterialTrainer._adapt_secondary_budget does
+        budget_frac = next((b for b in tm.SEC_BUDGET_BUCKETS
+                            if b >= first_rate * tm.SEC_BUDGET_MARGIN),
+                           tm.SEC_BUDGET_BUCKETS[-1])
+        res_b = budget()
+    m = st.budget_slots(n_rays, budget_frac)
+    full_hit = st.sphere_trace_packed(pg, o, d)[3]
+    torch.cuda.synchronize()
+    b_ms = cuda_ms(budget, iters=3, warmup=1)
+    f_ms = cuda_ms(lambda: st.sphere_trace_packed(pg, o, d), iters=3,
+                   warmup=1)
+    live = res_b.hit_m & res_b.slot_mask
+    hit = torch.zeros_like(full_hit)
+    hit[res_b.src[live]] = True
+    agree = float((hit == full_hit).float().mean())
+    dropped = int((res_b.cand & (res_b.dest >= m)).sum())
+    stats = dict(rays=n_rays, budget=budget_frac,
+                 cand_rate=float(res_b.cand.float().mean()),
+                 hit_rate=float(live.float().sum()) / n_rays,
+                 a1_rate=float(res_b.a1_need.float().mean()),
+                 full_hit_rate=float(full_hit.float().mean()),
+                 hit_agreement=agree, dropped_candidates=dropped)
+    print(f'[stage2] budgeted trace on the two-lobe grid at 256^3 on {card}: '
+          f'{json.dumps({k: round(v, 5) for k, v in stats.items()})}; '
+          f'budgeted {b_ms:.1f} ms, unbudgeted {f_ms:.1f} ms, cache bake '
+          f'{bake_s:.1f} s', flush=True)
+    if not (agree > 0.98 and 0.0 < stats['hit_rate'] < stats['cand_rate']
+            and (dropped == 0 or budget_frac == tm.SEC_BUDGET_BUCKETS[-1])):
+        raise AssertionError(f'budgeted trace disagrees with the unbudgeted '
+                             f'one: {stats}')
+
+
+def _probe_kept_share(shape, mat_cfg, n=65536):
+    """Share of the stage-1 trainer's first n training rays that hit the
+    surface of its current SDF, baked at 128^3 (a quick probe of what
+    MaterialTrainer.init_dataset will keep)."""
+    from tensoflow_tpu_torch.models import material_renderer as mr
+    from tensoflow_tpu_torch.ops import sdf_trace
+    from tensoflow_tpu_torch.train.trainer_mat import build_material_config
+    sdf = shape.rcfg.sdf
+    rcfg = build_material_config(mat_cfg, {
+        'grid_size': list(sdf.grid_size), 'n_levels': sdf.n_levels,
+        'sdf_n_comp': sdf.n_comp, 'sdf_dim': sdf.sdf_dim,
+        'app_dim': sdf.app_dim, 'sdf_multires': sdf.sdf_multires,
+        'aabb': [list(a) for a in shape.rcfg.aabb]})
+    geo = {'sdf': shape.params['sdf'], 'deviation': shape.params['deviation']}
+    dev = shape.device
+    with torch.no_grad():
+        dense = sdf_trace.bake_sdf_grid(mr.sdf_fun_of(geo, rcfg, dev),
+                                        rcfg.aabb, 128, device=dev)
+        o = torch.as_tensor(shape.batcher.batch['rays_o'][:n], device=dev)
+        d = torch.as_tensor(shape.batcher.batch['dirs'][:n], device=dev)
+        hit = mr.trace_surface(geo, rcfg, sdf_trace.pack_sdf_grid(dense),
+                               o, d)[3]
+    return float(hit.float().mean())
+
+
+def phase_stage2(card, steps=12):
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
+    check_stage2_small()
+    check_budget_trace(card)
+
+    # stage 1 at the compressor_occ widths on the self-occluding toy
+    # scene, trained in rounds of 8 steps until a probe trace of its baked
+    # SDF keeps enough surface hits (the untrained field has no surface
+    # inside the aabb); then the checkpoint
+    geo = os.path.join(_root(), 'build', 'smoke_geo.pt')
+    cfg = _mat_cfg({'database_name': 'toy/blobs_128_12',
+                    'shader_cfg': dict(NIS_CUT)})
+    rays = cfg['train_ray_num']
+    t0 = time.perf_counter()
+    shape = ShapeTrainer(_load_cfg(['database_name=toy/blobs_128_12',
+                                    'gather_dtype=bfloat16']))
+    shape.init_dataset()
+    geo_steps, share = 0, 0.0
+    while share * shape.batcher.n < 4 * rays:
+        if geo_steps >= 64:
+            raise AssertionError(f'no traceable surface after {geo_steps} '
+                                 f'stage-1 steps (kept share {share:.4f})')
+        _check_finite(shape.train(n_steps=8, log_every=8))
+        geo_steps += 8
+        share = _probe_kept_share(shape, cfg)
+        print(f'[stage2] stage 1 after {geo_steps} steps: a probe trace '
+              f'keeps {share:.4f} of 65,536 training rays', flush=True)
+    shape.save(geo)
+    del shape
+    torch.cuda.empty_cache()
+    print(f'[stage2] cuts: database toy/blobs_128_12 with a stage-1 '
+          f'checkpoint of {geo_steps} steps (the published scene and its '
+          f'checkpoint are not in the repository); NIS schedule {NIS_CUT} '
+          f'(published 500 / 1000 / 1000); stage-1 part '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    st.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = MaterialTrainer(cfg, geo)          # device=None: the card
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.init_dataset()
+    torch.cuda.synchronize()
+    scfg = trainer.rcfg.shader
+    print(f'[stage2] widths: {rays} rays, {scfg.diffuse_sample_num} + '
+          f'{scfg.specular_sample_num} analytic and '
+          f'{scfg.nis_diffuse_sample_num} + {scfg.nis_specular_sample_num} '
+          f'flow samples, field grids {scfg.grid_size}, mat_n_comp '
+          f'{scfg.mat_n_comp}, light_reso {scfg.light_reso}, bake '
+          f'{trainer.rcfg.bake_resolution}^3, estimator '
+          f'{scfg.estimator_dtype}; bake {bake_s:.1f} s, hit filtering '
+          f'{time.perf_counter() - t0:.1f} s, kept {trainer.tbn} hits = '
+          f'{trainer.kept_share:.3f} of the training rays', flush=True)
+    if trainer.tbn < rays:
+        raise AssertionError(f'only {trainer.tbn} surface hits for batches '
+                             f'of {rays}')
+    logs, ms, names = [], {}, {}
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs += trainer.train(n_steps=1, log_every=1)
+        torch.cuda.synchronize()
+        ph = trainer.phase(step)
+        name = ('NIS sampling' if ph.nis_sample_diffuse else
+                'NIS loss' if ph.nis_loss_diffuse else 'no NIS')
+        names.setdefault(name, step)
+        if names[name] != step:       # a phase's first step warms up
+            ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+    _check_finite(logs)
+    if list(names) != ['no NIS', 'NIS loss', 'NIS sampling']:
+        raise AssertionError(f'phases crossed: {list(names)}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[stage2] every loss term of the {steps} steps is finite; loss '
+          'per step: ' + ', '.join(f'{r["loss"]:.6f}' for r in logs),
+          flush=True)
+    print('[stage2] last step terms: ' + json.dumps(
+        {k: round(v, 6) for k, v in logs[-1].items()}), flush=True)
+    for name, v in ms.items():
+        mean = sum(v) / len(v)
+        dn = scfg.diffuse_sample_num + (
+            scfg.nis_diffuse_sample_num if name == 'NIS sampling' else 0)
+        sn = (scfg.nis_specular_sample_num if name == 'NIS sampling'
+              else scfg.specular_sample_num)
+        print(f'[stage2] phase "{name}" (from step {names[name]}): '
+              f'{mean:.1f} ms/step over {len(v)} steps = '
+              f'{rays / (mean / 1e3):.0f} rays/s, {rays * (dn + sn)} '
+              f'secondary rays a step, on {card}', flush=True)
+    print(f'[stage2] trace rates at the last step: candidates '
+          f'{logs[-1]["secondary_cand_rate"]:.4f}, hits '
+          f'{logs[-1]["secondary_hit_rate"]:.4f}, a1 '
+          f'{logs[-1]["secondary_a1_rate"]:.4f}; peak device memory '
+          f'{peak:.2f} GiB; stencil launches on this path '
+          f'{dict(st.LAUNCHES)}', flush=True)
+    last = ms['NIS sampling']
+    return trainer, sum(last) / len(last)
 
 
 def main():
@@ -489,10 +905,10 @@ def main():
     from tensoflow_tpu_torch.ops import cuda_build
     card = card_line()
     t0 = time.perf_counter()
-    cuda_build.build(list(TPU_KERNELS))
+    cuda_build.build(SOURCES)
     print(f'[build] kernels built in {time.perf_counter() - t0:.1f} s',
           flush=True)
-    for name in TPU_KERNELS:
+    for name in SOURCES:
         log = os.path.join(cuda_build.BUILD_DIR, name + '.log')
         if not os.path.exists(log):      # built by an earlier run
             continue
@@ -500,14 +916,31 @@ def main():
             for line in f:
                 if 'registers' in line or 'spill' in line:
                     print(f'[build] {name}: {line.strip()}')
+    # the training phases come first and their profiled steps last: once a
+    # torch.profiler session has run in a process, every later kernel
+    # launch of that process costs the host several microseconds more
+    # (measured: the same stage-2 steps took 77 / 130 / 123 ms before and
+    # 112 / 168 / 168 ms after a session), which would inflate the step
+    # times of these host-bound steps
+    launches, shape_trainer, shape_ms = phase_slice(card)
+    mat_trainer, mat_ms = phase_stage2(card)
     kinds = phase_kernels(card)
-    launches = phase_slice(card)
+    gather_kinds, gather_launches = phase_probes(card)
+    profile_step(shape_trainer, card, shape_ms)
+    profile_step(mat_trainer, card, mat_ms, tag='stage2')
+    for k, n in gather_launches.items():
+        if n <= 0:
+            raise AssertionError(f'{k} was not launched by microbench_r3')
     print(card)
     print(json.dumps({'kernels': [
         {'name': k, 'route': 'cuda',
          'source': f'tensoflow_tpu_torch/csrc/{k}.cu',
          'replaces': TPU_KERNELS[k], 'launches': launches[k],
-         'library_ms': None, **kinds[k]} for k in TPU_KERNELS]}))
+         'library_ms': None, **kinds[k]} for k in TPU_KERNELS] + [
+        {'name': k, 'route': 'cuda',
+         'source': 'tensoflow_tpu_torch/csrc/tile_gather.cu',
+         'replaces': GATHER_KERNELS[k][0], 'launches': gather_launches[k],
+         **gather_kinds[k]} for k in GATHER_KERNELS]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

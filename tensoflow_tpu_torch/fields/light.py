@@ -70,3 +70,12 @@ def shade(mips, dirs, roughness=None,
             mips['spec_packed'], mips['spec_offsets'], mips['spec_res'],
             dirs, level)
     return torch.exp(light)
+
+
+def direct_light(params, dirs):
+    """Unfiltered base-cubemap lookup for the MC shader (ref:
+    light.py:125-162): packs the base into patch rows per call, a few MB
+    of slicing beside the shader's millions of lookups."""
+    pbuf = cm.pack_cubemap_patches(params['base'])
+    return torch.exp(cm.sample_cubemap_packed(pbuf, params['base'].shape[1],
+                                              dirs))

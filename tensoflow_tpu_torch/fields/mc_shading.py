@@ -1,0 +1,626 @@
+"""Stage-2 Monte-Carlo PBR shader with neural importance sampling
+(counterpart of tensoflow_tpu/fields/mc_shading.py).
+
+Per surface point, the rendering integral is estimated with
+cosine-hemisphere diffuse samples + GGX specular samples, optionally mixed
+with samples drawn from frozen copies of the conditional normalizing
+flows; secondary-ray radiance = sphere-traced visibility (baked SDF grid)
+selecting between an inner-light MLP (hit) and the trainable environment
+cubemap (miss).  Dense ``[points, samples]`` layout with an NoL>0 mask.
+
+Ported: ``shade_fn='shade_mixed'`` with the 'envlight' outer light.
+``shade_mixed_all``, the 'direction'/'sphere_direction' lights and
+``human_lights`` raise NotImplementedError (see ROADMAP.md).
+
+Random draws: ``draw_shade_noise`` makes the step's four draws from a
+torch.Generator; ``shade_mixed``/``mc_forward`` take them ready-made as
+``noise`` (the parity tests hand in jax.random's numbers).  The secondary
+trace runs under torch.no_grad(): it is non-differentiable in the
+reference too, and ~30 taps on 1.8M rays would otherwise keep their
+inputs for a backward pass that never uses them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import device_constant
+from ..ops import sdf_trace, tensor_field as tfield
+from ..ops.brdf import (distribution_ggx, fresnel_schlick,
+                        geometry as brdf_geometry)
+from ..ops.grid import compact_indices, compact_take, scatter_back
+from ..ops.math import (contraction, ide_dim, integrated_dir_encoding,
+                        linear_to_srgb, pe_dim, positional_encoding,
+                        safe_normalize, saturate_dot)
+from ..ops.samplers import (direction_table, direction_to_angle,
+                            half_angles_to_directions,
+                            sample_diffuse_directions,
+                            sample_specular_directions)
+from . import flow as flow_mod
+from . import light as light_mod
+from . import mlp
+
+EPS = 1e-6
+
+
+class MCShadingConfig(NamedTuple):
+    """(ref: fields.py:619-667 default_cfg)"""
+    diffuse_sample_num: int = 512
+    specular_sample_num: int = 256
+    light_exp_max: float = 5.0
+    inner_light_exp_max: float = 5.0
+    outer_light_version: str = 'envlight'
+    geometry_type: str = 'schlick'
+    shade_fn: str = 'shade_mixed'
+    reg_min_max: bool = True
+    random_azimuth: bool = True
+    human_lights: bool = False
+
+    # NIS
+    use_nis_all: bool = False
+    use_nis_diffuse: bool = True
+    use_nis_specular: bool = True
+    grid_size: Tuple[int, int, int] = (512, 512, 512)
+    nis_sample_num: int = 64
+    nis_diffuse_sample_num: int = 64
+    nis_specular_sample_num: int = 32
+    nis_start_iter: int = 1000
+    nis_loss_iter: int = 500
+    nis_update_interval: int = 1000
+    use_half_diffuse: bool = True
+    use_half_specular: bool = True
+    use_half_all: bool = True
+    light_reso: int = 128
+    flow_type: str = 'pwquad'
+    disable_tensorial: bool = False
+    disable_reflected: bool = False
+    # fraction of secondary rays budgeted for the inner-light MLP; hits
+    # are compacted to this budget, overflow falls back to the outer light
+    # (0 or >= 1: dense, no compaction)
+    inner_light_budget: float = 0.5
+    # fraction of secondary rays budgeted for full-fidelity trace
+    # refinement (ops/sdf_trace.sphere_trace_budget); 0 or >= 1 traces
+    # every ray at full fidelity.  The trainer adapts it.
+    secondary_budget: float = 0.375
+    # fraction of secondary rays budgeted for the coarse march when the
+    # packed grid carries a visibility cache; 0 or >= 1: dense march.
+    a1_budget: float = 0.625
+
+    # material field
+    mat_n_comp: int = 36
+    mat_n_levels: int = 3
+
+    # dtype of the wide [pn, sn, 3] estimator chains (BRDF weights, light
+    # mixing): 'bf16' halves their traffic; every reduction over the
+    # samples axis accumulates in float32, and the flow chains, the trace
+    # and direction sampling stay float32.
+    estimator_dtype: str = 'bf16'           # 'f32' | 'bf16'
+
+    @property
+    def mat_feature_dim(self) -> int:
+        return self.mat_n_comp * 3
+
+    @property
+    def flow(self) -> flow_mod.FlowConfig:
+        return flow_mod.FlowConfig(
+            grid_size=self.grid_size, flow_type=self.flow_type,
+            disable_tensorial=self.disable_tensorial,
+            disable_reflected=self.disable_reflected)
+
+
+def check_supported(cfg: MCShadingConfig):
+    """Raise for a configuration that reaches a part not ported yet."""
+    if cfg.shade_fn != 'shade_mixed' or cfg.use_nis_all:
+        raise NotImplementedError(
+            'shade_mixed_all / use_nis_all are not ported yet')
+    if cfg.outer_light_version != 'envlight':
+        raise NotImplementedError(
+            f'outer_light_version={cfg.outer_light_version!r} is not '
+            'ported yet (only envlight)')
+    if cfg.human_lights:
+        raise NotImplementedError('human_lights is not ported yet')
+    if cfg.flow_type != 'pwquad':
+        raise NotImplementedError(
+            f'flow_type={cfg.flow_type!r} is not ported yet (only pwquad)')
+
+
+def init_mc_shading(gen: torch.Generator, cfg: MCShadingConfig,
+                    device='cpu') -> Dict[str, Any]:
+    """(ref: fields.py:668-760)"""
+    check_supported(cfg)
+    pos_dim = pe_dim(3, 8)
+    sph_dim = ide_dim(5)
+    params: Dict[str, Any] = {
+        'mat_field': tfield.init_vm_random(gen, cfg.grid_size,
+                                           cfg.mat_n_comp, device=device),
+        'metallic': mlp.init_predictor(gen, cfg.mat_feature_dim, 1, 2,
+                                       device=device),
+        'roughness': mlp.init_predictor(gen, cfg.mat_feature_dim, 1, 2,
+                                        device=device),
+        'albedo': mlp.init_predictor(gen, cfg.mat_feature_dim, 3, 2,
+                                     device=device),
+        'feats_network': mlp.init_material_feats(gen, pe_dim(3, 8),
+                                                 device=device),
+        'inner_light': mlp.init_predictor(
+            gen, pos_dim + sph_dim, 3, 4, final_bias=float(np.log(0.5)),
+            device=device),
+        'outer_light': light_mod.init_env_light(
+            light_mod.EnvLightConfig(max_res=cfg.light_reso), device),
+    }
+    if cfg.use_nis_diffuse:
+        params['flow_diffuse'] = flow_mod.init_tenso_flow(gen, cfg.flow,
+                                                          device)
+    if cfg.use_nis_specular:
+        params['flow_specular'] = flow_mod.init_tenso_flow(gen, cfg.flow,
+                                                           device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# materials (ref: fields.py:776-810, 1010-1017)
+# ---------------------------------------------------------------------------
+
+def tenso_feature(params, cfg: MCShadingConfig, pts, aabb):
+    """Material-field features, sampled from the raw planes at level 0
+    (stage 2 evaluates this field at a few thousand points per step)."""
+    return tfield.vm_features(params['mat_field'], contraction(pts, aabb))
+
+
+def predict_materials(params, cfg: MCShadingConfig, pts, aabb):
+    feats = tenso_feature(params, cfg, pts, aabb)
+    metallic = mlp.apply_predictor(params['metallic'], feats, 'sigmoid')
+    roughness = mlp.apply_predictor(params['roughness'], feats, 'sigmoid')
+    rmax, rmin = 1.0, 0.04 ** 2
+    roughness = roughness * (rmax - rmin) + rmin
+    albedo = mlp.apply_predictor(params['albedo'], feats, 'sigmoid')
+    return metallic, roughness, albedo
+
+
+# ---------------------------------------------------------------------------
+# lights (ref: fields.py:905-975)
+# ---------------------------------------------------------------------------
+
+def get_inner_lights(params, cfg: MCShadingConfig, points, view_out_dirs,
+                     normals):
+    """(ref: fields.py:905-911) view_out_dirs points AWAY from surface."""
+    pos_enc = positional_encoding(points, 8)
+    normals = safe_normalize(normals)
+    v = safe_normalize(view_out_dirs)
+    refl = torch.sum(v * normals, -1, keepdim=True) * normals * 2 - v
+    dir_enc = integrated_dir_encoding(refl, 0.0, 5)
+    # under the bf16 estimator policy the 4x256 MLP's products take
+    # bf16-rounded operands (float32 result; see mlp.apply_linear_mixed)
+    dd = torch.bfloat16 if cfg.estimator_dtype == 'bf16' else None
+    return mlp.apply_predictor(
+        params['inner_light'], torch.cat([pos_enc, dir_enc], -1),
+        'exp', cfg.inner_light_exp_max, dot_dtype=dd)
+
+
+def predict_outer_lights(params, cfg: MCShadingConfig, points, directions):
+    """(ref: fields.py:913-933), the envlight branch."""
+    if cfg.outer_light_version == 'envlight':
+        return light_mod.direct_light(params['outer_light'], directions)
+    raise NotImplementedError(
+        f'outer_light_version={cfg.outer_light_version!r} is not ported yet')
+
+
+def _near_masked(lights, depth, eps):
+    return lights * (depth > eps).to(lights.dtype)
+
+
+def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
+               directions, human_poses=None, normals=None, stats=None):
+    """Secondary-ray radiance for a dense [pn, sn, 3] direction set
+    (ref: fields.py:951-975).
+
+    grid: a PackedSDFGrid or SDFGrid, or a callable ``(o, d) -> (inters,
+    normals, depth, hit)`` that owns all origin offsets (exact tracer hook
+    for analytic tests).  normals: optional [pn,3] launch-surface normals;
+    when given, trace origins are lifted ~1.5 mid cells along the normal
+    (in addition to the reference's 2*unit_size ray offset,
+    materialRenderer.py:223): an SDF *grid* cannot separate a tangent ray
+    from its own launch surface as an exact-mesh BVH does.  The normals
+    also drive the analytic launch-corridor certification of the budgeted
+    trace.  Returns (lights [pn,sn,3], hit_mask [pn,sn])."""
+    if cfg.human_lights and human_poses is not None:
+        raise NotImplementedError('human_lights is not ported yet')
+    shape = points.shape[:-1]
+    eps = 1e-5
+    o = (points + directions * eps).reshape(-1, 3)
+    d = directions.reshape(-1, 3)
+    n_rays = o.shape[0]
+
+    outer = predict_outer_lights(params, cfg, o, d)
+
+    if callable(grid):
+        with torch.no_grad():
+            inters, t_normals, depth, hit = grid(o.detach(), d.detach())
+        inner = get_inner_lights(params, cfg, inters, -d, t_normals)
+        lights = _near_masked(torch.where(hit[:, None], inner, outer),
+                              depth, eps)
+        return lights.reshape(*shape, 3), hit.reshape(shape)
+
+    packed = isinstance(grid, sdf_trace.PackedSDFGrid)
+    with torch.no_grad():
+        d_ng = d.detach()
+        o_trace = o.detach() + 2.0 * unit_size * d_ng
+        h0 = None
+        if normals is not None:
+            ext = torch.mean(grid.aabb[1] - grid.aabb[0])
+            if packed:
+                m_cell = ext / (grid.mid_rows.shape[0] - 1)
+            else:
+                m_cell = ext / grid.resolution
+            nrm = normals.detach()[:, None, :].expand(
+                shape + (3,)).reshape(-1, 3)
+            o_trace = o_trace + 1.5 * m_cell * nrm
+            h0 = torch.sum(d_ng * nrm, -1)
+
+    if packed and 0.0 < cfg.secondary_budget < 1.0:
+        # budgeted trace: dense launch certification + ONE shared
+        # compaction for trace refinement AND the inner-light MLP
+        m = sdf_trace.budget_slots(n_rays, cfg.secondary_budget)
+        with torch.no_grad():
+            vis_rows = None
+            # per-point cache rows are only sound when the bake reserved
+            # an apex pad covering the 2*unit_size ray-direction offset
+            # (the trace itself falls back to per-ray rows otherwise)
+            pad_ok = (isinstance(unit_size, (int, float))
+                      and 2.0 * float(unit_size) <= grid.vis_pad + 1e-9)
+            if (grid.vis_rows is not None and normals is not None
+                    and points.ndim == 3 and pad_ok
+                    and 0.0 < cfg.a1_budget < 1.0):
+                # ONE visibility-cache row per surface point: all of a
+                # point's sn rays share the launch cell
+                rv = grid.vis_rows.shape[0]
+                lo_g, hi_g = grid.aabb[0], grid.aabb[1]
+                base = points.detach()[:, 0, :] \
+                    + 1.5 * m_cell * normals.detach()
+                u01 = torch.clamp((base - lo_g) / (hi_g - lo_g), 0.0, 1.0)
+                ci = torch.clamp(torch.round(u01 * (rv - 1)).long(),
+                                 0, rv - 1)
+                flat_i = (ci[:, 0] * rv + ci[:, 1]) * rv + ci[:, 2]
+                vis_rows = torch.index_select(
+                    grid.vis_rows.reshape(-1, 8), 0,
+                    torch.clamp(flat_i, 0, rv ** 3 - 1))        # [pn,8]
+            res = sdf_trace.sphere_trace_budget(
+                grid, o_trace, d_ng, m, h0=h0, a1_budget=cfg.a1_budget,
+                vis_rows_flat=vis_rows)
+            hit_slots = res.hit_m & res.slot_mask
+            if stats is not None:
+                # diagnostics for the trainer's adaptive budget: device
+                # scalars, read by the host at its log/adapt cadence
+                stats['secondary_cand_rate'] = torch.mean(res.cand.float())
+                stats['secondary_hit_rate'] = \
+                    torch.sum(hit_slots.float()) / n_rays
+                stats['secondary_a1_rate'] = torch.mean(
+                    res.a1_need.float())
+        if 0.0 < cfg.inner_light_budget < 1.0:
+            # second compaction: the 4x256 inner-light MLP only runs on
+            # HIT slots; overflow beyond the hit budget falls back to the
+            # outer light (visibility stays exact, only the light value
+            # degrades)
+            m2 = sdf_trace.budget_slots(
+                n_rays, min(cfg.inner_light_budget, cfg.secondary_budget))
+            src2, mask2, dest2 = compact_indices(hit_slots, m2)
+            pay = torch.cat([res.inters, res.view_out, res.normals], -1)
+            pm2 = compact_take(pay, src2, dest2, mask2)
+            inner2 = get_inner_lights(params, cfg, pm2[:, 0:3],
+                                      pm2[:, 3:6], pm2[:, 6:9])
+            inner_m = scatter_back(inner2, dest2, src=src2, slot_mask=mask2)
+            use_inner_m = hit_slots & (dest2 < m2)
+        else:
+            inner_m = get_inner_lights(params, cfg, res.inters,
+                                       res.view_out, res.normals)
+            use_inner_m = res.hit_m
+        # ONE wide expansion for lights + depth + hit
+        payload_m = torch.cat(
+            [inner_m, res.depth_m[:, None],
+             res.hit_m[:, None].to(inner_m.dtype),
+             use_inner_m[:, None].to(inner_m.dtype)], -1)
+        full = scatter_back(payload_m, res.dest, src=res.src,
+                            slot_mask=res.slot_mask)
+        hit = full[:, 4] > 0.5                  # overflow/miss -> fill 0
+        depth = torch.where(hit, full[:, 3], torch.full_like(
+            full[:, 3], sdf_trace.MISS_DEPTH))[:, None].detach()
+        lights = torch.where(full[:, 5:6] > 0.5, full[:, 0:3], outer)
+        lights = _near_masked(lights, depth, eps)
+        return lights.reshape(*shape, 3), hit.reshape(shape)
+
+    # dense fallback: trace every ray at full fidelity
+    with torch.no_grad():
+        inters, t_normals, depth, hit = sdf_trace.sphere_trace(
+            grid, o_trace, d_ng)
+    if 0.0 < cfg.inner_light_budget < 1.0:
+        # compact hit rays before the inner-light MLP; overflow beyond the
+        # budget falls back to the outer light
+        m = max(int(n_rays * cfg.inner_light_budget), 1)
+        src, slot_mask, dest = compact_indices(hit, m)
+        payload = torch.cat([inters, -d, t_normals], dim=-1)
+        pm = compact_take(payload, src, dest, slot_mask)
+        inner_m = get_inner_lights(params, cfg, pm[:, 0:3], pm[:, 3:6],
+                                   pm[:, 6:9])
+        inner = scatter_back(inner_m, dest, src=src, slot_mask=slot_mask)
+        lights = torch.where((hit & (dest < m))[:, None], inner, outer)
+    else:
+        inner = get_inner_lights(params, cfg, inters, -d, t_normals)
+        lights = torch.where(hit[:, None], inner, outer)
+    lights = _near_masked(lights, depth, eps)
+    return lights.reshape(*shape, 3), hit.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# the mixed-estimator shader (ref: fields.py:1075-1335)
+# ---------------------------------------------------------------------------
+
+class ShadePhase(NamedTuple):
+    """Phase flags, derived from the step on the host (ref gates at
+    fields.py:1082,1160,1257,1295)."""
+    nis_sample_diffuse: bool = False
+    nis_sample_specular: bool = False
+    nis_loss_diffuse: bool = False
+    nis_loss_specular: bool = False
+
+
+def draw_shade_noise(gen: torch.Generator, cfg: MCShadingConfig, pn: int,
+                     phase: ShadePhase, device) -> Dict[str, torch.Tensor]:
+    """The uniforms one training call of shade_mixed consumes: the flow
+    priors' azimuth rolls [pn, sn, 1] (when the phase samples from a flow
+    copy) and the analytic samplers' rolls [pn, 1, 1]."""
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+    noise = {}
+    if phase.nis_sample_diffuse:
+        noise['flow_diffuse'] = u(pn, cfg.nis_diffuse_sample_num, 1)
+    if phase.nis_sample_specular:
+        noise['flow_specular'] = u(pn, cfg.nis_specular_sample_num, 1)
+    if cfg.random_azimuth:
+        noise['az_diffuse'] = u(pn, 1, 1)
+        if not phase.nis_sample_specular:
+            noise['az_specular'] = u(pn, 1, 1)
+    return noise
+
+
+def _flow_sample_halfvec(flow_params, fcfg, pts, aabb, view_angles01,
+                         roughness, normals, view_dirs, sn, train, roll):
+    """Draw sn half-vector samples from a (frozen) flow and convert them
+    to outgoing directions + solid-angle pdf (ref: fields.py:1084-1113)."""
+    angles01, logq = flow_mod.flow_sample(
+        flow_params, fcfg, None, pts, aabb, view_angles01, roughness, sn,
+        train=train and roll is not None, noise=roll)
+    angles_half = torch.cat(
+        [angles01[..., :1] * (2 * math.pi),
+         angles01[..., 1:2] * (0.5 * math.pi)], -1)
+    dirs, angles, hov, theta = half_angles_to_directions(
+        angles_half, normals, view_dirs)
+    # flow_sample returns -log q; the reference exponentiates -logqx
+    prob = torch.exp(-torch.clamp(logq, -8.0, 8.0)) / torch.clamp(
+        4.0 * math.pi ** 2 * hov * torch.sin(theta), min=EPS)
+    return dirs, angles, prob, angles_half, hov
+
+
+def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
+                pts, normals, view_dirs, metallic, roughness, albedo,
+                phase: ShadePhase, noise: Optional[Dict[str, Any]],
+                is_train: bool, flow_diffuse_copy=None,
+                flow_specular_copy=None, human_poses=None):
+    """The MC estimator (ref: fields.py:1075-1335), dense and masked.
+
+    noise: draw_shade_noise's dict (None or missing keys: no roll, as at
+    eval).  Returns (colors [pn,3], outputs dict)."""
+    noise = (noise or {}) if is_train else {}
+    fcfg = cfg.flow
+    f32 = torch.float32
+    dev = pts.device
+
+    view_angles = direction_to_angle(normals, view_dirs[:, None, :])[:, 0]
+    view_angles01 = view_angles / device_constant(
+        'view_angle_scale', lambda: [2 * np.pi, 0.5 * np.pi], dev,
+        view_angles.dtype)
+
+    # ---------------- diffuse sampling ----------------
+    dtable = direction_table(cfg.diffuse_sample_num, dev)
+    d_dirs2, _, d_prob2, d_half2 = sample_diffuse_directions(
+        dtable, normals, view_dirs, noise.get('az_diffuse'))
+    if phase.nis_sample_diffuse:
+        d_dirs1, _, d_prob1, d_half1, _ = _flow_sample_halfvec(
+            flow_diffuse_copy, fcfg, pts, aabb, view_angles01, roughness,
+            normals, view_dirs, cfg.nis_diffuse_sample_num, is_train,
+            noise.get('flow_diffuse'))
+        diffuse_dirs = torch.cat([d_dirs1, d_dirs2], 1)
+        diffuse_prob = torch.cat([d_prob1, d_prob2], 1)
+        diffuse_half = torch.cat([d_half1, d_half2], 1)
+    else:
+        diffuse_dirs, diffuse_prob, diffuse_half = d_dirs2, d_prob2, d_half2
+
+    h_diff = safe_normalize(view_dirs[:, None, :] + diffuse_dirs)
+    hov_diff = saturate_dot(h_diff, view_dirs[:, None, :])
+
+    # ---------------- specular sampling ----------------
+    # unlike the diffuse branch (flow + analytic CONCAT, ref
+    # fields.py:1115-1120), the reference REPLACES the analytic GGX samples
+    # with the flow samples when the specular flow copy is live
+    # (ref fields.py:1160-1206)
+    if phase.nis_sample_specular:
+        spec_dirs, _, spec_prob, spec_half, _ = _flow_sample_halfvec(
+            flow_specular_copy, fcfg, pts, aabb, view_angles01, roughness,
+            normals, view_dirs, cfg.nis_specular_sample_num, is_train,
+            noise.get('flow_specular'))
+    else:
+        stable = direction_table(cfg.specular_sample_num, dev)
+        spec_dirs, _, spec_prob, spec_half = sample_specular_directions(
+            stable, normals, view_dirs, roughness, noise.get('az_specular'))
+    spec_num = spec_dirs.shape[1]
+
+    # estimator-chain dtype (MCShadingConfig.estimator_dtype): the wide
+    # [pn,sn,3] BRDF/light elementwise math below runs in `cdt`; every
+    # samples-axis reduction accumulates in float32 and the NIS/flow log
+    # math stays float32
+    cdt = torch.bfloat16 if cfg.estimator_dtype == 'bf16' else pts.dtype
+    nc = normals.to(cdt)
+    vc = view_dirs.to(cdt)
+    dd_c = diffuse_dirs.to(cdt)
+    sd_c = spec_dirs.to(cdt)
+    met_c = metallic.to(cdt)
+    alb_c = albedo.to(cdt)
+    rough_c = roughness.to(cdt)
+    kd = 1.0 - met_c[:, None, :]
+
+    # dense NoL>0 mask replaces compaction (ref: fields.py:1209-1214)
+    spec_mask = torch.sum(spec_dirs * normals[:, None, :], -1) > 0
+    spec_mask_f = spec_mask[..., None].to(cdt)
+
+    f0 = 0.04 * (1.0 - met_c) + met_c * alb_c
+    # the half vector + hov stay float32: hov feeds the NIS log densities
+    h_spec = safe_normalize(view_dirs[:, None, :] + spec_dirs)
+    hov_spec = saturate_dot(h_spec, view_dirs[:, None, :])
+    fresnel = fresnel_schlick(f0[:, None, :], hov_spec.to(cdt))
+    nov = saturate_dot(nc, vc)[:, None, :]
+    nol = saturate_dot(nc[:, None, :], sd_c)
+    geom = brdf_geometry(nov, nol, rough_c[:, None, :], cfg.geometry_type)
+    # the GGX NDF stays float32: its denominator noh^2*(a2-1)+1 cancels
+    # catastrophically in bf16 at low roughness
+    noh = saturate_dot(normals[:, None, :], h_spec)
+    dist = distribution_ggx(noh, roughness[:, None, :]).to(cdt)
+
+    # ONE batched secondary-ray pass for diffuse + specular
+    dn = diffuse_dirs.shape[1]
+    all_dirs = torch.cat([diffuse_dirs, spec_dirs], 1)
+    trace_stats: Dict[str, Any] = {}
+    all_lights, all_hit = get_lights(
+        params, cfg, grid, unit_size,
+        pts[:, None, :].expand(all_dirs.shape), all_dirs, human_poses,
+        normals=normals, stats=trace_stats)
+    diffuse_lights = all_lights[:, :dn]
+    spec_lights = all_lights[:, dn:]
+    light_hit = all_hit[:, dn:]
+
+    dl_c = diffuse_lights.to(cdt)
+    sl_c = spec_lights.to(cdt)
+    dp_c = torch.clamp(diffuse_prob, min=EPS).to(cdt)
+    sp_c = torch.clamp(spec_prob, min=EPS).to(cdt)
+
+    diffuse_weights = (alb_c[:, None, :] * kd
+                       * (saturate_dot(dd_c, nc[:, None, :]) / math.pi))
+    diffuse_colors = torch.mean(diffuse_weights * dl_c / dp_c, 1, dtype=f32)
+
+    spec_weights = dist * fresnel * geom / torch.clamp(4.0 * nov, min=EPS)
+    specular_colors = torch.sum(
+        spec_mask_f * spec_weights * sl_c / sp_c, 1, dtype=f32) / spec_num
+
+    colors = linear_to_srgb(diffuse_colors + specular_colors)
+
+    light_hit_f = light_hit[..., None].to(cdt) * spec_mask_f
+    visibility = 1.0 - torch.sum(light_hit_f, 1, dtype=f32) / spec_num
+    indirect_light = torch.sum(sl_c * light_hit_f, 1, dtype=f32) / spec_num
+    specular_light = torch.sum(sl_c * spec_mask_f, 1, dtype=f32) / spec_num
+
+    outputs: Dict[str, Any] = {
+        'albedo': albedo,
+        'normal': (normals + 1.0) / 2.0,
+        'roughness': roughness,
+        'metallic': metallic,
+        'diffuse_light': torch.clamp(
+            linear_to_srgb(torch.mean(diffuse_lights, 1)), 0, 1),
+        'specular_light': torch.clamp(linear_to_srgb(specular_light), 0, 1),
+        'diffuse_color': torch.clamp(linear_to_srgb(diffuse_colors), 0, 1),
+        'specular_color': torch.clamp(linear_to_srgb(specular_colors), 0, 1),
+        'visibility': visibility,
+        'indirect_light': indirect_light,
+        **trace_stats,
+    }
+    # (ref: fields.py:1248: the reference adds the already-srgb'd specular
+    # color inside the srgb transform; replicated as-is)
+    outputs['approximate_light'] = torch.clamp(
+        linear_to_srgb(torch.mean(kd * dl_c, 1, dtype=f32)
+                       + outputs['specular_color']), 0, 1)
+
+    # ---------------- NIS losses (ref: fields.py:1254-1333) ----------------
+    fx_d = diffuse_weights * dl_c
+    outputs['variance'] = torch.var(
+        torch.mean(fx_d, -1, keepdim=True, dtype=f32)
+        / torch.clamp(diffuse_prob, min=EPS), unbiased=False)
+
+    def halfvec_x(half):
+        return torch.clamp(torch.cat(
+            [half[..., 0:1] / (2 * math.pi),
+             half[..., 1:2] / (0.5 * math.pi)], -1), EPS, 1 - EPS)
+
+    zero = torch.zeros((), dtype=f32, device=dev)
+    if phase.nis_loss_diffuse and cfg.use_nis_diffuse:
+        sn = cfg.nis_diffuse_sample_num
+        theta = diffuse_half[:, :sn, 1:2]
+        _, logqx_ = flow_mod.flow_log_density(
+            params['flow_diffuse'], fcfg, pts, aabb, view_angles01,
+            roughness, halfvec_x(diffuse_half[:, :sn]))
+        logqx = logqx_ - torch.log(torch.clamp(
+            4 * math.pi ** 2 * hov_diff[:, :sn] * torch.sin(theta),
+            min=EPS))
+        fx = fx_d[:, :sn].float()
+        dp = torch.clamp(diffuse_prob[:, :sn], min=EPS)
+        outputs['loss_nis_diffuse'] = -torch.mean(fx * logqx / dp)
+    else:
+        outputs['loss_nis_diffuse'] = zero
+
+    fx_s = spec_weights * sl_c
+    outputs['variance_specular'] = torch.var(
+        torch.mean(fx_s, -1, keepdim=True, dtype=f32)
+        / torch.clamp(spec_prob, min=EPS), unbiased=False)
+
+    if phase.nis_loss_specular and cfg.use_nis_specular:
+        theta = spec_half[..., 1:2]
+        _, logqx_ = flow_mod.flow_log_density(
+            params['flow_specular'], fcfg, pts, aabb, view_angles01,
+            roughness, halfvec_x(spec_half))
+        logqx = logqx_ - torch.log(torch.clamp(
+            4 * math.pi ** 2 * hov_spec * torch.sin(theta), min=EPS))
+        sp = torch.clamp(spec_prob, min=EPS)
+        term = fx_s.float() * logqx / sp * spec_mask[..., None].float()
+        denom = torch.clamp(torch.sum(spec_mask.float()) * 3.0, min=1.0)
+        outputs['loss_nis_specular'] = -torch.sum(term) / denom
+    else:
+        outputs['loss_nis_specular'] = zero
+
+    outputs['loss_nis'] = (outputs['loss_nis_diffuse']
+                           + outputs['loss_nis_specular'])
+    return colors, outputs
+
+
+def mc_forward(params, cfg: MCShadingConfig, grid, unit_size, aabb, pts,
+               view_dirs, normals, phase: ShadePhase, noise, is_train: bool,
+               flow_diffuse_copy=None, flow_specular_copy=None,
+               human_poses=None):
+    """Full shade: materials + mixed estimator (ref: fields.py:1453-1473).
+    noise: see shade_mixed."""
+    check_supported(cfg)
+    view_dirs = safe_normalize(view_dirs)
+    normals = safe_normalize(normals)
+    metallic, roughness, albedo = predict_materials(params, cfg, pts, aabb)
+    colors, outputs = shade_mixed(
+        params, cfg, grid, unit_size, aabb, pts, normals, view_dirs,
+        metallic, roughness, albedo, phase, noise, is_train,
+        flow_diffuse_copy, flow_specular_copy, human_poses)
+    outputs['rgb_pr'] = colors
+    return outputs
+
+
+# ---------------------------------------------------------------------------
+# regularization (ref: fields.py:1547-1578)
+# ---------------------------------------------------------------------------
+
+def material_regularization(params, cfg: MCShadingConfig, pts, normals,
+                            metallic, roughness, albedo,
+                            reg_minmax_on: float):
+    """TV on the material field (+ early saturation clamps, gated by the
+    host with reg_minmax_on = 1.0 while step < 2000)."""
+    reg = tfield.tv_loss_vm(params['mat_field']) * 0.1
+    if cfg.reg_min_max:
+        clamp = (torch.sum(torch.relu(roughness - 0.9 ** 2))
+                 + torch.sum(torch.relu(0.1 ** 2 - roughness))
+                 + torch.sum(torch.relu(metallic - 0.98))
+                 + torch.sum(torch.relu(0.02 - metallic)))
+        reg = reg + clamp * reg_minmax_on
+    return reg

@@ -16,20 +16,23 @@ import torch
 Params = Dict[str, Any]
 
 
-def _uniform(gen, shape, lo, hi, device):
+def _uniform(gen, shape, lo, hi):
     u = torch.rand(shape, generator=gen, dtype=torch.float32)
-    return (lo + (hi - lo) * u).to(device)
+    return lo + (hi - lo) * u
 
 
 def init_linear(gen, d_in: int, d_out: int, weight_norm: bool = False,
                 device='cpu') -> Params:
-    """torch.nn.Linear default init (uniform, bound 1/sqrt(d_in))."""
+    """torch.nn.Linear default init (uniform, bound 1/sqrt(d_in)), drawn
+    and normed on the CPU, so that every device starts from the same
+    bits."""
     bound = 1.0 / math.sqrt(d_in)
-    w = _uniform(gen, (d_in, d_out), -bound, bound, device)
-    b = _uniform(gen, (d_out,), -bound, bound, device)
+    w = _uniform(gen, (d_in, d_out), -bound, bound)
+    b = _uniform(gen, (d_out,), -bound, bound).to(device)
     if weight_norm:
-        return {'v': w, 'g': torch.linalg.norm(w, dim=0), 'b': b}
-    return {'w': w, 'b': b}
+        return {'v': w.to(device),
+                'g': torch.linalg.norm(w, dim=0).to(device), 'b': b}
+    return {'w': w.to(device), 'b': b}
 
 
 def apply_linear(p: Params, x):
@@ -50,6 +53,10 @@ def make_activation(name: str, exp_max: float = 0.0):
         return lambda x: x
     if name == 'relu':
         return torch.relu
+    if name == 'softplus':
+        return torch.nn.functional.softplus
+    if name == 'tanh':
+        return torch.tanh
     raise NotImplementedError(name)
 
 
@@ -81,15 +88,61 @@ def init_predictor(gen, d_in: int, d_out: int, n_layers: int = 3,
 
 
 def apply_predictor(p: Params, x, activation: str = 'sigmoid',
-                    exp_max: float = 0.0):
+                    exp_max: float = 0.0, dot_dtype=None):
+    """dot_dtype (e.g. torch.bfloat16) rounds the operands of every
+    product to that type (apply_linear_mixed); the activation and the
+    output stay float32."""
     act = make_activation(activation, exp_max)
     h = x
     n = len(p['layers'])
     for i, layer in enumerate(p['layers']):
-        h = apply_linear(layer, h)
+        if dot_dtype is not None:
+            h = apply_linear_mixed(layer, h, dot_dtype)
+        else:
+            h = apply_linear(layer, h)
         if i < n - 1:
             h = torch.relu(h)
     return act(h)
+
+
+def apply_linear_mixed(p: Params, x, dot_dtype):
+    """apply_linear with the operands rounded to ``dot_dtype`` and a
+    float32 result, as the JAX package's dot with
+    preferred_element_type=float32.  A ``dot_dtype`` matmul in PyTorch
+    returns ``dot_dtype``, so the rounded operands are cast back and
+    multiplied in float32, on the CPU and on the card alike (the card
+    therefore runs the product at its float32 rate)."""
+    if 'v' in p:
+        v = p['v']
+        w = v * (p['g'] / torch.clamp(torch.linalg.norm(v, dim=0),
+                                      min=1e-12))
+    else:
+        w = p['w']
+    return x.to(dot_dtype).float() @ w.to(dot_dtype).float() + p['b']
+
+
+def init_material_feats(gen, d_in: int, run_dim: int = 256,
+                        device='cpu') -> Params:
+    """MaterialFeatsNetwork skip MLP (ref: fields.py:578-607)."""
+    m0_dims = [d_in, run_dim, run_dim, run_dim, run_dim]
+    m1_dims = [d_in + run_dim, run_dim, run_dim, run_dim, run_dim]
+    m0 = [init_linear(gen, m0_dims[i], m0_dims[i + 1], True, device)
+          for i in range(4)]
+    m1 = [init_linear(gen, m1_dims[i], m1_dims[i + 1], True, device)
+          for i in range(4)]
+    return {'m0': m0, 'm1': m1}
+
+
+def apply_material_feats(p: Params, x_embedded):
+    h = x_embedded
+    for layer in p['m0']:
+        h = torch.relu(apply_linear(layer, h))
+    h = torch.cat([h, x_embedded], dim=-1)
+    for i, layer in enumerate(p['m1']):
+        h = apply_linear(layer, h)
+        if i < len(p['m1']) - 1:
+            h = torch.relu(h)
+    return h
 
 
 def init_variance(init_val: float, device='cpu') -> Params:

@@ -202,3 +202,9 @@ def sdf_with_grad_hessian(params, cfg: SDFConfig, xyz, aabb, level=None,
     normal_hessian = torch.sum(grad * hess, -1) / (
         torch.sum(grad ** 2, -1) + 1e-5)
     return sdf, app, grad, normal_hessian
+
+
+def gradient_only(params, cfg: SDFConfig, xyz, aabb, level=None):
+    """FD gradient without hessian (ref: fields.py:227-248)."""
+    return sdf_with_grad_hessian(params, cfg, xyz, aabb, level,
+                                 with_hessian=False)[2]

@@ -1,5 +1,5 @@
-"""Occupancy grid, fixed-budget marching and sample compaction
-(counterpart of tensoflow_tpu/ops/grid.py).
+"""Occupancy grid, fixed-budget marching, sample compaction and the
+packed trilinear tap (counterpart of tensoflow_tpu/ops/grid.py).
 
 Same state layout as the JAX package: 'occs' [R,R,R] f32, 'binary'
 [R,R,R] bool, 'blocks' [R^3, 2] 4^3-block bitmask rows (the JAX uint32
@@ -102,9 +102,10 @@ def pack_cell_rows(values, dtype):
     return torch.stack(corners, dim=-1).to(dtype)
 
 
-def packed_trilinear_tap(rows4, aabb, pts):
+def packed_trilinear_tap(rows4, aabb, pts, want_grad: bool = False):
     """One trilinear tap per point from pack_cell_rows rows -> [N] f32
-    (1.0 outside the aabb)."""
+    (1.0 outside the aabb) and, if want_grad, the world-space gradient
+    [N,3] of the interpolant."""
     r = rows4.shape[0]
     lo, hi = aabb[0], aabb[1]
     u = (pts - lo) / (hi - lo)
@@ -122,8 +123,36 @@ def packed_trilinear_tap(rows4, aabb, pts):
     wx = (1.0 - fx) + sx * (2.0 * fx - 1.0)
     wy = (1.0 - fy) + sy * (2.0 * fy - 1.0)
     wz = (1.0 - fz) + sz * (2.0 * fz - 1.0)
-    val = torch.sum(row * wy * wz * wx, -1)
-    return torch.where(inside, val, torch.ones_like(val))
+    ryz = row * wy * wz
+    val = torch.sum(ryz * wx, -1)
+    val = torch.where(inside, val, torch.ones_like(val))
+    if not want_grad:
+        return val
+    gx = torch.sum(ryz * (2.0 * sx - 1.0), -1)          # d/dfx
+    rx = row * wx
+    gy = torch.sum(rx * wz * (2.0 * sy - 1.0), -1)      # d/dfy
+    gz = torch.sum(rx * wy * (2.0 * sz - 1.0), -1)      # d/dfz
+    scale = (r - 1.0) / (hi - lo)                       # [3]
+    return val, torch.stack([gx, gy, gz], -1) * scale
+
+
+def trilinear_sample_3d(volume, xyz01):
+    """align_corners=True trilinear sampling of [X,Y,Z] at coords [N,3] in
+    [0,1]^3 -> [N] (eight corner gathers; the dense reference path)."""
+    dims = volume.shape
+    coords = [xyz01[:, d] * (dims[d] - 1) for d in range(3)]
+    i0 = [torch.clamp(torch.floor(c).long(), 0, dims[d] - 1)
+          for d, c in enumerate(coords)]
+    i1 = [torch.clamp(i + 1, 0, dims[d] - 1) for d, i in enumerate(i0)]
+    f = [c - torch.floor(c) for c in coords]
+    flat = volume.reshape(-1)
+    sy, sz = dims[1] * dims[2], dims[2]
+    out = 0.0
+    for bx, wx in ((i0[0], 1 - f[0]), (i1[0], f[0])):
+        for by, wy in ((i0[1], 1 - f[1]), (i1[1], f[1])):
+            for bz, wz in ((i0[2], 1 - f[2]), (i1[2], f[2])):
+                out = out + wx * wy * wz * flat[bx * sy + by * sz + bz]
+    return out
 
 
 def pack_occ_blocks(binary):
@@ -238,3 +267,68 @@ def compact_indices(valid_flat, m: int):
     n_valid = torch.clamp(valid_flat.long().sum(), max=m)
     slot_mask = torch.arange(m, device=dev) < n_valid
     return src, slot_mask, dest
+
+
+def _mask_rows(mask, like):
+    return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
+
+
+class _ScatterBackInv(torch.autograd.Function):
+    """scatter_back whose backward is the inverse gather: dest is
+    injective on mapped sources, so d values_m[j] = g[src[j]] * mask[j]."""
+
+    @staticmethod
+    def forward(ctx, values_m, dest, src, slot_mask, fill):
+        ctx.save_for_backward(src, slot_mask)
+        return _scatter_back_dense(values_m, dest, fill)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, slot_mask = ctx.saved_tensors
+        dv = torch.index_select(g, 0, torch.clamp(src, 0, g.shape[0] - 1))
+        dv = torch.where(_mask_rows(slot_mask, dv), dv, torch.zeros_like(dv))
+        return dv, None, None, None, None
+
+
+def _scatter_back_dense(values_m, dest, fill=0.0):
+    m = values_m.shape[0]
+    mapped = dest < m
+    gathered = torch.index_select(values_m, 0, torch.clamp(dest, 0, m - 1))
+    return torch.where(_mask_rows(mapped, gathered), gathered,
+                       torch.full_like(gathered, fill))
+
+
+def scatter_back(values_m, dest, fill: float = 0.0, src=None,
+                 slot_mask=None):
+    """Expand compacted per-slot values [M, ...] back to flat [N, ...]:
+    out[i] = values_m[dest[i]] for mapped sources, ``fill`` elsewhere.
+    With ``src``/``slot_mask`` of the same compact_indices call the
+    backward is a gather by ``src`` instead of a scatter-add."""
+    if src is None:
+        return _scatter_back_dense(values_m, dest, fill)
+    return _ScatterBackInv.apply(values_m, dest, src, slot_mask, fill)
+
+
+class _CompactTake(torch.autograd.Function):
+    """values[src] whose backward is the inverse gather by ``dest``:
+    d values[i] = g[dest[i]] for mapped i, 0 elsewhere."""
+
+    @staticmethod
+    def forward(ctx, values, src, dest):
+        ctx.save_for_backward(dest)
+        ctx.m = src.shape[0]
+        return torch.index_select(
+            values, 0, torch.clamp(src, 0, values.shape[0] - 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        dest, = ctx.saved_tensors
+        m = ctx.m
+        dv = torch.index_select(g, 0, torch.clamp(dest, 0, m - 1))
+        dv = torch.where(_mask_rows(dest < m, dv), dv, torch.zeros_like(dv))
+        return dv, None, None
+
+
+def compact_take(values, src, dest, slot_mask=None):
+    """[N, C] -> [M, C] gather by ``src`` (see _CompactTake)."""
+    return _CompactTake.apply(values, src, dest)

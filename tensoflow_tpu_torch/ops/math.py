@@ -1,6 +1,6 @@
 """Math primitives of the port (counterpart of tensoflow_tpu/ops/math.py).
 
-Only the pieces the stage-1 training step reaches are ported.  Channel
+Only the pieces the two training steps reach are ported.  Channel
 layouts match the JAX package exactly.
 """
 from __future__ import annotations
@@ -18,6 +18,11 @@ EPS = 1e-6
 
 def dot(a, b, keepdim: bool = True):
     return torch.sum(a * b, dim=-1, keepdim=keepdim)
+
+
+def saturate_dot(a, b):
+    """clamp(<a,b>, 0, 1) (ref: utils/network_utils.py:63-64)."""
+    return torch.clamp(dot(a, b), 0.0, 1.0)
 
 
 def safe_normalize(x, eps: float = 1e-20):

@@ -55,6 +55,22 @@ def init_vm_circle(grid_size: Sequence[int], n_comp: int,
     return {'planes': planes, 'lines': lines}
 
 
+def init_vm_random(gen: torch.Generator, grid_size: Sequence[int],
+                   n_comp: int, scale: float = 1e-4,
+                   device='cpu') -> FieldParams:
+    """Small-random init used by the material and flow fields
+    (ref: fields.py:765-774)."""
+    planes, lines = [], []
+    for i in range(3):
+        hw = (grid_size[MAT_MODE[i][0]], grid_size[MAT_MODE[i][1]])
+        ln = grid_size[VEC_MODE[i]]
+        u = torch.rand(hw + (n_comp,), generator=gen, dtype=torch.float32)
+        planes.append((scale * (2.0 * u - 1.0)).to(device))
+        lines.append(torch.full((ln, n_comp), 1.0 / (n_comp * 3),
+                                device=device))
+    return {'planes': planes, 'lines': lines}
+
+
 # ---------------------------------------------------------------------------
 # mip pyramids
 # ---------------------------------------------------------------------------
@@ -99,6 +115,61 @@ def _take(buf, idx):
     idx = torch.clamp(idx, 0, buf.shape[0] - 1)
     return torch.index_select(buf, 0, idx.reshape(-1)).reshape(
         idx.shape + buf.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# raw-plane sampling (the stage-2 material and flow fields: a few thousand
+# points per step at level 0, so no atlas is built)
+# ---------------------------------------------------------------------------
+
+def sample_bilinear_2d(tex, uv):
+    """Clamped bilinear lookup.  tex [H,W,C]; uv [N,2] in [0,1] (u indexes
+    H); texel centers at (i + 0.5)/size."""
+    h, w, _ = tex.shape
+    u = uv[:, 0] * h - 0.5
+    v = uv[:, 1] * w - 0.5
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    fu = (u - u0)[:, None]
+    fv = (v - v0)[:, None]
+    u0i = torch.clamp(u0.long(), 0, h - 1)
+    u1i = torch.clamp(u0.long() + 1, 0, h - 1)
+    v0i = torch.clamp(v0.long(), 0, w - 1)
+    v1i = torch.clamp(v0.long() + 1, 0, w - 1)
+    flat = tex.reshape(h * w, -1)
+    t00 = _take(flat, u0i * w + v0i)
+    t01 = _take(flat, u0i * w + v1i)
+    t10 = _take(flat, u1i * w + v0i)
+    t11 = _take(flat, u1i * w + v1i)
+    out = ((1 - fu) * ((1 - fv) * t00 + fv * t01)
+           + fu * ((1 - fv) * t10 + fv * t11))
+    return out.float()
+
+
+def sample_linear_1d(tex, u):
+    """Clamped linear lookup.  tex [L,C]; u [N] in [0,1]."""
+    l, _ = tex.shape
+    x = u * l - 0.5
+    x0 = torch.floor(x)
+    f = (x - x0)[:, None]
+    x0i = torch.clamp(x0.long(), 0, l - 1)
+    x1i = torch.clamp(x0.long() + 1, 0, l - 1)
+    return ((1 - f) * _take(tex, x0i) + f * _take(tex, x1i)).float()
+
+
+def vm_features(field: FieldParams, xyz01):
+    """Level-0 features of a VM field at contracted coords [N,3] in [0,1]
+    -> [N, 3*C] (plane_i * line_i concatenated over i), sampled from the
+    raw planes.  Coordinates are detached."""
+    xyz01 = torch.clamp(xyz01.detach(), 0.0, 1.0)
+    cols = [xyz01[:, 0], xyz01[:, 1], xyz01[:, 2]]
+    feats = []
+    for i in range(3):
+        uv = torch.stack([cols[MAT_MODE[i][0]], cols[MAT_MODE[i][1]]], dim=1)
+        pf = sample_bilinear_2d(field['planes'][i], uv)
+        lf = sample_linear_1d(field['lines'][i], cols[VEC_MODE[i]])
+        feats.append(pf * lf)
+    return torch.cat(feats, dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Stage-1 loss aggregation (counterpart of tensoflow_tpu/train/losses.py).
+"""Loss aggregation of both stages (counterpart of tensoflow_tpu/train/losses.py).
 
 Every step-dependent schedule (anneal ramps, ratio switch lists) is
 evaluated on the host into a flat dict of float weights; the loss math
@@ -103,5 +103,21 @@ def total_loss_shape(outputs: Dict[str, Any], w: Dict[str, float]):
         terms['loss_sdf_large'] = large * w['init_reg']
     if 'std' in w:
         terms['loss_std'] = outputs['std'] * w['std']
+    total = sum(terms.values())
+    return total, terms
+
+
+def total_loss_material(outputs: Dict[str, Any], w: Dict[str, float]):
+    """Scalar stage-2 training loss (ref: trainer loss list
+    ['nerf_render', 'mat_reg', 'nis'], configs/mat/syn/compressor.yaml).
+    Returns (total, terms)."""
+    terms = {'loss_rgb': torch.mean(outputs['loss_rgb'])}
+    if 'loss_mat_reg' in outputs:
+        terms['loss_mat_reg'] = torch.mean(outputs['loss_mat_reg'])
+    if 'loss_diffuse_light' in outputs:
+        terms['loss_diffuse_light'] = torch.mean(
+            outputs['loss_diffuse_light'])
+    if 'loss_nis' in outputs:
+        terms['loss_nis'] = outputs['loss_nis'].reshape(()) * w['nis']
     total = sum(terms.values())
     return total, terms

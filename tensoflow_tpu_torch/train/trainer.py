@@ -17,7 +17,7 @@ device for the per-step noise); ``step_noise`` / ``occ_jitter`` are the
 only places the loop draws, so a caller can substitute its own draws.
 
 Not ported yet (see ROADMAP.md): grid upsampling, the alpha mask,
-checkpoints, render_image/validate and the multi-device mesh.
+render_image/validate and the multi-device mesh.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ from ..fields import shading as shading_mod
 from ..fields import tenso_sdf
 from ..models import shape_renderer as sr
 from ..ops import grid as grid_mod
-from . import losses
+from . import checkpoints, losses
 
 # adaptive sample-budget buckets and margin (trainer.py:46-47 of the JAX
 # package)
@@ -121,7 +121,8 @@ class ScheduledAdam:
     the count semantics of the JAX package's optax chain
     (trainer.py:136-160)."""
 
-    def __init__(self, cfg, params, reset_step: int):
+    def __init__(self, cfg, params, reset_step: int, label_fn=None):
+        label_fn = label_fn or param_group_label
         self.factor = lr_factor_fn(cfg)
         self.reset_step = reset_step
         self.f0 = self.factor(reset_step)
@@ -130,8 +131,10 @@ class ScheduledAdam:
                 'env': cfg['lr_env_init']}
         groups = {'xyz': [], 'net': [], 'env': []}
         for path, t in named_leaves(params):
-            groups[param_group_label(path)].append(t)
-        self.params = [t for g in groups.values() for t in g]
+            groups[label_fn(path)].append((path, t))
+        self.paths = [p for g in groups.values() for p, _ in g]
+        self.params = [t for g in groups.values() for _, t in g]
+        groups = {k: [t for _, t in g] for k, g in groups.items()}
         self.opt = torch.optim.Adam(
             [{'params': ts, 'lr': base[k], 'base_lr': base[k]}
              for k, ts in groups.items() if ts],
@@ -151,6 +154,32 @@ class ScheduledAdam:
             g['lr'] = g['base_lr'] * scale
         self.opt.step()
         self.count += 1
+
+    def state(self):
+        """Schedule count, reset step and the Adam moments by leaf path
+        (zeros before the first step)."""
+        moments = {}
+        for path, t in zip(self.paths, self.params):
+            st = self.opt.state.get(t, {})
+            moments[str(path)] = (
+                st.get('exp_avg', torch.zeros_like(t)).detach(),
+                st.get('exp_avg_sq', torch.zeros_like(t)).detach())
+        return {'count': self.count, 'reset_step': self.reset_step,
+                'moments': moments}
+
+    def load_state(self, saved, zero_if=None):
+        """Take over state()'s payload; leaves whose path satisfies
+        ``zero_if`` restart with zero moments."""
+        self.count = int(saved['count'])
+        for path, t in zip(self.paths, self.params):
+            m, v = saved['moments'][str(path)]
+            m = m.to(device=t.device, dtype=t.dtype).clone()
+            v = v.to(device=t.device, dtype=t.dtype).clone()
+            if zero_if is not None and zero_if(path):
+                m.zero_()
+                v.zero_()
+            self.opt.state[t] = {'step': torch.tensor(float(self.count)),
+                                 'exp_avg': m, 'exp_avg_sq': v}
 
 
 def _batch_to_device(batch: Dict[str, np.ndarray], device):
@@ -312,6 +341,49 @@ class ShapeTrainer:
                 and self.n_voxel_list:
             raise NotImplementedError(
                 f'step {step}: grid upsampling is not ported yet')
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+    def save(self, path: str):
+        checkpoints.save_checkpoint(path, {
+            'step': self.start_step,
+            'params': self.params,
+            'opt_state': self.opt.state(),
+            'occ_state': self.occ_state,
+            'N_voxel_list': self.n_voxel_list,
+            'march_stride': self.rcfg.march_stride,
+            'compact_samples_per_ray': self.rcfg.compact_samples_per_ray,
+            'kwargs': {
+                'grid_size': list(self.rcfg.sdf.grid_size),
+                'n_levels': self.rcfg.sdf.n_levels,
+                'sdf_n_comp': self.rcfg.sdf.n_comp,
+                'sdf_dim': self.rcfg.sdf.sdf_dim,
+                'app_dim': self.rcfg.sdf.app_dim,
+                'sdf_multires': self.rcfg.sdf.sdf_multires,
+                'aabb': [list(a) for a in self.rcfg.aabb],
+            },
+        })
+
+    def load(self, path: str):
+        ckpt = checkpoints.load_checkpoint(path)
+        kw = ckpt['kwargs']
+        self.rcfg = build_shape_config(
+            self.cfg, kw['grid_size'], kw['n_levels'])._replace(
+                march_stride=ckpt['march_stride'],
+                compact_samples_per_ray=ckpt['compact_samples_per_ray'])
+        to_dev = lambda t: t.to(self.device)   # noqa: E731
+        self.occ_state = checkpoints.tree_map(to_dev, ckpt['occ_state'])
+        self.n_voxel_list = ckpt['N_voxel_list']
+        self.start_step = ckpt['step']
+        # restore the Adam moments + schedule count against the ORIGINAL
+        # reset step (ref: trainer_inv.py:108-113); a shape mismatch falls
+        # back to a fresh optimizer rebased at the resume step
+        saved = ckpt.get('opt_state')
+        reset = saved['reset_step'] if saved else self.start_step
+        self.set_params(checkpoints.tree_map(to_dev, ckpt['params']), reset)
+        if not checkpoints.restore_opt_state(saved, self.opt):
+            self.set_params(self.params, self.start_step)
 
     # ------------------------------------------------------------------
     def train(self, n_steps: Optional[int] = None, log_every: int = 100,

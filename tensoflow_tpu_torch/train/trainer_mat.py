@@ -1,0 +1,335 @@
+"""Stage-2 (material) trainer of the port (counterpart of
+tensoflow_tpu/train/trainer_mat.py).
+
+  * the stage-1 checkpoint is loaded and its SDF baked to the packed trace
+    grid once;
+  * all training rays are traced against the baked SDF in chunks on the
+    device; misses are dropped on the host (one-time preprocessing, ref:
+    materialRenderer.py:383-417);
+  * per step: slice ``train_ray_num`` hits, one eager shade + loss +
+    backward + Adam step; the only host-to-device copy of a step is its
+    batch, and the trace statistics are read by the host only every
+    SEC_BUDGET_INTERVAL steps and at ``log_every``;
+  * frozen flow copies are refreshed on the reference schedule
+    (ref: fields.py:1050-1065): detached clones the optimizer never sees.
+
+Entry points run on the card: ``MaterialTrainer(cfg, path)`` means CUDA and
+raises when CUDA is absent; the CPU runs only with ``device='cpu'``.
+
+Not ported yet (see ROADMAP.md): render_image / validate, the combined
+flow (use_nis_all), the multi-device mesh.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..data import database as db_mod
+from ..data import rays as rays_mod
+from ..fields import mc_shading, tenso_sdf
+from ..models import material_renderer as mr
+from . import checkpoints, losses
+from .trainer import ScheduledAdam, _batch_to_device, named_leaves
+
+# adaptive secondary-trace budget: the trainer re-buckets the slot budget
+# to the measured candidate rate, so that compaction cost tracks the
+# scene's actual self-occlusion
+SEC_BUDGET_BUCKETS = (0.125, 0.1875, 0.25, 0.3125, 0.375, 0.5, 0.75)
+SEC_BUDGET_MARGIN = 1.3
+SEC_BUDGET_INTERVAL = 500
+# hit-slot budget of the inner-light MLP compaction, re-bucketed to the
+# measured secondary hit rate; overflow degrades to the outer light only
+INNER_BUDGET_BUCKETS = (0.03125, 0.0625, 0.125, 0.25, 0.5)
+INNER_BUDGET_MARGIN = 1.5
+# coarse-march budget when the visibility cache is baked
+A1_BUDGET_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875)
+A1_BUDGET_MARGIN = 1.15
+
+STEP_BATCH_KEYS = ('inters', 'normals', 'rays_d', 'rgb')
+
+
+def mat_param_group_label(path) -> str:
+    """xyz = all VM grids (material + flow fields); env = envlight cubemap;
+    net = MLPs (ref: fields.py:1580-1595 get_optparam_groups)."""
+    if 'planes' in path or 'lines' in path:
+        return 'xyz'
+    if 'outer_light' in path and 'base' in path:
+        return 'env'
+    return 'net'
+
+
+def build_material_config(cfg: Dict[str, Any], geo_kwargs: Dict[str, Any]
+                          ) -> mr.MaterialRendererConfig:
+    shader_over = dict(cfg.get('shader_cfg') or {})
+    base = mc_shading.MCShadingConfig()
+    valid = {k: tuple(v) if isinstance(v, list) else v
+             for k, v in shader_over.items() if k in base._fields}
+    shader = base._replace(**valid)
+    mc_shading.check_supported(shader)
+    sdf_cfg = tenso_sdf.SDFConfig(
+        grid_size=tuple(geo_kwargs['grid_size']),
+        n_comp=geo_kwargs['sdf_n_comp'], sdf_dim=geo_kwargs['sdf_dim'],
+        app_dim=geo_kwargs['app_dim'], n_levels=geo_kwargs['n_levels'],
+        sdf_multires=geo_kwargs.get('sdf_multires', 3),
+        gather_dtype=cfg.get('gather_dtype', 'float32'))
+    return mr.MaterialRendererConfig(
+        shader=shader, sdf=sdf_cfg,
+        aabb=tuple(tuple(x) for x in geo_kwargs['aabb']),
+        train_ray_num=cfg['train_ray_num'],
+        test_ray_num=cfg['test_ray_num'],
+        rgb_loss=cfg['rgb_loss'], reg_mat=cfg['reg_mat'],
+        reg_diffuse_light=cfg['reg_diffuse_light'],
+        reg_diffuse_light_lambda=cfg['reg_diffuse_light_lambda'],
+        std_act=cfg['std_act'], inv_s_init=cfg['inv_s_init'],
+        bake_resolution=cfg.get('bake_resolution', 256),
+        trace_packed=cfg.get('trace_packed', True),
+        refine_with_neural_sdf=cfg.get('refine_with_neural_sdf', True))
+
+
+def _clone_tree(tree):
+    return checkpoints.tree_map(lambda t: t.detach().clone(), tree)
+
+
+class MaterialTrainer:
+    def __init__(self, cfg: Dict[str, Any], geo_ckpt_path: str, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.init_gen = torch.Generator().manual_seed(cfg['random_seed'])
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            cfg['random_seed'])
+
+        geo_ckpt = checkpoints.load_checkpoint(geo_ckpt_path)
+        self.rcfg = build_material_config(cfg, geo_ckpt['kwargs'])
+        self.geo_params = checkpoints.tree_map(
+            lambda t: t.detach().to(self.device),
+            {'sdf': geo_ckpt['params']['sdf'],
+             'deviation': geo_ckpt['params']['deviation']})
+        self.grid = mr.bake_geometry(self.geo_params, self.rcfg, self.device)
+
+        self.flow_copies: Dict[str, Any] = {}
+        self.start_step = 0
+        self.set_params(mc_shading.init_mc_shading(
+            self.init_gen, self.rcfg.shader, self.device))
+
+    def set_params(self, params, reset_step: int = 0):
+        """Install a parameter tree (e.g. convert.params_from_jax) and a
+        fresh optimizer rebased at ``reset_step``."""
+        for _, t in named_leaves(params):
+            t.requires_grad_(True)
+        self.params = params
+        self.opt = ScheduledAdam(self.cfg, params, reset_step,
+                                 label_fn=mat_param_group_label)
+
+    # ------------------------------------------------------------------
+    def init_dataset(self, max_train_rays: Optional[int] = None):
+        cfg = self.cfg
+        self.database = db_mod.parse_database_name(
+            cfg['database_name'], cfg['dataset_dir'],
+            isWhiteBG=cfg['isBGWhite'])
+        train_ids, test_ids = db_mod.get_database_split(
+            self.database, split_manul=cfg['split_manul'])
+        self.train_ids, self.test_ids = list(train_ids), list(test_ids)
+        info = rays_mod.build_imgs_info(self.database, self.train_ids)
+        if cfg['nerfDataType']:
+            batch, rn, _, _ = rays_mod.construct_ray_batch_nerf(info)
+        else:
+            batch, rn, _, _ = rays_mod.construct_ray_batch_w2c(info)
+        batch = {'rays_o': batch['rays_o'], 'rays_d': batch['dirs'],
+                 'rgb': batch['rgbs']}
+        if max_train_rays is not None and rn > max_train_rays:
+            idx = np.random.RandomState(0).choice(rn, max_train_rays, False)
+            batch = {k: v[idx] for k, v in batch.items()}
+        batch = self._trace_filter(batch)
+        self.batcher = rays_mod.RayBatcher(batch, cfg['train_ray_num'],
+                                           cfg['random_seed'])
+        self.tbn = len(batch['rays_o'])
+
+    def _trace_filter(self, batch, chunk: int = 65536):
+        """One-time surface-hit preprocessing (ref: 383-417): trace all
+        train rays, keep the hits with their intersections, normals and
+        depths."""
+        n = len(batch['rays_o'])
+        keep = {k: [] for k in
+                list(batch.keys()) + ['inters', 'normals', 'depth']}
+        for i in range(0, n, chunk):
+            o = torch.as_tensor(batch['rays_o'][i:i + chunk],
+                                dtype=torch.float32, device=self.device)
+            d = torch.as_tensor(batch['rays_d'][i:i + chunk],
+                                dtype=torch.float32, device=self.device)
+            inters, normals, depth, hit = mr.trace_surface(
+                self.geo_params, self.rcfg, self.grid, o, d)
+            hit = hit.cpu().numpy()
+            for k in batch:
+                keep[k].append(batch[k][i:i + chunk][hit])
+            keep['inters'].append(inters.cpu().numpy()[hit])
+            keep['normals'].append(normals.cpu().numpy()[hit])
+            keep['depth'].append(depth.cpu().numpy()[hit])
+        out = {k: np.concatenate(v, 0) for k, v in keep.items()}
+        self.kept_share = len(out['rays_o']) / max(n, 1)
+        print(f'surface-hit filtering: kept {len(out["rays_o"])}/{n} '
+              f'({self.kept_share:.1%})')
+        return out
+
+    # ------------------------------------------------------------------
+    def update_flow_copies(self, step: int):
+        """(ref: fields.py:1050-1065)"""
+        scfg = self.rcfg.shader
+        s1 = step + 1
+        due = (s1 >= scfg.nis_start_iter
+               and (s1 - scfg.nis_start_iter) % scfg.nis_update_interval == 0)
+        if scfg.use_nis_diffuse and due:
+            self.flow_copies['diffuse'] = _clone_tree(
+                self.params['flow_diffuse'])
+        if scfg.use_nis_specular and due:
+            self.flow_copies['specular'] = _clone_tree(
+                self.params['flow_specular'])
+
+    def phase(self, step: int) -> mc_shading.ShadePhase:
+        scfg = self.rcfg.shader
+        return mc_shading.ShadePhase(
+            nis_sample_diffuse=('diffuse' in self.flow_copies),
+            nis_sample_specular=('specular' in self.flow_copies),
+            nis_loss_diffuse=(scfg.use_nis_diffuse
+                              and step >= scfg.nis_loss_iter),
+            nis_loss_specular=(scfg.use_nis_specular
+                               and step >= scfg.nis_loss_iter))
+
+    def step_noise(self, step: int, phase) -> Dict[str, torch.Tensor]:
+        """The training step's draws (the flow priors' and the analytic
+        samplers' azimuth rolls); the only place the loop draws."""
+        return mc_shading.draw_shade_noise(
+            self.gen, self.rcfg.shader, self.cfg['train_ray_num'], phase,
+            self.device)
+
+    def train_step(self, step: int, batch: Dict[str, torch.Tensor],
+                   weights: Dict[str, float], noise, phase
+                   ) -> Dict[str, torch.Tensor]:
+        """Forward, backward and one Adam step; returns the detached loss
+        terms (``loss`` = their sum), psnr, variance and the trace
+        rates, all still on the device."""
+        self.opt.zero_grad()
+        outputs = mr.train_step_outputs(
+            self.params, self.rcfg, self.grid, batch, phase, noise, step,
+            self.flow_copies.get('diffuse'),
+            self.flow_copies.get('specular'))
+        total, terms = losses.total_loss_material(outputs, weights)
+        total.backward()
+        self.opt.step()
+        aux = {'psnr': outputs['psnr'], 'variance': outputs['variance'],
+               **terms}
+        for k in ('secondary_cand_rate', 'secondary_hit_rate',
+                  'secondary_a1_rate'):
+            if k in outputs:
+                aux[k] = outputs[k]
+        aux['loss'] = total
+        return {k: v.detach() for k, v in aux.items()}
+
+    # ------------------------------------------------------------------
+    def train(self, n_steps: Optional[int] = None, log_every: int = 100,
+              callback=None):
+        if not hasattr(self, 'batcher'):
+            self.init_dataset()
+        total = n_steps if n_steps is not None else self.cfg['total_step']
+        end_step = min(self.start_step + total, self.cfg['total_step'])
+        logs = []
+        for step in range(self.start_step, end_step):
+            self.update_flow_copies(step)
+            phase = self.phase(step)
+            host_batch = self.batcher.next_batch()
+            batch = _batch_to_device(
+                {k: host_batch[k] for k in STEP_BATCH_KEYS}, self.device)
+            weights = losses.schedule_weights(self.cfg, step)
+            aux = self.train_step(step, batch, weights,
+                                  self.step_noise(step, phase), phase)
+            if ((step + 1) % SEC_BUDGET_INTERVAL == 0
+                    and 'secondary_cand_rate' in aux):
+                # the JAX step hands its trainer the candidate and hit
+                # rates only, so the a1 budget keeps its configured value
+                self._adapt_secondary_budget(
+                    float(aux['secondary_cand_rate']),
+                    float(aux['secondary_hit_rate']))
+            if (step + 1) % log_every == 0 or step == self.start_step:
+                vals = torch.stack([v.float() for v in aux.values()])
+                host = dict(zip(aux, vals.tolist()))   # one device read
+                host['step'] = step + 1
+                logs.append(host)
+                if callback:
+                    callback(host)
+        self.start_step = end_step
+        return logs
+
+    # ------------------------------------------------------------------
+    def _adapt_secondary_budget(self, cand_rate: float,
+                                hit_rate: float = -1.0,
+                                a1_rate: float = -1.0):
+        """Re-bucket the secondary-trace refinement budget to the live
+        candidate rate, and the inner-light hit budget to the live hit
+        rate (a new bucket only changes Python integers)."""
+        scfg = self.rcfg.shader
+        if not (0.0 < scfg.secondary_budget < 1.0):
+            return
+        want = next((b for b in SEC_BUDGET_BUCKETS
+                     if b >= cand_rate * SEC_BUDGET_MARGIN),
+                    SEC_BUDGET_BUCKETS[-1])
+        repl = {}
+        if want != scfg.secondary_budget:
+            repl['secondary_budget'] = want
+        if hit_rate >= 0.0 and 0.0 < scfg.inner_light_budget < 1.0:
+            want_h = next((b for b in INNER_BUDGET_BUCKETS
+                           if b >= hit_rate * INNER_BUDGET_MARGIN),
+                          INNER_BUDGET_BUCKETS[-1])
+            if want_h != scfg.inner_light_budget:
+                repl['inner_light_budget'] = want_h
+        if a1_rate >= 0.0 and 0.0 < scfg.a1_budget < 1.0:
+            want_a = next((b for b in A1_BUDGET_BUCKETS
+                           if b >= a1_rate * A1_BUDGET_MARGIN),
+                          A1_BUDGET_BUCKETS[-1])
+            if want_a != scfg.a1_budget:
+                repl['a1_budget'] = want_a
+        if repl:
+            self.rcfg = self.rcfg._replace(shader=scfg._replace(**repl))
+
+    # ------------------------------------------------------------------
+    def save(self, path: str):
+        checkpoints.save_checkpoint(path, {
+            'step': self.start_step,
+            'params': self.params,
+            'opt_state': self.opt.state(),
+            'flow_copies': self.flow_copies,
+            'kwargs': {
+                'aabb': [list(a) for a in self.rcfg.aabb],
+                'grid_size': list(self.rcfg.sdf.grid_size),
+            },
+        })
+
+    def load(self, path: str, reset_flows: bool = True):
+        """Resume.  With ``reset_flows`` (the reference's resume semantics,
+        ref: trainer_inv.py:102: 'flow' keys filtered out of the restored
+        state dict) the NIS flows restart from a fresh init with zero Adam
+        moments and the frozen sampling copies are cleared; pass False to
+        restore them exactly."""
+        ckpt = checkpoints.load_checkpoint(path)
+        to_dev = lambda t: t.to(self.device)   # noqa: E731
+        restored = checkpoints.tree_map(to_dev, ckpt['params'])
+        if reset_flows:
+            fresh = mc_shading.init_mc_shading(
+                self.init_gen, self.rcfg.shader, self.device)
+            for name in list(restored):
+                if name.startswith('flow'):
+                    restored[name] = fresh[name]
+            self.flow_copies = {}
+        else:
+            self.flow_copies = checkpoints.tree_map(
+                to_dev, ckpt.get('flow_copies', {}))
+        self.start_step = ckpt['step']
+        # stage 2 never reshapes params: restore the Adam moments +
+        # schedule count against reset_step=0 (ref: trainer_inv.py:108-113)
+        self.set_params(restored, 0)
+        zero_if = (lambda path: str(path[0]).startswith('flow')) \
+            if reset_flows else None
+        if not checkpoints.restore_opt_state(ckpt.get('opt_state'),
+                                             self.opt, zero_if):
+            self.set_params(restored, self.start_step)

@@ -3,10 +3,13 @@
   * The port and chip_smoke.py import nothing of JAX, optax or the JAX
     package: checked by AST over every module, and by importing every
     port module in a fresh interpreter where ``import jax`` fails.
-  * No silent CPU: an entry point without an explicit device means the
-    card and raises where CUDA is absent.
-  * The kernel wrappers take the plain version only for CPU tensors.
-  * A training step copies nothing from the host but its ray batch.
+  * No silent CPU: an entry point without an explicit device (both
+    trainers, the microbench) means the card and raises where CUDA is
+    absent.
+  * The kernel wrappers take the plain version only for CPU tensors, and
+    no ``try`` stands around a build or a launch.
+  * A training step, of either stage, copies nothing from the host but
+    its ray batch.
 """
 import ast
 import os
@@ -76,6 +79,70 @@ def test_trainer_without_device_needs_cuda():
         ShapeTrainer(cfg)
 
 
+SMALL_SHAPE = ['database_name=toy/sphere_16_2', 'sdf_n_comp=2', 'sdf_dim=16',
+               'app_dim=8', 'N_voxel_init=4096', 'N_voxel_final=4096',
+               'occ_grid_reso=8', 'train_ray_num=16', 'occ_max_samples=16',
+               'occ_loss_max_pn=16', 'upsample_list=null',
+               'compact_samples_per_ray=8', 'init_radius=0.5']
+SMALL_MAT = {'isMaterial': True, 'database_name': 'toy/sphere_16_2',
+             'nerfDataType': True, 'train_ray_num': 8, 'bake_resolution': 16,
+             'shader_cfg': {'diffuse_sample_num': 16,
+                            'specular_sample_num': 8,
+                            'nis_diffuse_sample_num': 4,
+                            'nis_specular_sample_num': 4,
+                            'nis_start_iter': 2, 'nis_loss_iter': 1,
+                            'nis_update_interval': 5,
+                            'grid_size': (16, 16, 16), 'light_reso': 8,
+                            'mat_n_comp': 4}}
+
+
+def _small_geo_checkpoint(tmp_path):
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    cfg = pconfig.load_config(
+        os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml'),
+        overrides=SMALL_SHAPE)
+    path = str(tmp_path / 'geo.pt')
+    ShapeTrainer(cfg, device='cpu').save(path)
+    return path
+
+
+def test_material_trainer_and_microbench_without_device_need_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('a card is present: device=None means the card')
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.bench import microbench_r3
+    from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
+    geo = _small_geo_checkpoint(tmp_path)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        MaterialTrainer(pconfig.load_config(extra=SMALL_MAT), geo)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        microbench_r3.main(['--small'])
+
+
+def test_tile_gather_has_no_try_and_counts_only_at_launches():
+    """ops/tile_gather.py: no ``try`` anywhere (a kernel that fails to
+    build or launch raises), every public wrapper branches on the
+    tensor's device, and the launch count rises in one place only, right
+    after the launch's error check."""
+    path = os.path.join(PKG, 'ops', 'tile_gather.py')
+    src = open(path).read()
+    tree = ast.parse(src, path)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    wrappers = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name in ('row_gather_tile', 'row_gather_grid',
+                               'row_gather_tile_bf16', 'lane_gather_tile')]
+    assert len(wrappers) == 4
+    for fn in wrappers:
+        assert "table.device.type == 'cpu'" in ast.get_source_segment(src, fn)
+    bumps = [n for n in ast.walk(tree) if isinstance(n, ast.AugAssign)
+             and 'LAUNCHES' in ast.unparse(n.target)]
+    assert len(bumps) == 2          # the row kernel's and the lane kernel's
+    lines = src.splitlines()
+    for n in bumps:
+        assert 'cuda_build.check(err' in lines[n.lineno - 2]
+
+
 def test_stencil_head_cpu_tensors_take_the_plain_version():
     """On CPU tensors the wrapper computes the plain version and launches
     nothing; the kernel path refuses anything but CUDA tensors."""
@@ -136,6 +203,64 @@ def test_training_step_copies_only_the_batch_to_the_device():
     with FromHost():
         trainer.train(n_steps=1, log_every=1)
     assert made == ['as_tensor'], made
+
+
+def _called_from_the_port():
+    """Whether the torch function being dispatched was called by a line of
+    the port (and not, say, by torch.optim reading its CPU step count)."""
+    f = sys._getframe(2)
+    while f is not None and os.path.basename(f.f_code.co_filename) in (
+            'overrides.py', '_tensor.py'):
+        f = f.f_back
+    return f is not None and f.f_code.co_filename.startswith(PKG)
+
+
+def test_stage2_step_copies_only_the_batch_to_the_device(tmp_path):
+    """The same rule for the stage-2 step, in its last phase (NIS
+    sampling from the frozen flow copies): after three steps have crossed
+    the phases and filled the constant cache, a step builds one tensor
+    from host data, its batch.  The trace statistics stay on the device:
+    they are read at the log cadence only."""
+    from torch.overrides import TorchFunctionMode
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
+    trainer = MaterialTrainer(pconfig.load_config(extra=SMALL_MAT),
+                              _small_geo_checkpoint(tmp_path), device='cpu')
+    trainer.train(n_steps=3, log_every=100)
+    assert trainer.phase(3).nis_sample_specular
+    made, reads = [], []
+
+    class FromHost(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.tensor, torch.as_tensor) \
+                    and not isinstance(args[0], torch.Tensor):
+                made.append(func.__name__)
+            if func in (torch.Tensor.item, torch.Tensor.tolist,
+                        torch.Tensor.__float__, torch.Tensor.__bool__,
+                        torch.Tensor.cpu, torch.Tensor.numpy) \
+                    and _called_from_the_port():
+                reads.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with FromHost():
+        trainer.train(n_steps=2, log_every=100)
+    # log_every logs the first step of a train() call: one read
+    assert made == ['as_tensor'] * 2, made
+    assert reads == ['tolist'], reads
+
+
+@pytest.mark.cuda
+def test_tile_gather_kernels_match_plain_on_the_card():
+    """The four gather kernels against their plain versions (exact), at
+    the probes' shapes cut to four row tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (run: python3 chip_smoke.py)')
+    import numpy as np
+    from tensoflow_tpu_torch.bench import microbench_r3
+    rng = np.random.RandomState(0)
+    for case in microbench_r3.gather_cases(small=True):
+        table, idx = microbench_r3.make_case(case, rng, torch.device('cuda'))
+        assert torch.equal(case[1](table, idx), case[2](table, idx)), case[0]
 
 
 @pytest.mark.cuda
