@@ -13,9 +13,12 @@ process):
                (N = 2048 rays x 64 samples = 131,072 rows, C=36, E=21,
                H=256, O=129), in bf16 (against the plain version in bf16)
                and f32 (against the plain version in f64), with B=2
-               dynamic sigma lanes and with S=1 at N=16,384, and at a
-               ragged N=1,003 (a partial last row tile); then time
-               kernel and plain version beside the byte/op bound.
+               dynamic sigma lanes and with S=1 at N=16,384, at a
+               ragged N=1,003 (a partial last row tile) and at N=520
+               for both heads (fewer row tiles than SMs: the persistent
+               grids run short); then time kernel and plain version
+               beside the byte/op bound, and point_head (S=1, bf16) at
+               the occupancy update's chunk of 131,072 points.
   3. slice   — first a small float32 configuration trained for 2 steps on
                the card and on the CPU (plain versions) from the same
                parameters, batches and noise, loss terms compared; then
@@ -188,6 +191,8 @@ def rel_err(a_list, b_list):
     worst_abs, worst_rel = 0.0, 0.0
     for a, b in zip(a_list, b_list):
         a, b = a.float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            return float('inf'), float('inf')     # max() would drop a NaN
         e = float((a - b).abs().max())
         scale = float(b.abs().max()) + 1e-12
         worst_abs = max(worst_abs, e)
@@ -312,11 +317,38 @@ def time_head(n, S, B, cd, seed):
                     o = fwd()
                     torch.autograd.grad(o, ins, (d['g_c'], d['g_off']))
                 torch.cuda.synchronize()
-            dev = (_device_ms(prof, ['stencil_fwd_kernel'], 3),
+            dev = (_device_ms(prof, ['stencil_fwd_'], 3),
                    _device_ms(prof, ['stencil_bwd_'], 3))
             out['device'] = tuple(x if x > 0 else None for x in dev)
         del oc, oo
     return out
+
+
+def time_point_head(card, n=131072):
+    """point_head (S=1, bf16, no gradient) at the occupancy update's chunk
+    size (shape_renderer.compute_sdf_chunked), beside its byte bound."""
+    from torch.profiler import ProfilerActivity, profile
+    from tensoflow_tpu_torch.ops import stencil as st
+    cd = torch.bfloat16
+    d = head_inputs(n, 1, 1, cd, seed=9)
+
+    def call():
+        with torch.no_grad():
+            return st.point_head(d['pp'], d['lp'], d['fr'], d['sigmas'],
+                                 d['pe'], d['w0p'], d['b0'], d['w1'], d['b1'])
+    wrapper_ms = cuda_ms(call, iters=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    dev_ms = _device_ms(prof, ['stencil_fwd_'], 3)
+    (fb, fo), _ = head_bytes_ops(n, 1, 1, cd)
+    fb -= n * st.vw(1, C) * 2          # no V is saved without a gradient
+    bound, by = bound_ms(fb, fo, cd)
+    print(f'[kernels] point_head S=1 bf16 N={n} (the occupancy update\'s '
+          f'chunk) on {card}: kernel {dev_ms:.3f} ms (wrapper '
+          f'{wrapper_ms:.3f}), bound {bound:.4f} ms ({by}: {fb / 1e9:.3f} GB, '
+          f'{fo / 1e9:.1f} GFLOP)', flush=True)
 
 
 def phase_kernels(card):
@@ -331,6 +363,10 @@ def phase_kernels(card):
                    seed=4)
         check_case(f'S=7 B=1 static {tag} N=1003 (ragged last tile)', 1003,
                    7, 1, cd, seed=6)
+        check_case(f'S=7 B=1 static {tag} N=520 (fewer tiles than SMs)', 520,
+                   7, 1, cd, seed=7)
+        check_case(f'S=1 B=1 static {tag} N=520 (point_head, fewer tiles '
+                   'than SMs)', 520, 1, 1, cd, seed=8)
     cd = torch.bfloat16
     t = time_head(N_MAIN, 7, 1, cd, seed=5)
     (fb, fo), (bb, bo) = head_bytes_ops(N_MAIN, 7, 1, cd)
@@ -349,6 +385,7 @@ def phase_kernels(card):
           f'{t["plain"][1]:.3f} ms, bound {bbound:.4f} ms ({bby}: '
           f'{bb / 1e9:.3f} GB, {bo / 1e9:.1f} GFLOP); device times from '
           f'the profiler: {dev}', flush=True)
+    time_point_head(card)
     return {
         'stencil_head_fwd': dict(max_abs_err=errs['bf16'][0], ms=k_ms[0],
                                  plain_ms=t['plain'][0], bound_ms=fbound,

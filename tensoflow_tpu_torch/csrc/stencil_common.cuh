@@ -8,38 +8,39 @@
 //                        tensor_field.vm_patch_gather)
 //   pe         [N, E]    centre-point PE (storage type T)
 //   rot        [S, 4, E] f32 PE linear-combination table
-//   w0big      [XW, H]   layer-0 weights in X-row order, zero pad rows
 //   V          [N, VW]   saved tap variants: PV (i-major, pv) then LV
 //
 // Rounding: every [row, C]-wide elementwise op rounds to T (bf16 or f32)
-// exactly as the plain PyTorch version (ops/stencil.py) does op by op;
-// __fmul_rn/__fadd_rn keep nvcc from contracting them into FMAs.  The
+// as the plain PyTorch version (ops/stencil.py) does op by op (see the
+// arithmetic policies below); the _rn intrinsics keep nvcc from
+// contracting a multiply and an add into an FMA.  The
 // matrix products take T-rounded operands and accumulate in f32: on the
-// tensor cores (mma.sync m16n8k16) for bf16, as FMAs for float32 (so a
-// float32 kernel can be held to the plain version in float64).
+// tensor cores (wgmma, stencil_sm90.cuh) for bf16, as FMAs for float32
+// (so a float32 kernel can be held to the plain version in float64).
+//
+// The tap arithmetic lives here once (plane_variants .. route_line),
+// written over an arithmetic policy (F32, Bf2 below): the float32 kernels
+// (8-row tiles, one channel per thread) and the bf16 kernels (128-row
+// tiles, four channels = two packed pairs per thread) both call it.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace sh {
 
-constexpr int TN = 8;      // rows per tile
+constexpr int TN = 8;      // rows per tile of the float32 kernels
 constexpr int NT = 256;    // threads per block
 constexpr int FS = 32;     // fr lanes per mip branch
 constexpr int KC = 16;     // W0 rows staged in shared memory per chunk
 constexpr int JMAX = 8;    // hidden columns per thread (H <= 256)
 
+// storage type T <-> float: load, and round as a store would
 template <typename T> struct Cd;
 template <> struct Cd<float> {
   static __device__ __forceinline__ float rnd(float x) { return x; }
   static __device__ __forceinline__ float ld(const float* p, size_t i) {
     return p[i];
-  }
-  static __device__ __forceinline__ void st(float* p, size_t i, float v) {
-    p[i] = v;
   }
 };
 template <> struct Cd<__nv_bfloat16> {
@@ -50,21 +51,36 @@ template <> struct Cd<__nv_bfloat16> {
                                              size_t i) {
     return __bfloat162float(p[i]);
   }
-  static __device__ __forceinline__ void st(__nv_bfloat16* p, size_t i,
-                                            float v) {
-    p[i] = __float2bfloat16_rn(v);
-  }
 };
 
-// one elementwise op in the working type T
-template <typename T>
-__device__ __forceinline__ float mul(float a, float b) {
-  return Cd<T>::rnd(__fmul_rn(a, b));
-}
-template <typename T>
-__device__ __forceinline__ float add(float a, float b) {
-  return Cd<T>::rnd(__fadd_rn(a, b));
-}
+// Arithmetic of the [row, C]-wide elementwise ops: values V, each op
+// rounded to the working type.  w() makes a per-row weight (an f32
+// scalar) a V.  F32: one float32 channel.  Bf2: two bf16 channels in one
+// register, packed multiplies and adds that round once to bf16: the
+// product of two bf16 is exact in f32, so mul equals "f32 op, then round";
+// add rounds the exact sum once where "f32 add, then round" rounds twice,
+// one bf16 ulp apart on rare ties, inside the kernels' tolerance.  The
+// _rn forms keep nvcc from contracting a mul and an add into an fma.
+struct F32 {
+  using V = float;
+  static __device__ __forceinline__ V w(float x) { return x; }
+  static __device__ __forceinline__ V zero() { return 0.f; }
+  static __device__ __forceinline__ V mul(V a, V b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ V add(V a, V b) { return __fadd_rn(a, b); }
+};
+struct Bf2 {
+  using V = __nv_bfloat162;
+  static __device__ __forceinline__ V w(float x) {
+    return __float2bfloat162_rn(x);
+  }
+  static __device__ __forceinline__ V zero() {
+    return __float2bfloat162_rn(0.f);
+  }
+  static __device__ __forceinline__ V mul(V a, V b) { return __hmul2_rn(a, b); }
+  static __device__ __forceinline__ V add(V a, V b) { return __hadd2_rn(a, b); }
+};
+
+template <typename A> using Val = typename A::V;
 
 // hat (linear B-spline) weight of patch slot k at shifted coordinate r
 __device__ __forceinline__ float hat(float r, int k) {
@@ -95,9 +111,232 @@ struct MPtrs6 {
   void* p[6];
 };
 
-// Centre-point PE -> the S stencil-point PEs (trig addition, see
-// tenso_sdf._pe_rot_table), written as X columns [3C, 3C+E) and the zero
-// pad [3C+E, XW) for local row r.  pe already holds T-rounded values.
+template <int S> struct Var {
+  static constexpr int NPV = (S > 1) ? 5 : 1;   // plane tap variants
+  static constexpr int NLV = (S > 1) ? 3 : 1;   // line tap variants
+};
+
+// The fr lanes of one row, mip branch and plane.
+struct Frac {
+  float wgt, fu, fv, su, sv, fx, sx;
+};
+__device__ __forceinline__ Frac load_frac(const float* f, int i) {
+  Frac q;
+  q.wgt = f[9];
+  q.fu = f[2 * i];
+  q.fv = f[2 * i + 1];
+  q.su = f[10 + 2 * i];
+  q.sv = f[11 + 2 * i];
+  q.fx = f[6 + i];
+  q.sx = f[16 + i];
+  return q;
+}
+
+// Plane tap variants of one channel from its 16 patch slots sl: centre,
+// u+, u-, v+, v- (factorised separable form of `_variants`).
+template <typename A, int S>
+__device__ __forceinline__ void plane_variants(const Val<A> (&sl)[16],
+                                               const Frac& q,
+                                               Val<A> (&pv)[Var<S>::NPV]) {
+  const Val<A> wv0[2] = {A::w(__fmul_rn(q.wgt, hat(q.fv, 0))),
+                         A::w(__fmul_rn(q.wgt, hat(q.fv, 1)))};
+  // Rv[ku] = sum_kv wv0[kv] * slot(ku, kv)
+  Val<A> rv[4];
+#pragma unroll
+  for (int ku = -1; ku <= 2; ++ku)
+    rv[ku + 1] = A::add(A::mul(wv0[0], sl[(ku + 1) * 4 + 1]),
+                        A::mul(wv0[1], sl[(ku + 1) * 4 + 2]));
+  pv[0] = A::add(A::mul(A::w(hat(q.fu, 0)), rv[1]),
+                 A::mul(A::w(hat(q.fu, 1)), rv[2]));
+  if constexpr (S > 1) {
+#pragma unroll
+    for (int sg = 0; sg < 2; ++sg) {       // u+, u-
+      const float ru_ = __fadd_rn(q.fu, sg == 0 ? q.su : -q.su);
+      Val<A> acc = A::mul(A::w(hat(ru_, -1)), rv[0]);
+#pragma unroll
+      for (int ku = 0; ku <= 2; ++ku)
+        acc = A::add(acc, A::mul(A::w(hat(ru_, ku)), rv[ku + 1]));
+      pv[1 + sg] = acc;
+    }
+    const Val<A> wu0[2] = {A::w(__fmul_rn(q.wgt, hat(q.fu, 0))),
+                           A::w(__fmul_rn(q.wgt, hat(q.fu, 1)))};
+    Val<A> ru[4];
+#pragma unroll
+    for (int kv = -1; kv <= 2; ++kv)
+      ru[kv + 1] = A::add(A::mul(wu0[0], sl[1 * 4 + kv + 1]),
+                          A::mul(wu0[1], sl[2 * 4 + kv + 1]));
+#pragma unroll
+    for (int sg = 0; sg < 2; ++sg) {       // v+, v-
+      const float rvv = __fadd_rn(q.fv, sg == 0 ? q.sv : -q.sv);
+      Val<A> acc = A::mul(A::w(hat(rvv, -1)), ru[0]);
+#pragma unroll
+      for (int kv = 0; kv <= 2; ++kv)
+        acc = A::add(acc, A::mul(A::w(hat(rvv, kv)), ru[kv + 1]));
+      pv[3 + sg] = acc;
+    }
+  }
+}
+
+// Line tap variants of one channel from its 4 line slots: centre, +, -.
+template <typename A, int S>
+__device__ __forceinline__ void line_variants(const Val<A> (&ls)[4],
+                                              const Frac& q,
+                                              Val<A> (&lv)[Var<S>::NLV]) {
+  const Val<A> wgt_b = A::w(q.wgt);
+#pragma unroll
+  for (int v = 0; v < Var<S>::NLV; ++v) {
+    Val<A> tap;
+    if (v == 0) {
+      tap = A::add(A::mul(A::w(hat(q.fx, 0)), ls[1]),
+                   A::mul(A::w(hat(q.fx, 1)), ls[2]));
+    } else {
+      const float rx = __fadd_rn(q.fx, v == 1 ? q.sx : -q.sx);
+      tap = A::mul(A::w(hat(rx, -1)), ls[0]);
+#pragma unroll
+      for (int k = 0; k <= 2; ++k)
+        tap = A::add(tap, A::mul(A::w(hat(rx, k)), ls[k + 1]));
+    }
+    lv[v] = A::mul(wgt_b, tap);
+  }
+}
+
+// X columns of plane i for the S stencil points: variant products.
+template <typename A, int S>
+__device__ __forceinline__ void x_products(int i,
+                                           const Val<A> (&pv)[Var<S>::NPV],
+                                           const Val<A> (&lv)[Var<S>::NLV],
+                                           Val<A> (&x)[S]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    int a, l;
+    stencil_map(s, i, &a, &l);
+    x[s] = A::mul(pv[a], lv[l]);
+  }
+}
+
+// Product rule: the variant cotangents of plane i from dX (dx[s], already
+// rounded to the working type).
+template <typename A, int S>
+__device__ __forceinline__ void product_rule(int i, const Val<A> (&dx)[S],
+                                             const Val<A> (&pv)[Var<S>::NPV],
+                                             const Val<A> (&lv)[Var<S>::NLV],
+                                             Val<A> (&dPV)[Var<S>::NPV],
+                                             Val<A> (&dLV)[Var<S>::NLV]) {
+#pragma unroll
+  for (int v = 0; v < Var<S>::NPV; ++v) dPV[v] = A::zero();
+#pragma unroll
+  for (int v = 0; v < Var<S>::NLV; ++v) dLV[v] = A::zero();
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    int a, l;
+    stencil_map(s, i, &a, &l);
+    const Val<A> dxi = dx[s];
+    dPV[a] = A::add(dPV[a], A::mul(dxi, lv[l]));
+    dLV[l] = A::add(dLV[l], A::mul(dxi, pv[a]));
+  }
+}
+
+// Transposed hat weights: plane variant cotangents -> the 16 patch slots.
+template <typename A, int S>
+__device__ __forceinline__ void route_plane(const Val<A> (&dPV)[Var<S>::NPV],
+                                            const Frac& q, Val<A> (&g)[16]) {
+  const Val<A> wv0[2] = {A::w(__fmul_rn(q.wgt, hat(q.fv, 0))),
+                         A::w(__fmul_rn(q.wgt, hat(q.fv, 1)))};
+  const Val<A> wu0[2] = {A::w(__fmul_rn(q.wgt, hat(q.fu, 0))),
+                         A::w(__fmul_rn(q.wgt, hat(q.fu, 1)))};
+  // dRv[ku]: centre and u-shifted variants (shared centre-v weights)
+  Val<A> drv[4] = {A::zero(), A::zero(), A::zero(), A::zero()};
+  drv[1] = A::mul(A::w(hat(q.fu, 0)), dPV[0]);
+  drv[2] = A::mul(A::w(hat(q.fu, 1)), dPV[0]);
+  Val<A> dru[4] = {A::zero(), A::zero(), A::zero(), A::zero()};
+  if constexpr (S > 1) {
+#pragma unroll
+    for (int sg = 0; sg < 2; ++sg) {
+      const float ru_ = __fadd_rn(q.fu, sg == 0 ? q.su : -q.su);
+#pragma unroll
+      for (int ku = -1; ku <= 2; ++ku)
+        drv[ku + 1] = A::add(drv[ku + 1],
+                             A::mul(A::w(hat(ru_, ku)), dPV[1 + sg]));
+    }
+#pragma unroll
+    for (int sg = 0; sg < 2; ++sg) {
+      const float rvv = __fadd_rn(q.fv, sg == 0 ? q.sv : -q.sv);
+#pragma unroll
+      for (int kv = -1; kv <= 2; ++kv)
+        dru[kv + 1] = A::add(dru[kv + 1],
+                             A::mul(A::w(hat(rvv, kv)), dPV[3 + sg]));
+    }
+  }
+#pragma unroll
+  for (int ku = -1; ku <= 2; ++ku) {
+#pragma unroll
+    for (int kv = -1; kv <= 2; ++kv) {
+      Val<A> v = A::zero();
+      if (kv == 0 || kv == 1) v = A::mul(wv0[kv == 1 ? 1 : 0], drv[ku + 1]);
+      if (S > 1 && (ku == 0 || ku == 1))
+        v = A::add(v, A::mul(wu0[ku == 1 ? 1 : 0], dru[kv + 1]));
+      g[(ku + 1) * 4 + kv + 1] = v;
+    }
+  }
+}
+
+// The same for the line variants -> the 4 line slots.
+template <typename A, int S>
+__device__ __forceinline__ void route_line(const Val<A> (&dLV)[Var<S>::NLV],
+                                           const Frac& q,
+                                           Val<A> (&dline)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) dline[k] = A::zero();
+  const Val<A> wgt_b = A::w(q.wgt);
+#pragma unroll
+  for (int v = 0; v < Var<S>::NLV; ++v) {
+    const Val<A> g = A::mul(wgt_b, dLV[v]);
+    if (v == 0) {
+      dline[1] = A::add(dline[1], A::mul(A::w(hat(q.fx, 0)), g));
+      dline[2] = A::add(dline[2], A::mul(A::w(hat(q.fx, 1)), g));
+    } else {
+      const float rx = __fadd_rn(q.fx, v == 1 ? q.sx : -q.sx);
+#pragma unroll
+      for (int k = -1; k <= 2; ++k)
+        dline[k + 1] = A::add(dline[k + 1],
+                              A::mul(A::w(hat(rx, k)), g));
+    }
+  }
+}
+
+// PE of stencil point s from the centre PE p0 and its rolls by -3 / +3
+// (trig addition, see tenso_sdf._pe_rot_table), rounded to T.
+template <typename T>
+__device__ __forceinline__ float pe_point(int s, int e, int E, float p0,
+                                          float pm3, float pp3,
+                                          const float* rot) {
+  if (s == 0) return Cd<T>::rnd(p0);
+  const float* R = rot + (size_t)s * 4 * E;
+  return Cd<T>::rnd(__fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(p0, R[e]), __fmul_rn(pm3, R[E + e])),
+                __fmul_rn(pp3, R[2 * E + e])),
+      R[3 * E + e]));
+}
+
+// softplus(beta=100) of z = zs / 100 and its derivative
+__device__ __forceinline__ void softplus100(float zs, float* h, float* sig) {
+  const float e = expf(-fabsf(zs));
+  *h = (fmaxf(zs, 0.f) + log1pf(e)) / 100.f;
+  *sig = (zs >= 0.f ? 1.f : e) / (1.f + e);
+}
+// The same from the special-function unit (ex2, lg2, rcp: relative error
+// ~1e-6 before the result is rounded to bf16, which keeps 8 bits).
+__device__ __forceinline__ void softplus100_fast(float zs, float* h,
+                                                 float* sig) {
+  const float e = __expf(-fabsf(zs));
+  *h = (fmaxf(zs, 0.f) + __logf(1.f + e)) * 0.01f;
+  *sig = __fdividef(zs >= 0.f ? 1.f : e, 1.f + e);
+}
+
+// ---- float32 kernels: 8-row tiles ---------------------------------------
+
+// Centre-point PE -> the S stencil-point PEs, written as X columns
+// [3C, 3C+E) for local row r.  pe already holds T-rounded values.
 template <typename T, int S>
 __device__ __forceinline__ void fill_pe(float* Xs, int r, int e, int C,
                                         int E, int XW, const T* pe,
@@ -109,158 +348,44 @@ __device__ __forceinline__ void fill_pe(float* Xs, int r, int e, int C,
     pp3 = Cd<T>::ld(pe, (size_t)row * E + (e + E - 3) % E);
   }
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    float v = p0;
-    if (s > 0) {
-      const float* R = rot + (size_t)s * 4 * E;
-      v = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p0, R[e]),
-                                        __fmul_rn(pm3, R[E + e])),
-                              __fmul_rn(pp3, R[2 * E + e])),
-                    R[3 * E + e]);
-    }
-    Xs[(s * TN + r) * XW + 3 * C + e] = Cd<T>::rnd(v);
-  }
+  for (int s = 0; s < S; ++s)
+    Xs[(s * TN + r) * XW + 3 * C + e] =
+        pe_point<T>(s, e, E, p0, pm3, pp3, rot);
 }
 
-// The tile's S*TN rows (row s*TN + r: stencil point s of local row r),
-// padded to whole 16-row tiles of the tensor-core path.
+// z = X.W0 + b0 for the tile's rows: warp = local row, lane + 32c = hidden
+// column, acc[s][c].  W0 is staged KC rows at a time in W0c (stride WS).
 template <int S>
-struct Rows {
-  static constexpr int MT = (S * TN + 15) / 16;   // 16-row tiles
-  static constexpr int MR = MT * 16;               // padded rows
-  static constexpr int SP = 2 * MT;                // stencil slots held (>= S)
-};
-
-// Who holds which layer-0 output: every thread holds, for one local row
-// and all stencil points, H/32 hidden columns c -> col(c).  float32 (FMA
-// path): warp = row, lane + 32c = column.  bf16 (tensor-core path): the
-// m16n8k16 accumulator layout, rows lane/4, warp w owning columns
-// [w*H/8, (w+1)*H/8).  slot() numbers the 32 threads sharing a row.
-template <typename T> struct Own;
-template <> struct Own<float> {
-  static __device__ __forceinline__ int row(int lane, int warp) {
-    return warp;
-  }
-  static __device__ __forceinline__ int slot(int lane, int warp) {
-    return lane;
-  }
-  static __device__ __forceinline__ int col(int c, int H, int lane,
-                                            int warp) {
-    return lane + 32 * c;
-  }
-};
-template <> struct Own<__nv_bfloat16> {
-  static __device__ __forceinline__ int row(int lane, int warp) {
-    return lane >> 2;
-  }
-  static __device__ __forceinline__ int slot(int lane, int warp) {
-    return warp * 4 + (lane & 3);
-  }
-  static __device__ __forceinline__ int col(int c, int H, int lane,
-                                            int warp) {
-    return 8 * (warp * (H / 64) + (c >> 1)) + 2 * (lane & 3) + (c & 1);
-  }
-};
-
-// Two consecutive bf16 as one 32-bit register.
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t ldg_pair(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// d += A.B on the tensor cores: A 16x16 (row), B 16x8 (col), bf16 in,
-// f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float& d0, float& d1, float& d2,
-                                         float& d3, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows [16mt, 16mt+16) and columns [k0, k0+16) of a
-// row-major bf16 matrix in shared memory with row stride ld.
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4],
-                                     const __nv_bfloat16* m, int ld, int mt,
-                                     int k0, int lane) {
-  const __nv_bfloat16* p = m + (16 * mt + (lane >> 2)) * ld + k0 +
-                           2 * (lane & 3);
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * ld);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * ld + 8);
-}
-
-// z = X.W0 + b0 for the tile's rows, held as Own<T> says: acc[s][c].
-// float32: W0 staged KC rows at a time in W0c (stride WS), FMA.
-// bf16: X copied to Xb (bf16, rows padded to Rows<S>::MR, stride XW+8),
-// W0^T fragments read from w0t [H, XW] in device memory, mma.sync.
-template <typename T, int S>
-__device__ __forceinline__ void layer0(float (&acc)[Rows<S>::SP][JMAX],
-                                       const float* Xs, __nv_bfloat16* Xb,
-                                       float* W0c, int WS, const T* w0big,
-                                       const T* w0t, const float* b0, int XW,
-                                       int H, int lane, int warp, int tid) {
+__device__ __forceinline__ void layer0(float (&acc)[S][JMAX], const float* Xs,
+                                       float* W0c, int WS,
+                                       const float* w0big, const float* b0,
+                                       int XW, int H, int lane, int warp,
+                                       int tid) {
   const int JN = H / 32;
 #pragma unroll
   for (int c = 0; c < JMAX; ++c) {
-    const float b = (c < JN) ? b0[Own<T>::col(c, H, lane, warp)] : 0.f;
+    const float b = (c < JN) ? b0[lane + 32 * c] : 0.f;
 #pragma unroll
-    for (int s = 0; s < Rows<S>::SP; ++s) acc[s][c] = b;
+    for (int s = 0; s < S; ++s) acc[s][c] = b;
   }
-  if constexpr (std::is_same<T, float>::value) {
-    for (int k0 = 0; k0 < XW; k0 += KC) {
-      __syncthreads();
-      for (int idx = tid; idx < KC * H; idx += NT) {
-        const int kk = idx / H, j = idx % H;
-        W0c[kk * WS + j] = w0big[(size_t)(k0 + kk) * H + j];
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        float x[S];
-#pragma unroll
-        for (int s = 0; s < S; ++s) x[s] = Xs[(s * TN + warp) * XW + k0 + kk];
-#pragma unroll
-        for (int c = 0; c < JMAX; ++c) {
-          if (c < JN) {
-            const float w = W0c[kk * WS + lane + 32 * c];
-#pragma unroll
-            for (int s = 0; s < S; ++s) acc[s][c] = fmaf(x[s], w, acc[s][c]);
-          }
-        }
-      }
-    }
-  } else {
-    constexpr int MT = Rows<S>::MT;
-    const int XB = XW + 8;
-    __syncthreads();                          // X is complete
-    for (int idx = tid; idx < MT * 16 * XW; idx += NT) {
-      const int row = idx / XW, k = idx % XW;
-      Xb[row * XB + k] =
-          __float2bfloat16_rn(row < S * TN ? Xs[row * XW + k] : 0.f);
+  for (int k0 = 0; k0 < XW; k0 += KC) {
+    __syncthreads();
+    for (int idx = tid; idx < KC * H; idx += NT) {
+      const int kk = idx / H, j = idx % H;
+      W0c[kk * WS + j] = w0big[(size_t)(k0 + kk) * H + j];
     }
     __syncthreads();
-    const int ntw = H / 64;                   // 8-column tiles per warp
-    for (int k0 = 0; k0 < XW; k0 += 16) {
-      uint32_t a[MT][4];
+#pragma unroll 4
+    for (int kk = 0; kk < KC; ++kk) {
+      float x[S];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) ld_a(a[mt], Xb, XB, mt, k0, lane);
+      for (int s = 0; s < S; ++s) x[s] = Xs[(s * TN + warp) * XW + k0 + kk];
 #pragma unroll
-      for (int nt = 0; nt < JMAX / 2; ++nt) {
-        if (nt < ntw) {
-          const T* bp = w0t + (size_t)(8 * (warp * ntw + nt) + (lane >> 2)) *
-                                  XW + k0 + 2 * (lane & 3);
-          const uint32_t b0r = ldg_pair(bp), b1r = ldg_pair(bp + 8);
+      for (int c = 0; c < JMAX; ++c) {
+        if (c < JN) {
+          const float w = W0c[kk * WS + lane + 32 * c];
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma_bf16(acc[2 * mt][2 * nt], acc[2 * mt][2 * nt + 1],
-                     acc[2 * mt + 1][2 * nt], acc[2 * mt + 1][2 * nt + 1],
-                     a[mt], b0r, b1r);
+          for (int s = 0; s < S; ++s) acc[s][c] = fmaf(x[s], w, acc[s][c]);
         }
       }
     }

@@ -11,32 +11,47 @@
 //
 // Bound on the H100: bytes.  Per row it must read V, fr, pe and the
 // output cotangents and write dP, dL and dpe (~7 KB at C=36 in bf16);
-// its ~1.5 MFLOP per row sits below the card's op:byte balance.  In this
-// version the per-tile phases, their barriers and the workspace round
-// trip take most of the time, not the products.
+// its ~1.5 MFLOP per row sits below the card's op:byte balance.
 //
 // Cross-tile sums: the TPU kernel carries the weight gradients in
 // resident outputs across a SEQUENTIAL grid.  Hopper blocks run in no
-// order, so the sums over rows are taken in three deterministic steps
-// (no atomics; against the plain version only the f32 summation order
-// differs):
-//   1. stencil_bwd_rows — persistent blocks (two per SM) walk 8-row
-//      tiles.  Per tile: V -> X in shared memory, layer 0 (layer0 in
-//      stencil_common.cuh), softplus and its derivative, dz =
-//      (dh * sigmoid).T, dX = dz.W0^T (bf16: tensor cores, W0 fragments
-//      from device memory; float32: FMAs, W0^T staged 32 hidden columns
-//      at a time), then the product rule, hat-weight routing and the PE
-//      adjoint.  It writes X, dz and the centre h (all already T-rounded,
-//      so storing them in T is exact) to a workspace, and keeps each
-//      thread's db0 / dw1row sums in registers across its tiles.
-//   2. stencil_bwd_atb(_mma) — dW0 = X^T.dz and dW1 = h^T.g_c as split-K
-//      products: one partial [M, N] per K chunk, 64x64 output tiles
-//      (bf16: tensor cores, three blocks per SM to hide the load latency;
-//      float32: 4x4 FMA outputs per thread).
-//   3. stencil_bwd_colsum — sums the partials (and the per-thread db0 /
-//      dw1row sums) in a fixed order.
-// The bf16 rounding points of the TPU kernel are kept op by op.
+// order, so the sums over rows are taken in deterministic steps (no
+// atomics; against the plain version only the f32 summation order
+// differs): a row kernel that leaves X, dz, the centre h and the rounded
+// centre cotangent in a workspace, products over that workspace with one
+// partial per block, and fixed-order column sums of the partials.
+//
+// bf16 (the training path):
+//   1. stencil_bwd_rows_bf16 — one persistent block of two warpgroups per
+//      SM walks tiles of 128 X rows (row s*16 + r, as the forward).  W0
+//      and W1 arrive once per block by bulk copies, in wgmma's operand
+//      layout (stencil_sm90.cuh); the one copy of W0 serves z = X.W0
+//      (MN-major view) and dX = dz.W0^T (K-major view), W1 serves
+//      dh = g.W1^T.  X is written once as bf16 in operand layout and
+//      leaves for the workspace as one bulk store; its last column is
+//      all ones, so that db0 falls out of the dW0 product.  softplus' and
+//      dz run on the accumulator fragment; dz goes to the workspace in
+//      operand layout with 128-byte coalesced stores and, packed, is the
+//      A fragment of dX (m64 n144 from registers).  dX returns through
+//      shared memory to the (row, plane, 4 channels) threads that apply
+//      the product rule and route to dP / dL with 8-byte stores.
+//   2. stencil_bwd_atb_bf16 — dW0^T = dz^T.X and dW1 = h^T.g over the
+//      workspace: four warpgroups (m64 n144 each), tiles read back by bulk
+//      copies into a two-stage ring as MN-major operands, one partial per
+//      block.  The weight gradients are not kept in the row kernel's
+//      registers: 256 x 144 f32 beside the z and dX fragments does not
+//      fit 64K registers.
+//   3. stencil_bwd_colsum — fixed-order sums of the partials.
+// float32: 8-row tiles, FMA products (stencil_bwd_rows_f32,
+// stencil_bwd_atb_f32), held to the plain version in float64.
+// Both paths call the same tap arithmetic (stencil_common.cuh) and keep
+// the TPU kernel's bf16 rounding points op by op.
+//
+// -DSH_SKIP_TAPS / -DSH_SKIP_SOFTPLUS / -DSH_SKIP_WORKSPACE leave a phase of
+// the bf16 row kernel out: wrong results, built only by
+// bench/stencil_phases.py to time the rest.
 #include "stencil_common.cuh"
+#include "stencil_sm90.cuh"
 
 using namespace sh;
 
@@ -45,7 +60,6 @@ namespace {
 constexpr int JC = 32;     // hidden columns of W0^T staged per chunk (dX)
 constexpr int KMAX = 6;    // X columns per lane in dX (XW <= 192)
 constexpr int BM = 64, BN = 64, BK = 16;   // split-K product tiles (FMA)
-constexpr int AK = 32;                      // K rows per stage (tensor cores)
 constexpr int NSPLIT = 64;                  // K chunks of the products
 
 __host__ __device__ inline int wc_floats(int H, int XW) {
@@ -53,65 +67,56 @@ __host__ __device__ inline int wc_floats(int H, int XW) {
   return a > b ? a : b;
 }
 
-// Floats of the W0 staging area (float32) or of X in bf16 (bf16 path).
-template <typename T, int S>
-__host__ __device__ inline int operand_floats(int H, int XW) {
-  return std::is_same<T, float>::value ? wc_floats(H, XW)
-                                       : Rows<S>::MR * (XW + 8) / 2;
-}
-
-template <typename T, int S>
-__host__ __device__ inline size_t rows_smem(int C, int E, int H, int O,
-                                            int XW) {
-  constexpr int NPV = (S > 1) ? 5 : 1;
-  constexpr int NLV = (S > 1) ? 3 : 1;
-  const int VW = (NPV + NLV) * 3 * C;
-  const size_t f = (size_t)S * TN * XW + operand_floats<T, S>(H, XW) +
-                   TN * O + (S > 1 ? S - 1 : 1) * TN;
-  return 4 * f + sizeof(T) * ((size_t)TN * VW +
-                              (size_t)Rows<S>::MR * (H + 8));
+template <int S>
+__host__ __device__ inline size_t rows_smem_f32(int C, int H, int O, int XW) {
+  const int VW = (Var<S>::NPV + Var<S>::NLV) * 3 * C;
+  return 4 * ((size_t)S * TN * XW + wc_floats(H, XW) + TN * O +
+              (S > 1 ? S - 1 : 1) * TN + (size_t)TN * VW +
+              (size_t)S * TN * H);
 }
 
 }  // namespace
 
-template <typename T, int S, int B>
+// ---------------------------------------------------------------------------
+// float32
+// ---------------------------------------------------------------------------
+
+template <int S, int B>
 __global__ void __launch_bounds__(NT, 2)
-stencil_bwd_rows(int N, int C, int E, int H, int O, int XW,
-                 const float* __restrict__ fr, const T* __restrict__ V,
-                 const T* __restrict__ pe, const float* __restrict__ rot,
-                 const T* __restrict__ w0big, const T* __restrict__ w0t,
-                 const float* __restrict__ b0,
-                 const T* __restrict__ w1t, const T* __restrict__ w1row,
-                 const float* __restrict__ g_c,
-                 const float* __restrict__ g_off, MPtrs6 dP, MPtrs6 dL,
-                 float* __restrict__ dpe, T* __restrict__ xg,
-                 T* __restrict__ dzg, T* __restrict__ hg,
-                 float* __restrict__ p_db0, float* __restrict__ p_dw1row) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int NPV = (S > 1) ? 5 : 1;
-  constexpr int NLV = (S > 1) ? 3 : 1;
+stencil_bwd_rows_f32(int N, int C, int E, int H, int O, int XW,
+                     const float* __restrict__ fr,
+                     const float* __restrict__ V,
+                     const float* __restrict__ pe,
+                     const float* __restrict__ rot,
+                     const float* __restrict__ w0big,
+                     const float* __restrict__ b0,
+                     const float* __restrict__ w1t,
+                     const float* __restrict__ w1row,
+                     const float* __restrict__ g_c,
+                     const float* __restrict__ g_off, MPtrs6 dP, MPtrs6 dL,
+                     float* __restrict__ dpe, float* __restrict__ xg,
+                     float* __restrict__ dzg, float* __restrict__ hg,
+                     float* __restrict__ p_db0,
+                     float* __restrict__ p_dw1row) {
+  using T = float;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int NPV = Var<S>::NPV, NLV = Var<S>::NLV;
   const int VW = (NPV + NLV) * 3 * C;
-  constexpr int MR = Rows<S>::MR;
   float* Xs = reinterpret_cast<float*>(smem_raw);   // [S*TN, XW] X, then dX
-  float* Wc = Xs + S * TN * XW;              // float32: W0 chunks
-  __nv_bfloat16* Xb = reinterpret_cast<__nv_bfloat16*>(Wc);  // bf16: X
-  float* gcs = Wc + operand_floats<T, S>(H, XW);   // [TN, O]
+  float* Wc = Xs + S * TN * XW;              // W0 / W0^T chunks
+  float* gcs = Wc + wc_floats(H, XW);        // [TN, O]
   float* gos = gcs + TN * O;                 // [S-1 (>=1), TN]
-  T* Vs = reinterpret_cast<T*>(gos + (S > 1 ? S - 1 : 1) * TN);  // [TN, VW]
-  T* dzs = Vs + TN * VW;                     // [MR, DZW] dz in T
-  const int DZW = H + 8;                     // row stride of dzs
+  float* Vs = gos + (S > 1 ? S - 1 : 1) * TN;   // [TN, VW]
+  float* dzs = Vs + TN * VW;                 // [S*TN, H]
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int JN = H / 32;
-  const int zr = Own<T>::row(lane, warp);    // this thread's row of z / dz
+  const int zr = warp;                       // this thread's row of z / dz
   const int XWP = XW + 1;                    // padded stride of W0^T chunks
   const int n_tiles = (N + TN - 1) / TN;
   float db_acc[JMAX], w1r_acc[JMAX];
 #pragma unroll
   for (int c = 0; c < JMAX; ++c) db_acc[c] = w1r_acc[c] = 0.f;
-  // pad rows of dz: read as zeros by the tensor-core dX, never written
-  for (int idx = tid; idx < (MR - S * TN) * DZW; idx += NT)
-    dzs[S * TN * DZW + idx] = T(0.f);
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TN;
@@ -122,12 +127,11 @@ stencil_bwd_rows(int N, int C, int E, int H, int O, int XW,
 #pragma unroll 4
     for (int idx = tid; idx < TN * VW; idx += NT) {
       const size_t g = (size_t)row0 * VW + idx;
-      Vs[idx] = g < v_end ? V[g] : T(0.f);
+      Vs[idx] = g < v_end ? V[g] : 0.f;
     }
     for (int idx = tid; idx < TN * O; idx += NT) {
       const int rr = idx / O;
-      gcs[idx] = (row0 + rr < N)
-                     ? Cd<T>::rnd(g_c[(size_t)row0 * O + idx]) : 0.f;
+      gcs[idx] = (row0 + rr < N) ? g_c[(size_t)row0 * O + idx] : 0.f;
     }
     if (S > 1) {
       for (int idx = tid; idx < (S - 1) * TN; idx += NT) {
@@ -139,17 +143,18 @@ stencil_bwd_rows(int N, int C, int E, int H, int O, int XW,
     // ---- rebuild X ----------------------------------------------------
     for (int idx = tid; idx < TN * C; idx += NT) {
       const int rr = idx / C, c = idx % C;
-      const T* vr = Vs + rr * VW;
+      const float* vr = Vs + rr * VW;
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
+      for (int i = 0; i < 3; ++i) {
+        float pv[NPV], lv[NLV], x[S];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          int a, l;
-          stencil_map(s, i, &a, &l);
-          Xs[(s * TN + rr) * XW + i * C + c] =
-              mul<T>(Cd<T>::ld(vr, (i * NPV + a) * C + c),
-                     Cd<T>::ld(vr, 3 * NPV * C + (i * NLV + l) * C + c));
-        }
+        for (int v = 0; v < NPV; ++v) pv[v] = vr[(i * NPV + v) * C + c];
+#pragma unroll
+        for (int v = 0; v < NLV; ++v)
+          lv[v] = vr[3 * NPV * C + (i * NLV + v) * C + c];
+        x_products<F32, S>(i, pv, lv, x);
+#pragma unroll
+        for (int s = 0; s < S; ++s) Xs[(s * TN + rr) * XW + i * C + c] = x[s];
       }
     }
     for (int idx = tid; idx < TN * E; idx += NT) {
@@ -161,11 +166,10 @@ stencil_bwd_rows(int N, int C, int E, int H, int O, int XW,
       Xs[(idx / padw) * XW + 3 * C + E + idx % padw] = 0.f;
 
     // ---- layer 0; X to the workspace ---------------------------------
-    float acc[Rows<S>::SP][JMAX];
-    layer0<T, S>(acc, Xs, Xb, Wc, H + 1, w0big, w0t, b0, XW, H, lane, warp,
-                 tid);
+    float acc[S][JMAX];
+    layer0<S>(acc, Xs, Wc, H + 1, w0big, b0, XW, H, lane, warp, tid);
     for (int idx = tid; idx < S * TN * XW; idx += NT)
-      Cd<T>::st(xg, xrow0 * XW + idx, Xs[idx]);
+      xg[xrow0 * XW + idx] = Xs[idx];
 
     // ---- softplus', layer 1 backward -> dz ---------------------------
     float dh[JMAX];
@@ -175,123 +179,70 @@ stencil_bwd_rows(int N, int C, int E, int H, int O, int XW,
       const float g = gcs[zr * O + o];
 #pragma unroll
       for (int c = 0; c < JMAX; ++c)
-        if (c < JN)
-          dh[c] = fmaf(g, Cd<T>::ld(w1t, (size_t)o * H +
-                                             Own<T>::col(c, H, lane, warp)),
-                       dh[c]);
+        if (c < JN) dh[c] = fmaf(g, w1t[(size_t)o * H + lane + 32 * c], dh[c]);
     }
 #pragma unroll
     for (int c = 0; c < JMAX; ++c) {
       if (c < JN) {
-        const int j = Own<T>::col(c, H, lane, warp);
-        const float w1r = (S > 1) ? Cd<T>::ld(w1row, j) : 0.f;
+        const int j = lane + 32 * c;
+        const float w1r = (S > 1) ? w1row[j] : 0.f;
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-          const float zs = 100.f * acc[s][c];
-          const float e = expf(-fabsf(zs));
-          const float h = Cd<T>::rnd((fmaxf(zs, 0.f) + log1pf(e)) / 100.f);
-          const float sig = (zs >= 0.f ? 1.f : e) / (1.f + e);
-          float dz;
+          float h, sig, dz;
+          softplus100(100.f * acc[s][c], &h, &sig);
           if (s == 0) {
-            Cd<T>::st(hg, (size_t)(row0 + zr) * H + j, h);
-            dz = Cd<T>::rnd(dh[c] * sig);
+            hg[(size_t)(row0 + zr) * H + j] = h;
+            dz = dh[c] * sig;
           } else {
             const float go = gos[(s - 1) * TN + zr];
             w1r_acc[c] = fmaf(h, go, w1r_acc[c]);
-            dz = Cd<T>::rnd(go * w1r * sig);
+            dz = go * w1r * sig;
           }
           db_acc[c] += dz;
-          Cd<T>::st(dzs, (size_t)(s * TN + zr) * DZW + j, dz);
-          Cd<T>::st(dzg, (xrow0 + s * TN + zr) * H + j, dz);
+          dzs[(size_t)(s * TN + zr) * H + j] = dz;
+          dzg[(xrow0 + s * TN + zr) * H + j] = dz;
         }
       }
     }
 
-    // ---- dX = dz . W0^T -> Xs -----------------------------------------
-    if constexpr (std::is_same<T, float>::value) {
-      // warp = row (its S points), lanes = X columns; W0^T staged in Wc
-      float dx[S][KMAX];
+    // ---- dX = dz . W0^T -> Xs: warp = row (its S points), lanes = X
+    // columns; W0^T staged in Wc ----------------------------------------
+    float dx[S][KMAX];
 #pragma unroll
-      for (int s = 0; s < S; ++s)
+    for (int s = 0; s < S; ++s)
 #pragma unroll
-        for (int kk = 0; kk < KMAX; ++kk) dx[s][kk] = 0.f;
-      for (int j0 = 0; j0 < H; j0 += JC) {
-        __syncthreads();
-        for (int idx = tid; idx < XW * JC; idx += NT) {
-          const int k = idx / JC, jc = idx % JC;
-          Wc[jc * XWP + k] = w0big[(size_t)k * H + j0 + jc];
-        }
-        __syncthreads();
+      for (int kk = 0; kk < KMAX; ++kk) dx[s][kk] = 0.f;
+    for (int j0 = 0; j0 < H; j0 += JC) {
+      __syncthreads();
+      for (int idx = tid; idx < XW * JC; idx += NT) {
+        const int k = idx / JC, jc = idx % JC;
+        Wc[jc * XWP + k] = w0big[(size_t)k * H + j0 + jc];
+      }
+      __syncthreads();
 #pragma unroll 4
-        for (int jc = 0; jc < JC; ++jc) {
-          float d[S];
+      for (int jc = 0; jc < JC; ++jc) {
+        float d[S];
 #pragma unroll
-          for (int s = 0; s < S; ++s)
-            d[s] = dzs[(size_t)(s * TN + warp) * DZW + j0 + jc];
+        for (int s = 0; s < S; ++s)
+          d[s] = dzs[(size_t)(s * TN + warp) * H + j0 + jc];
 #pragma unroll
-          for (int kk = 0; kk < KMAX; ++kk) {
-            const int k = lane + 32 * kk;
-            if (k < XW) {
-              const float w = Wc[jc * XWP + k];
+        for (int kk = 0; kk < KMAX; ++kk) {
+          const int k = lane + 32 * kk;
+          if (k < XW) {
+            const float w = Wc[jc * XWP + k];
 #pragma unroll
-              for (int s = 0; s < S; ++s)
-                dx[s][kk] = fmaf(d[s], w, dx[s][kk]);
-            }
+            for (int s = 0; s < S; ++s) dx[s][kk] = fmaf(d[s], w, dx[s][kk]);
           }
         }
       }
-      // Xs was last read before the chunk loop's barriers: overwrite it
+    }
+    // Xs was last read before the chunk loop's barriers: overwrite it
 #pragma unroll
-      for (int kk = 0; kk < KMAX; ++kk) {
-        const int k = lane + 32 * kk;
-        if (k < XW) {
+    for (int kk = 0; kk < KMAX; ++kk) {
+      const int k = lane + 32 * kk;
+      if (k < XW) {
 #pragma unroll
-          for (int s = 0; s < S; ++s) Xs[(s * TN + warp) * XW + k] = dx[s][kk];
-        }
-      }
-    } else {
-      // tensor cores: warp -> one 16-row tile of dz and every wpm-th
-      // 8-column tile of dX; W0 fragments read from w0big [XW, H]
-      constexpr int MT = Rows<S>::MT;
-      constexpr int WPM = (NT / 32) / MT;      // warps per 16-row tile
-      constexpr int NXMAX = (32 * KMAX / 8 + WPM - 1) / WPM;
-      const int mt = warp / WPM, part = warp % WPM;
-      const int nxt = XW / 8;
-      float dx[NXMAX][4];
-#pragma unroll
-      for (int i = 0; i < NXMAX; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) dx[i][q] = 0.f;
-      __syncthreads();                         // dz complete; X read
-      for (int j0 = 0; j0 < H; j0 += 16) {
-        uint32_t a[4];
-        ld_a(a, dzs, DZW, mt, j0, lane);
-#pragma unroll
-        for (int i = 0; i < NXMAX; ++i) {
-          const int n = part + i * WPM;
-          if (n < nxt) {
-            const T* bp = w0big + (size_t)(8 * n + (lane >> 2)) * H + j0 +
-                          2 * (lane & 3);
-            mma_bf16(dx[i][0], dx[i][1], dx[i][2], dx[i][3], a,
-                     ldg_pair(bp), ldg_pair(bp + 8));
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NXMAX; ++i) {
-        const int n = part + i * WPM;
-        if (n < nxt) {
-          const int row = 16 * mt + (lane >> 2);
-          const int k = 8 * n + 2 * (lane & 3);
-          if (row < S * TN) {
-            Xs[row * XW + k] = dx[i][0];
-            Xs[row * XW + k + 1] = dx[i][1];
-          }
-          if (row + 8 < S * TN) {
-            Xs[(row + 8) * XW + k] = dx[i][2];
-            Xs[(row + 8) * XW + k + 1] = dx[i][3];
-          }
-        }
+        for (int s = 0; s < S; ++s) Xs[(s * TN + warp) * XW + k] = dx[s][kk];
       }
     }
     __syncthreads();
@@ -300,91 +251,30 @@ stencil_bwd_rows(int N, int C, int E, int H, int O, int XW,
       const int rr = idx / C, c = idx % C;
       const int row = row0 + rr;
       if (row >= N) continue;
-      const T* vr = Vs + rr * VW;
+      const float* vr = Vs + rr * VW;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        float dPV[NPV], dLV[NLV];
+        float pv[NPV], lv[NLV], dxs[S], dPV[NPV], dLV[NLV];
 #pragma unroll
-        for (int v = 0; v < NPV; ++v) dPV[v] = 0.f;
+        for (int v = 0; v < NPV; ++v) pv[v] = vr[(i * NPV + v) * C + c];
 #pragma unroll
-        for (int v = 0; v < NLV; ++v) dLV[v] = 0.f;
+        for (int v = 0; v < NLV; ++v)
+          lv[v] = vr[3 * NPV * C + (i * NLV + v) * C + c];
 #pragma unroll
-        for (int s = 0; s < S; ++s) {
-          int a, l;
-          stencil_map(s, i, &a, &l);
-          const float dxi = Cd<T>::rnd(Xs[(s * TN + rr) * XW + i * C + c]);
-          const float pvv = Cd<T>::ld(vr, (i * NPV + a) * C + c);
-          const float lvv = Cd<T>::ld(vr, 3 * NPV * C + (i * NLV + l) * C + c);
-          dPV[a] = add<T>(dPV[a], mul<T>(dxi, lvv));
-          dLV[l] = add<T>(dLV[l], mul<T>(dxi, pvv));
-        }
+        for (int s = 0; s < S; ++s) dxs[s] = Xs[(s * TN + rr) * XW + i * C + c];
+        product_rule<F32, S>(i, dxs, pv, lv, dPV, dLV);
 #pragma unroll
         for (int b = 0; b < B; ++b) {
-          const float* f = fr + (size_t)row * 2 * FS + b * FS;
-          const float wgt = f[9];
-          const float fu = f[2 * i], fv = f[2 * i + 1];
-          const float su = f[10 + 2 * i], sv = f[11 + 2 * i];
-          const float fx = f[6 + i], sx = f[16 + i];
-          const float wv0[2] = {Cd<T>::rnd(__fmul_rn(wgt, hat(fv, 0))),
-                                Cd<T>::rnd(__fmul_rn(wgt, hat(fv, 1)))};
-          const float wu0[2] = {Cd<T>::rnd(__fmul_rn(wgt, hat(fu, 0))),
-                                Cd<T>::rnd(__fmul_rn(wgt, hat(fu, 1)))};
-          // dRv[ku]: centre and u-shifted variants (shared centre-v weights)
-          float drv[4] = {0.f, 0.f, 0.f, 0.f};
-          drv[1] = mul<T>(Cd<T>::rnd(hat(fu, 0)), dPV[0]);
-          drv[2] = mul<T>(Cd<T>::rnd(hat(fu, 1)), dPV[0]);
-          float dru[4] = {0.f, 0.f, 0.f, 0.f};
-          if (S > 1) {
-#pragma unroll
-            for (int sg = 0; sg < 2; ++sg) {
-              const float ru_ = __fadd_rn(fu, sg == 0 ? su : -su);
-#pragma unroll
-              for (int ku = -1; ku <= 2; ++ku)
-                drv[ku + 1] = add<T>(drv[ku + 1],
-                                     mul<T>(Cd<T>::rnd(hat(ru_, ku)),
-                                            dPV[1 + sg]));
-            }
-#pragma unroll
-            for (int sg = 0; sg < 2; ++sg) {
-              const float rvv = __fadd_rn(fv, sg == 0 ? sv : -sv);
-#pragma unroll
-              for (int kv = -1; kv <= 2; ++kv)
-                dru[kv + 1] = add<T>(dru[kv + 1],
-                                     mul<T>(Cd<T>::rnd(hat(rvv, kv)),
-                                            dPV[3 + sg]));
-            }
-          }
+          const Frac q = load_frac(fr + (size_t)row * 2 * FS + b * FS, i);
+          float g[16], dline[4];
+          route_plane<F32, S>(dPV, q, g);
+          route_line<F32, S>(dLV, q, dline);
           T* dp = (T*)dP.p[b * 3 + i] + (size_t)row * 16 * C + c;
 #pragma unroll
-          for (int ku = -1; ku <= 2; ++ku) {
-#pragma unroll
-            for (int kv = -1; kv <= 2; ++kv) {
-              float g = 0.f;
-              if (kv == 0 || kv == 1) g = mul<T>(wv0[kv == 1 ? 1 : 0], drv[ku + 1]);
-              if (S > 1 && (ku == 0 || ku == 1))
-                g = add<T>(g, mul<T>(wu0[ku == 1 ? 1 : 0], dru[kv + 1]));
-              Cd<T>::st(dp, (size_t)((ku + 1) * 4 + kv + 1) * C, g);
-            }
-          }
-          float dline[4] = {0.f, 0.f, 0.f, 0.f};
-          const float wgt_b = Cd<T>::rnd(wgt);
-#pragma unroll
-          for (int v = 0; v < NLV; ++v) {
-            const float g = mul<T>(wgt_b, dLV[v]);
-            if (v == 0) {
-              dline[1] = add<T>(dline[1], mul<T>(Cd<T>::rnd(hat(fx, 0)), g));
-              dline[2] = add<T>(dline[2], mul<T>(Cd<T>::rnd(hat(fx, 1)), g));
-            } else {
-              const float rx = __fadd_rn(fx, v == 1 ? sx : -sx);
-#pragma unroll
-              for (int k = -1; k <= 2; ++k)
-                dline[k + 1] = add<T>(dline[k + 1],
-                                      mul<T>(Cd<T>::rnd(hat(rx, k)), g));
-            }
-          }
+          for (int k = 0; k < 16; ++k) dp[(size_t)k * C] = g[k];
           T* dl = (T*)dL.p[b * 3 + i] + (size_t)row * 4 * C + c;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) Cd<T>::st(dl, (size_t)k * C, dline[k]);
+          for (int k = 0; k < 4; ++k) dl[(size_t)k * C] = dline[k];
         }
       }
     }
@@ -412,7 +302,7 @@ stencil_bwd_rows(int N, int C, int E, int H, int O, int XW,
 #pragma unroll
   for (int c = 0; c < JMAX; ++c) {
     if (c < JN) {
-      const int j = Own<T>::col(c, H, lane, warp);
+      const int j = lane + 32 * c;
       p_db0[w * H + j] = db_acc[c];
       p_dw1row[w * H + j] = w1r_acc[c];
     }
@@ -420,13 +310,11 @@ stencil_bwd_rows(int N, int C, int E, int H, int O, int XW,
 }
 
 // part[z] = A[k0:k1]^T . B[k0:k1] for K chunk z = blockIdx.z of kchunk
-// rows; A [K, M] and B [K, Nc] row-major, each element rounded to T on
-// load (a no-op where it is stored in T).
-template <typename T, typename TA, typename TB>
+// rows; A [K, M] and B [K, Nc] row-major float32.
 __global__ void __launch_bounds__(256)
-stencil_bwd_atb(int K, int M, int Nc, int kchunk,
-                const TA* __restrict__ A, const TB* __restrict__ Bm,
-                float* __restrict__ part) {
+stencil_bwd_atb_f32(int K, int M, int Nc, int kchunk,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    float* __restrict__ part) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
   const int tid = threadIdx.x;
@@ -445,12 +333,10 @@ stencil_bwd_atb(int K, int M, int Nc, int kchunk,
       const int idx = tid + 256 * q;
       const int kk = idx / BM, mm = idx % BM;
       const int k = k0 + kk;
-      As[kk][mm] = (k < k_end && m0 + mm < M)
-                       ? Cd<T>::rnd(Cd<TA>::ld(A, (size_t)k * M + m0 + mm))
-                       : 0.f;
-      Bs[kk][mm] = (k < k_end && n0 + mm < Nc)
-                       ? Cd<T>::rnd(Cd<TB>::ld(Bm, (size_t)k * Nc + n0 + mm))
-                       : 0.f;
+      As[kk][mm] =
+          (k < k_end && m0 + mm < M) ? A[(size_t)k * M + m0 + mm] : 0.f;
+      Bs[kk][mm] =
+          (k < k_end && n0 + mm < Nc) ? Bm[(size_t)k * Nc + n0 + mm] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -478,78 +364,6 @@ stencil_bwd_atb(int K, int M, int Nc, int kchunk,
   }
 }
 
-// The same product for bf16 operands on the tensor cores: 64x64 output
-// tiles, 8 warps of 32x16; A^T and B^T tiles staged in shared memory
-// ([m][k] and [n][k], so that each mma fragment register is one 32-bit
-// load), AK rows of K per stage.
-template <typename TB>
-__global__ void __launch_bounds__(256, 3)
-stencil_bwd_atb_mma(int K, int M, int Nc, int kchunk,
-                    const __nv_bfloat16* __restrict__ A,
-                    const TB* __restrict__ Bm, float* __restrict__ part) {
-  constexpr int LDS = AK + 8;                 // row stride: no bank conflicts
-  __shared__ __align__(16) __nv_bfloat16 At[BM * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Bt[BN * LDS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int k_begin = blockIdx.z * kchunk;
-  const int k_end = min(K, k_begin + kchunk);
-  float acc[2][2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += AK) {
-#pragma unroll
-    for (int q = 0; q < AK * BM / 256; ++q) {
-      const int idx = tid + 256 * q;
-      const int kk = idx / BM, mm = idx % BM;
-      const int k = k0 + kk;
-      At[mm * LDS + kk] = (k < k_end && m0 + mm < M)
-                              ? A[(size_t)k * M + m0 + mm]
-                              : __float2bfloat16_rn(0.f);
-      Bt[mm * LDS + kk] = __float2bfloat16_rn(
-          (k < k_end && n0 + mm < Nc)
-              ? Cd<TB>::ld(Bm, (size_t)k * Nc + n0 + mm) : 0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < AK; ks += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ld_a(a[i], At, LDS, 2 * wm + i, ks, lane);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const __nv_bfloat16* bp =
-            Bt + (wn * 16 + j * 8 + (lane >> 2)) * LDS + ks + 2 * (lane & 3);
-        const uint32_t b0 = ld_pair(bp), b1 = ld_pair(bp + 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          mma_bf16(acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3],
-                   a[i], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = m0 + wm * 32 + i * 16 + (lane >> 2);
-      const int n = n0 + wn * 16 + j * 8 + 2 * (lane & 3);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int mq = m + (q >> 1) * 8, nq = n + (q & 1);
-        if (mq < M && nq < Nc)
-          part[((size_t)blockIdx.z * M + mq) * Nc + nq] = acc[i][j][q];
-      }
-    }
-  }
-}
-
 // out[w] = sum over r of in[r, w] (in [R, W]), in a fixed order.
 __global__ void __launch_bounds__(256)
 stencil_bwd_colsum(int R, int W, const float* __restrict__ in,
@@ -570,113 +384,647 @@ stencil_bwd_colsum(int R, int W, const float* __restrict__ in,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16
+// ---------------------------------------------------------------------------
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+constexpr int DZ_BYTES = MR * HP * 2;       // one dz tile
+
+// The saved tap variants of plane i for four channels, as two packed
+// pairs: pv[pair][variant], lv[pair][variant]; zeros where !ok.
+template <int S>
+__device__ __forceinline__ void load_variants(
+    const bf16* V, bool ok, size_t at, int i, int C,
+    V2 (&pv)[2][Var<S>::NPV], V2 (&lv)[2][Var<S>::NLV]) {
+  constexpr int NPV = Var<S>::NPV, NLV = Var<S>::NLV;
+#pragma unroll
+  for (int v = 0; v < NPV; ++v) {
+    const uint2 u = ok ? __ldg(reinterpret_cast<const uint2*>(
+                             V + at + (i * NPV + v) * C))
+                       : make_uint2(0, 0);
+    pv[0][v] = as_pair(u.x);
+    pv[1][v] = as_pair(u.y);
+  }
+#pragma unroll
+  for (int v = 0; v < NLV; ++v) {
+    const uint2 u = ok ? __ldg(reinterpret_cast<const uint2*>(
+                             V + at + 3 * NPV * C + (i * NLV + v) * C))
+                       : make_uint2(0, 0);
+    lv[0][v] = as_pair(u.x);
+    lv[1][v] = as_pair(u.y);
+  }
+}
+constexpr int PEW = 32;                     // dX PE columns kept in f32
+constexpr size_t ROWS_SMEM =
+    2 * W_BYTES + X_BYTES + MR * PEW * 4 + (NTH / 32) * HP * 4 + 16;
+constexpr int ATB_TH = 512;                 // four warpgroups
+constexpr size_t ATB_SMEM = 2 * (DZ_BYTES + X_BYTES) + 16;
+
+}  // namespace
+
+template <int S, int B>
+__global__ void __launch_bounds__(NTH, 1)
+stencil_bwd_rows_bf16(int N, int C, int E, int O,
+                      const float* __restrict__ fr,
+                      const bf16* __restrict__ V,
+                      const bf16* __restrict__ pe,
+                      const float* __restrict__ rot,
+                      const bf16* __restrict__ w0t,
+                      const float* __restrict__ b0,
+                      const bf16* __restrict__ w1t,
+                      const float* __restrict__ w1row,
+                      const float* __restrict__ g_c,
+                      const float* __restrict__ g_off, MPtrs6 dP, MPtrs6 dL,
+                      float* __restrict__ dpe, unsigned char* __restrict__ xg,
+                      unsigned char* __restrict__ dzg,
+                      unsigned char* __restrict__ hg,
+                      unsigned char* __restrict__ gcg,
+                      float* __restrict__ p_dw1row) {
+  using T = bf16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int NPV = Var<S>::NPV, NLV = Var<S>::NLV;
+  constexpr int TNB = Tile<S>::ROWS;
+  constexpr int XPB = XP * 2;                // row pitch of dX in R
+  unsigned char* W0s = smem_raw;             // tiled [XP, HP]
+  unsigned char* W1s = W0s + W_BYTES;        // tiled [OP, HP]
+  // R: X (tiled [MR, XP]), then the rounded g_c (tiled [TNB, OP]), then
+  // dX (bf16, row-major [MR, XP])
+  unsigned char* R = W1s + W_BYTES;
+  float* pes = reinterpret_cast<float*>(R + X_BYTES);   // [MR, PEW] dX of PE
+  float* w1acc = pes + MR * PEW;             // [warps, HP] dw1row sums
+  uint64_t* bar = reinterpret_cast<uint64_t*>(w1acc + (NTH / 32) * HP);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int qd = lane & 3;
+  const int VW = (NPV + NLV) * 3 * C;
+  const int CG = C / 4;
+  const int K0 = 3 * C + E;
+  const int n_tiles = (N + TNB - 1) / TNB;
+  // this thread's fragment rows m, m + 8; their stencil point
+  const int m = 64 * wg + 16 * warp + (lane >> 2);
+  const int s_frag = (S > 1) ? m / TNB : 0;
+  const bool centre = s_frag == 0;
+
+  if (tid == 0) mbar_init(bar, 1);
+  for (int idx = tid; idx < (NTH / 32) * HP; idx += NTH) w1acc[idx] = 0.f;
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar, 2 * W_BYTES);
+    bulk_load(W0s, w0t, W_BYTES, bar);
+    bulk_load(W1s, w1t, W_BYTES, bar);
+  }
+  bool weights_here = false;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * TNB;
+    __syncthreads();                 // the last tile's dX has been read
+#ifndef SH_SKIP_TAPS
+    // ---- rebuild X from V: one (row, plane, 2 packed pairs) per thread --
+    for (int idx = tid; idx < TNB * 3 * CG; idx += NTH) {
+      const int rr = idx / (3 * CG), rem = idx % (3 * CG);
+      const int i = rem / CG, c0 = 4 * (rem % CG);
+      const int row = row0 + rr;
+      V2 pv[2][NPV], lv[2][NLV], x[2][S];
+      load_variants<S>(V, row < N, (size_t)row * VW + c0, i, C, pv, lv);
+      x_products<Bf2, S>(i, pv[0], lv[0], x[0]);
+      x_products<Bf2, S>(i, pv[1], lv[1], x[1]);
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        *reinterpret_cast<uint2*>(R + tiled(s * TNB + rr, i * C + c0, XP)) =
+            make_uint2(as_u32(x[0][s]), as_u32(x[1][s]));
+    }
+    for (int idx = tid; idx < TNB * E; idx += NTH) {
+      const int rr = idx / E, e = idx % E;
+      const int row = row0 + rr;
+      float p0 = 0.f, pm3 = 0.f, pp3 = 0.f;
+      if (row < N) {
+        p0 = Cd<T>::ld(pe, (size_t)row * E + e);
+        pm3 = Cd<T>::ld(pe, (size_t)row * E + (e + 3) % E);
+        pp3 = Cd<T>::ld(pe, (size_t)row * E + (e + E - 3) % E);
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        *reinterpret_cast<T*>(R + tiled(s * TNB + rr, 3 * C + e, XP)) =
+            __float2bfloat16_rn(pe_point<T>(s, e, E, p0, pm3, pp3, rot));
+    }
+#endif  // SH_SKIP_TAPS
+    // pad columns: zero, the last one all ones (its dW0 row is db0)
+    const int padw = XP - K0;
+    for (int idx = tid; idx < MR * padw; idx += NTH) {
+      const int col = K0 + idx % padw;
+      *reinterpret_cast<T*>(R + tiled(idx / padw, col, XP)) =
+          __float2bfloat16_rn(col == XP - 1 ? 1.f : 0.f);
+    }
+    // pad rows (the eighth stencil group): zero
+    for (int idx = tid; idx < (MR - S * TNB) * K0; idx += NTH)
+      *reinterpret_cast<T*>(R + tiled(S * TNB + idx / K0, idx % K0, XP)) =
+          __float2bfloat16_rn(0.f);
+    fence_async();
+    __syncthreads();
+#ifndef SH_SKIP_WORKSPACE
+    if (tid == 0) bulk_store(xg + (size_t)tile * X_BYTES, R, X_BYTES);
+#endif
+    if (!weights_here) {
+      mbar_wait(bar, 0);
+      weights_here = true;
+    }
+    __syncwarp();
+
+    // ---- z = X.W0 + b0: m64 n256 per warpgroup ------------------------
+    float acc[HP / 2];
+#pragma unroll
+    for (int j = 0; j < HP / 8; ++j) {
+      const float2 bb =
+          __ldg(reinterpret_cast<const float2*>(b0 + 8 * j + 2 * qd));
+      acc[4 * j] = acc[4 * j + 2] = bb.x;
+      acc[4 * j + 1] = acc[4 * j + 3] = bb.y;
+    }
+    {
+      const uint64_t da =
+          make_desc(smem_u32(R) + wg * 8 * XP * 16, 128, XP * 16);
+      const uint64_t db = make_desc(smem_u32(W0s), HP * 16, 128);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < XP / 16; ++k)
+        wgmma_ss_n256<0, 1>(acc, desc_add(da, 256 * k),
+                            desc_add(db, 2 * HP * 16 * k));
+      wgmma_commit();
+      wgmma_wait();
+    }
+    if (tid == 0) bulk_store_wait_read();    // X has left R
+    __syncthreads();
+    // ---- the centre cotangent, rounded, as the A operand of dh ---------
+    for (int idx = tid; idx < TNB * OP; idx += NTH) {
+      const int rr = idx / OP, o = idx % OP;
+      const int row = row0 + rr;
+      const float g =
+          (row < N && o < O) ? __ldg(g_c + (size_t)row * O + o) : 0.f;
+      *reinterpret_cast<T*>(R + tiled(rr, o, OP)) = __float2bfloat16_rn(g);
+    }
+    fence_async();
+    __syncthreads();
+#ifndef SH_SKIP_WORKSPACE
+    if (tid == 0)
+      bulk_store(gcg + (size_t)tile * TNB * OP * 2, R, TNB * OP * 2);
+#endif
+    __syncwarp();
+
+    // ---- softplus and its slope on the fragment ------------------------
+    // afterwards acc holds sigmoid (centre rows) or dz (offset rows)
+    float go[2] = {0.f, 0.f};
+    if (S > 1 && s_frag >= 1 && s_frag < S) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + (m + 8 * half) % TNB;
+        if (row < N) go[half] = __ldg(g_off + (size_t)(s_frag - 1) * N + row);
+      }
+    }
+    unsigned char* hg_t = hg + (size_t)tile * TNB * HP * 2;
+#ifndef SH_SKIP_SOFTPLUS
+#pragma unroll
+    for (int j = 0; j < HP / 8; ++j) {
+      const int col = 8 * j + 2 * qd;
+      float h[2][2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          float sig;
+          softplus100_fast(100.f * acc[4 * j + 2 * half + t], &h[half][t],
+                           &sig);
+          h[half][t] = Cd<T>::rnd(h[half][t]);
+          acc[4 * j + 2 * half + t] = sig;
+        }
+      if (centre) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<uint32_t*>(
+              hg_t + tiled((m + 8 * half) % TNB, col, HP)) =
+              pack_bf16(h[half][0], h[half][1]);
+      } else {
+        const float2 w1r = __ldg(reinterpret_cast<const float2*>(w1row + col));
+        float v0 = fmaf(h[0][0], go[0], h[1][0] * go[1]);
+        float v1 = fmaf(h[0][1], go[0], h[1][1] * go[1]);
+#pragma unroll
+        for (int sh_ = 4; sh_ < 32; sh_ <<= 1) {
+          v0 += __shfl_xor_sync(0xffffffffu, v0, sh_);
+          v1 += __shfl_xor_sync(0xffffffffu, v1, sh_);
+        }
+        if (lane < 4) {
+          float* wa = w1acc + (tid >> 5) * HP + col;
+          wa[0] += v0;
+          wa[1] += v1;
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          acc[4 * j + 2 * half] =
+              Cd<T>::rnd(go[half] * w1r.x * acc[4 * j + 2 * half]);
+          acc[4 * j + 2 * half + 1] =
+              Cd<T>::rnd(go[half] * w1r.y * acc[4 * j + 2 * half + 1]);
+        }
+      }
+    }
+#endif  // SH_SKIP_SOFTPLUS
+    // ---- dh = g_c.W1^T in four n64 quarters; dz = dh * sigmoid ---------
+    if (S == 1 || wg == 0) {
+      const uint64_t da =
+          make_desc(smem_u32(R) + wg * 8 * OP * 16, 128, OP * 16);
+#pragma unroll
+      for (int quarter = 0; quarter < 4; ++quarter) {
+        float dq[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) dq[k] = 0.f;
+        const uint64_t db =
+            make_desc(smem_u32(W1s) + quarter * 1024, HP * 16, 128);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < OP / 16; ++k)
+          wgmma_ss_n64<0, 1>(dq, desc_add(da, 256 * k),
+                             desc_add(db, 2 * HP * 16 * k));
+        wgmma_commit();
+        wgmma_wait();
+        if (centre) {
+#pragma unroll
+          for (int k = 0; k < 32; ++k)
+            acc[32 * quarter + k] =
+                Cd<T>::rnd(dq[k] * acc[32 * quarter + k]);
+        }
+      }
+    }
+    // ---- dz: to the workspace (operand layout) and, packed, A of dX -----
+    uint32_t dzp[HP / 4];
+    unsigned char* dz_t = dzg + (size_t)tile * DZ_BYTES;
+#pragma unroll
+    for (int j = 0; j < HP / 8; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t p =
+            pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        dzp[2 * j + half] = p;
+#ifndef SH_SKIP_WORKSPACE
+        *reinterpret_cast<uint32_t*>(
+            dz_t + tiled(m + 8 * half, 8 * j + 2 * qd, HP)) = p;
+#endif
+      }
+    }
+    float dx[XP / 2];
+#pragma unroll
+    for (int k = 0; k < XP / 2; ++k) dx[k] = 0.f;
+    {
+      const uint64_t db = make_desc(smem_u32(W0s), 128, HP * 16);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < HP / 16; ++k)
+        wgmma_rs_n144<0>(dx, &dzp[4 * k], desc_add(db, 256 * k));
+      wgmma_commit();
+      wgmma_wait();
+    }
+    if (tid == 0) bulk_store_wait_read();    // g_c has left R
+    __syncthreads();                         // and dh has read it
+    // ---- dX -> R (bf16, as the product rule rounds it) and pes (f32) ----
+#pragma unroll
+    for (int j = 0; j < XP / 8; ++j) {
+      const int col = 8 * j + 2 * qd;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int mm = m + 8 * half;
+        *reinterpret_cast<uint32_t*>(R + mm * XPB + col * 2) =
+            pack_bf16(dx[4 * j + 2 * half], dx[4 * j + 2 * half + 1]);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          if (col + t >= 3 * C && col + t < K0)
+            pes[mm * PEW + col + t - 3 * C] = dx[4 * j + 2 * half + t];
+      }
+    }
+    __syncthreads();
+#ifndef SH_SKIP_TAPS
+    // ---- product rule + hat-weight routing ------------------------------
+    for (int idx = tid; idx < TNB * 3 * CG; idx += NTH) {
+      const int rr = idx / (3 * CG), rem = idx % (3 * CG);
+      const int i = rem / CG, c0 = 4 * (rem % CG);
+      const int row = row0 + rr;
+      if (row >= N) continue;
+      V2 pv[2][NPV], lv[2][NLV], dxs[2][S], dPV[2][NPV], dLV[2][NLV];
+      load_variants<S>(V, true, (size_t)row * VW + c0, i, C, pv, lv);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const uint2 u = *reinterpret_cast<const uint2*>(
+            R + (s * TNB + rr) * XPB + (i * C + c0) * 2);
+        dxs[0][s] = as_pair(u.x);
+        dxs[1][s] = as_pair(u.y);
+      }
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr)
+        product_rule<Bf2, S>(i, dxs[pr], pv[pr], lv[pr], dPV[pr], dLV[pr]);
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const Frac q = load_frac(fr + (size_t)row * 2 * FS + b * FS, i);
+        V2 g[2][16], dline[2][4];
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr) {
+          route_plane<Bf2, S>(dPV[pr], q, g[pr]);
+          route_line<Bf2, S>(dLV[pr], q, dline[pr]);
+        }
+        T* dp = (T*)dP.p[b * 3 + i] + (size_t)row * 16 * C + c0;
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          *reinterpret_cast<uint2*>(dp + k * C) =
+              make_uint2(as_u32(g[0][k]), as_u32(g[1][k]));
+        T* dl = (T*)dL.p[b * 3 + i] + (size_t)row * 4 * C + c0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          *reinterpret_cast<uint2*>(dl + k * C) =
+              make_uint2(as_u32(dline[0][k]), as_u32(dline[1][k]));
+      }
+    }
+    // ---- dpe: adjoint of the trig-addition PE offsets ------------------
+    for (int idx = tid; idx < TNB * E; idx += NTH) {
+      const int rr = idx / E, e = idx % E;
+      const int row = row0 + rr;
+      if (row >= N) continue;
+      float a = pes[rr * PEW + e];
+      for (int s = 1; s < S; ++s) {
+        const float* Rt = rot + (size_t)s * 4 * E;
+        const float* ps = pes + (s * TNB + rr) * PEW;
+        const int em = (e + E - 3) % E, ep = (e + 3) % E;
+        const float t0 = __fmul_rn(ps[e], Rt[e]);
+        const float t1 = __fmul_rn(ps[em], Rt[E + em]);
+        const float t2 = __fmul_rn(ps[ep], Rt[2 * E + ep]);
+        a = __fadd_rn(__fadd_rn(__fadd_rn(a, t0), t1), t2);
+      }
+      dpe[(size_t)row * E + e] = a;
+    }
+#endif  // SH_SKIP_TAPS
+  }
+  if (!weights_here) mbar_wait(bar, 0);      // never leave a copy in flight
+  // ---- this block's dw1row sums ------------------------------------------
+  __syncthreads();
+  for (int col = tid; col < HP; col += NTH) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < NTH / 32; ++w) t += w1acc[w * HP + col];
+    p_dw1row[(size_t)blockIdx.x * HP + col] = t;
+  }
+}
+
+// part[block] = sum over the block's tiles of A_t^T . B_t, [HP, XP] f32.
+// A_t [KT, HP] and B_t [KT, XP] are bf16 tiles in operand layout, tile t
+// of A at A + t*KT*HP*2 bytes (B alike).  A stage of the ring holds
+// 128 / KT tiles of each.
+template <int KT>
+__global__ void __launch_bounds__(ATB_TH, 1)
+stencil_bwd_atb_bf16(int n_tiles, const unsigned char* __restrict__ A,
+                     const unsigned char* __restrict__ Bm,
+                     float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int G = MR / KT;                  // tiles per stage
+  constexpr int A_T = KT * HP * 2, B_T = KT * XP * 2;
+  unsigned char* As = smem_raw;               // [2][DZ_BYTES]
+  unsigned char* Bs = As + 2 * DZ_BYTES;      // [2][X_BYTES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + 2 * X_BYTES);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int n_stages = (n_tiles + G - 1) / G;
+  const int per = (n_stages + gridDim.x - 1) / gridDim.x;
+  const int first = blockIdx.x * per;
+  const int mine = max(0, min(per, n_stages - first));
+
+  if (tid == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+  }
+  __syncthreads();
+  auto fetch = [&](int it) {
+    const int st = first + it, slot = it & 1;
+    const int tiles = min(G, n_tiles - st * G);
+    mbar_expect(full + slot, tiles * (A_T + B_T));
+    bulk_load(As + slot * DZ_BYTES, A + (size_t)st * G * A_T, tiles * A_T,
+              full + slot);
+    bulk_load(Bs + slot * X_BYTES, Bm + (size_t)st * G * B_T, tiles * B_T,
+              full + slot);
+  };
+  if (tid == 0) {
+    if (mine > 0) fetch(0);
+    if (mine > 1) fetch(1);
+  }
+  float acc[XP / 2];
+#pragma unroll
+  for (int k = 0; k < XP / 2; ++k) acc[k] = 0.f;
+  for (int it = 0; it < mine; ++it) {
+    const int slot = it & 1;
+    mbar_wait(full + slot, (it >> 1) & 1);
+    const int tiles = min(G, n_tiles - (first + it) * G);
+    // MN-major operands: K runs over the tile's rows
+    const uint32_t a0 = smem_u32(As + slot * DZ_BYTES) + wg * 8 * 128;
+    const uint32_t b0 = smem_u32(Bs + slot * X_BYTES);
+    wgmma_fence();
+    for (int g = 0; g < tiles; ++g) {
+      const uint64_t da = make_desc(a0 + g * A_T, HP * 16, 128);
+      const uint64_t db = make_desc(b0 + g * B_T, XP * 16, 128);
+#pragma unroll
+      for (int k = 0; k < KT / 16; ++k)
+        wgmma_ss_n144<1, 1>(acc, desc_add(da, 2 * HP * 16 * k),
+                            desc_add(db, 2 * XP * 16 * k));
+    }
+    wgmma_commit();
+    wgmma_wait();
+    __syncthreads();                 // every warpgroup has read the stage
+    if (tid == 0 && it + 2 < mine) fetch(it + 2);
+  }
+  const int m = 64 * wg + 16 * warp + (lane >> 2);
+  float* out = part + (size_t)blockIdx.x * HP * XP;
+#pragma unroll
+  for (int j = 0; j < XP / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(out + (size_t)m * XP + col) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)(m + 8) * XP + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
 namespace {
 
 // Workspace carve-up (byte offsets, each 256-aligned).
 struct Layout {
-  int nblk, n_tiles;
-  size_t xg, dzg, hg, p_db0, p_dw1row, p_dw0, p_dw1, total;
+  int nblk, n_tiles, nblk_dw0, nblk_dw1;
+  size_t xg, dzg, hg, gcg, p_db0, p_dw1row, p_dw0, p_dw1, total;
 };
 
-Layout layout(int es, int S, int n_sm, int N, int H, int O, int XW) {
-  Layout L;
+size_t take(size_t* off, size_t bytes) {
+  const size_t at = *off;
+  *off += (bytes + 255) / 256 * 256;
+  return at;
+}
+
+Layout layout_f32(int S, int n_sm, int N, int H, int O, int XW) {
+  Layout L = {};
   L.n_tiles = (N + TN - 1) / TN;
   L.nblk = L.n_tiles < 2 * n_sm ? L.n_tiles : 2 * n_sm;
   const size_t rows = (size_t)L.n_tiles * TN;
   size_t off = 0;
-  auto take = [&off](size_t bytes) {
-    const size_t at = off;
-    off += (bytes + 255) / 256 * 256;
-    return at;
-  };
-  L.xg = take(rows * S * XW * es);
-  L.dzg = take(rows * S * H * es);
-  L.hg = take(rows * H * es);
-  L.p_db0 = take((size_t)L.nblk * TN * H * 4);
-  L.p_dw1row = take((size_t)L.nblk * TN * H * 4);
-  L.p_dw0 = take((size_t)NSPLIT * XW * H * 4);
-  L.p_dw1 = take((size_t)NSPLIT * H * O * 4);
+  L.xg = take(&off, rows * S * XW * 4);
+  L.dzg = take(&off, rows * S * H * 4);
+  L.hg = take(&off, rows * H * 4);
+  L.p_db0 = take(&off, (size_t)L.nblk * TN * H * 4);
+  L.p_dw1row = take(&off, (size_t)L.nblk * TN * H * 4);
+  L.p_dw0 = take(&off, (size_t)NSPLIT * XW * H * 4);
+  L.p_dw1 = take(&off, (size_t)NSPLIT * H * O * 4);
   L.total = off;
   return L;
 }
 
-template <typename T, typename TB>
-cudaError_t atb(int K, int M, int Nc, const T* A, const TB* Bm, float* part,
-                float* out, cudaStream_t stream) {
-  int kchunk = (K + NSPLIT - 1) / NSPLIT;
-  kchunk = (kchunk + AK - 1) / AK * AK;
-  const int nsplit = (K + kchunk - 1) / kchunk;
-  const dim3 grid((M + BM - 1) / BM, (Nc + BN - 1) / BN, nsplit);
-  if constexpr (std::is_same<T, float>::value)
-    stencil_bwd_atb<T, T, TB><<<grid, 256, 0, stream>>>(K, M, Nc, kchunk, A,
-                                                         Bm, part);
-  else
-    stencil_bwd_atb_mma<TB><<<grid, 256, 0, stream>>>(K, M, Nc, kchunk, A,
-                                                      Bm, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  stencil_bwd_colsum<<<(M * Nc + 31) / 32, dim3(32, 8), 0, stream>>>(
-      nsplit, M * Nc, part, out);
+Layout layout_bf16(int S, int n_sm, int N) {
+  Layout L = {};
+  const int tnb = S > 1 ? 16 : MR;
+  L.n_tiles = (N + tnb - 1) / tnb;
+  L.nblk = L.n_tiles < n_sm ? L.n_tiles : n_sm;
+  L.nblk_dw0 = L.nblk;                       // stages of one tile
+  const int st1 = (L.n_tiles * tnb + MR - 1) / MR;   // stages of 128 rows
+  L.nblk_dw1 = st1 < n_sm ? st1 : n_sm;
+  size_t off = 0;
+  L.xg = take(&off, (size_t)L.n_tiles * X_BYTES);
+  L.dzg = take(&off, (size_t)L.n_tiles * DZ_BYTES);
+  L.hg = take(&off, (size_t)L.n_tiles * tnb * HP * 2);
+  L.gcg = take(&off, (size_t)L.n_tiles * tnb * OP * 2);
+  L.p_dw1row = take(&off, (size_t)L.nblk * HP * 4);
+  L.p_dw0 = take(&off, (size_t)L.nblk_dw0 * HP * XP * 4);
+  L.p_dw1 = take(&off, (size_t)L.nblk_dw1 * HP * OP * 4);
+  L.total = off;
+  return L;
+}
+
+cudaError_t colsum(int R, int W, const float* in, float* out,
+                   cudaStream_t stream) {
+  stencil_bwd_colsum<<<(W + 31) / 32, dim3(32, 8), 0, stream>>>(R, W, in,
+                                                                 out);
   return cudaGetLastError();
 }
 
-template <typename T, int S, int B>
-cudaError_t launch(int n_sm, int N, int C, int E, int H, int O, int XW,
-                   const float* fr, const void* V, const void* pe,
-                   const float* rot, const void* w0big, const void* w0t,
-                   const float* b0, const void* w1t, const void* w1row,
-                   const float* g_c,
-                   const float* g_off, void* const* dP, void* const* dL,
-                   float* dpe, void* workspace, float* dw0, float* db0,
-                   float* dw1, float* dw1row, cudaStream_t stream) {
-  MPtrs6 P, Lp;
-  for (int k = 0; k < 6; ++k) {
-    P.p[k] = k < 3 * B ? dP[k] : nullptr;
-    Lp.p[k] = k < 3 * B ? dL[k] : nullptr;
-  }
-  const Layout L = layout(sizeof(T), S, n_sm, N, H, O, XW);
-  char* ws = static_cast<char*>(workspace);
-  T* xg = reinterpret_cast<T*>(ws + L.xg);
-  T* dzg = reinterpret_cast<T*>(ws + L.dzg);
-  T* hg = reinterpret_cast<T*>(ws + L.hg);
-  float* p_db0 = reinterpret_cast<float*>(ws + L.p_db0);
-  float* p_dw1row = reinterpret_cast<float*>(ws + L.p_dw1row);
-  const size_t smem = rows_smem<T, S>(C, E, H, O, XW);
-  auto kern = stencil_bwd_rows<T, S, B>;
+cudaError_t atb_f32(int K, int M, int Nc, const float* A, const float* Bm,
+                    float* part, float* out, cudaStream_t stream) {
+  int kchunk = (K + NSPLIT - 1) / NSPLIT;
+  kchunk = (kchunk + BK - 1) / BK * BK;
+  const int nsplit = (K + kchunk - 1) / kchunk;
+  const dim3 grid((M + BM - 1) / BM, (Nc + BN - 1) / BN, nsplit);
+  stencil_bwd_atb_f32<<<grid, 256, 0, stream>>>(K, M, Nc, kchunk, A, Bm,
+                                                part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return colsum(nsplit, M * Nc, part, out, stream);
+}
+
+struct Args {
+  int n_sm, N, C, E, H, O, XW;
+  const float* fr;
+  const void *V, *pe;
+  const float* rot;
+  const void* w0;
+  const float* b0;
+  const void *w1, *w1row;
+  const float *g_c, *g_off;
+  MPtrs6 dP, dL;
+  float* dpe;
+  char* ws;
+  float *dw0, *db0, *dw1, *dw1row;
+  cudaStream_t stream;
+};
+
+template <int S, int B>
+cudaError_t launch_f32(const Args& a) {
+  const Layout L = layout_f32(S, a.n_sm, a.N, a.H, a.O, a.XW);
+  float* xg = reinterpret_cast<float*>(a.ws + L.xg);
+  float* dzg = reinterpret_cast<float*>(a.ws + L.dzg);
+  float* hg = reinterpret_cast<float*>(a.ws + L.hg);
+  float* p_db0 = reinterpret_cast<float*>(a.ws + L.p_db0);
+  float* p_dw1row = reinterpret_cast<float*>(a.ws + L.p_dw1row);
+  const size_t smem = rows_smem_f32<S>(a.C, a.H, a.O, a.XW);
+  auto kern = stencil_bwd_rows_f32<S, B>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<L.nblk, NT, smem, stream>>>(
-      N, C, E, H, O, XW, fr, (const T*)V, (const T*)pe, rot,
-      (const T*)w0big, (const T*)w0t, b0, (const T*)w1t, (const T*)w1row,
-      g_c, g_off, P, Lp,
-      dpe, xg, dzg, hg, p_db0, p_dw1row);
+  kern<<<L.nblk, NT, smem, a.stream>>>(
+      a.N, a.C, a.E, a.H, a.O, a.XW, a.fr, (const float*)a.V,
+      (const float*)a.pe, a.rot, (const float*)a.w0, a.b0,
+      (const float*)a.w1, (const float*)a.w1row, a.g_c, a.g_off, a.dP, a.dL,
+      a.dpe, xg, dzg, hg, p_db0, p_dw1row);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int wr = L.nblk * TN;       // partial rows: (block, z row)
-  stencil_bwd_colsum<<<(H + 31) / 32, dim3(32, 8), 0, stream>>>(wr, H, p_db0,
-                                                                 db0);
-  err = cudaGetLastError();
+  err = colsum(wr, a.H, p_db0, a.db0, a.stream);
   if (err != cudaSuccess) return err;
-  stencil_bwd_colsum<<<(H + 31) / 32, dim3(32, 8), 0, stream>>>(
-      wr, H, p_dw1row, dw1row);
-  err = cudaGetLastError();
+  err = colsum(wr, a.H, p_dw1row, a.dw1row, a.stream);
   if (err != cudaSuccess) return err;
   // dW0 over all S * n_tiles * TN workspace rows (pad rows carry dz = 0)
-  err = atb<T, T>(L.n_tiles * TN * S, XW, H, xg, dzg,
-                  reinterpret_cast<float*>(ws + L.p_dw0), dw0, stream);
+  err = atb_f32(L.n_tiles * TN * S, a.XW, a.H, xg, dzg,
+                reinterpret_cast<float*>(a.ws + L.p_dw0), a.dw0, a.stream);
   if (err != cudaSuccess) return err;
-  return atb<T, float>(N, H, O, hg, g_c,
-                       reinterpret_cast<float*>(ws + L.p_dw1), dw1, stream);
+  return atb_f32(a.N, a.H, a.O, hg, a.g_c,
+                 reinterpret_cast<float*>(a.ws + L.p_dw1), a.dw1, a.stream);
+}
+
+template <int KT>
+cudaError_t atb_bf16(int n_tiles, int nblk, const unsigned char* A,
+                     const unsigned char* Bm, float* part, float* out,
+                     cudaStream_t stream) {
+  auto kern = stencil_bwd_atb_bf16<KT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ATB_SMEM);
+  if (err != cudaSuccess) return err;
+  kern<<<nblk, ATB_TH, ATB_SMEM, stream>>>(n_tiles, A, Bm, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return colsum(nblk, HP * XP, part, out, stream);
+}
+
+template <int S, int B>
+cudaError_t launch_bf16(const Args& a) {
+  const Layout L = layout_bf16(S, a.n_sm, a.N);
+  unsigned char* ws = reinterpret_cast<unsigned char*>(a.ws);
+  float* p_dw1row = reinterpret_cast<float*>(a.ws + L.p_dw1row);
+  auto kern = stencil_bwd_rows_bf16<S, B>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ROWS_SMEM);
+  if (err != cudaSuccess) return err;
+  kern<<<L.nblk, NTH, ROWS_SMEM, a.stream>>>(
+      a.N, a.C, a.E, a.O, a.fr, (const bf16*)a.V, (const bf16*)a.pe, a.rot,
+      (const bf16*)a.w0, a.b0, (const bf16*)a.w1, (const float*)a.w1row,
+      a.g_c, a.g_off, a.dP, a.dL, a.dpe, ws + L.xg, ws + L.dzg, ws + L.hg,
+      ws + L.gcg, p_dw1row);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = colsum(L.nblk, HP, p_dw1row, a.dw1row, a.stream);
+  if (err != cudaSuccess) return err;
+  // dW0^T [HP, XP] (db0 in its last column) and dW1 [HP, OP]
+  err = atb_bf16<MR>(L.n_tiles, L.nblk_dw0, ws + L.dzg, ws + L.xg,
+                     reinterpret_cast<float*>(a.ws + L.p_dw0), a.dw0,
+                     a.stream);
+  if (err != cudaSuccess) return err;
+  return atb_bf16<Tile<S>::ROWS>(
+      L.n_tiles, L.nblk_dw1, ws + L.hg, ws + L.gcg,
+      reinterpret_cast<float*>(a.ws + L.p_dw1), a.dw1, a.stream);
 }
 
 bool bad_shape(int dtype, int S, int B, int n_sm, int N, int C, int E, int H,
-               int XW) {
-  // the bf16 (tensor-core) path gives each warp H/8 columns in 8-wide tiles
-  return (dtype != 0 && dtype != 1) || (S != 1 && S != 7) ||
-         (B != 1 && B != 2) || H % 32 != 0 || (dtype == 1 && H % 64 != 0) ||
-         H > 32 * JMAX || H % JC != 0 || XW % KC != 0 || XW > 32 * KMAX ||
-         3 * C + E > XW || N <= 0 || n_sm <= 0;
+               int O, int XW) {
+  if ((S != 1 && S != 7) || (B != 1 && B != 2) || N <= 0 || n_sm <= 0)
+    return true;
+  if (dtype == 0)
+    return H % 32 != 0 || H > 32 * JMAX || H % JC != 0 || XW % KC != 0 ||
+           XW > 32 * KMAX || 3 * C + E > XW;
+  if (dtype == 1)
+    return C % 4 != 0 || 3 * C + E >= XP || E > PEW || H > HP || O > OP ||
+           XW != XP;
+  return true;
 }
 
 }  // namespace
@@ -687,43 +1035,47 @@ extern "C" long long stencil_head_bwd_workspace(int dtype, int S, int B,
                                                 int n_sm, int N, int C,
                                                 int E, int H, int O,
                                                 int XW) {
-  if (bad_shape(dtype, S, B, n_sm, N, C, E, H, XW))
-    return 0;
-  return (long long)layout(dtype == 1 ? 2 : 4, S, n_sm, N, H, O, XW).total;
+  if (bad_shape(dtype, S, B, n_sm, N, C, E, H, O, XW)) return 0;
+  return (long long)(dtype == 1 ? layout_bf16(S, n_sm, N)
+                                : layout_f32(S, n_sm, N, H, O, XW))
+      .total;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  w1t is W1 transposed [O, H]; dw0
-// [XW, H], db0 [H], dw1 [H, O] and dw1row [H] are f32 outputs.  Returns a
-// cudaError_t (0 = success).
+// dtype 0 = float32: w0 [XW, H], b0 [H], w1 = W1 transposed [O, H], w1row
+// [H] in float32; outputs dw0 [XW, H], db0 [H], dw1 [H, O], dw1row [H].
+// dtype 1 = bfloat16: w0 and w1 are the padded, tiled operands of
+// ops/stencil.py pack_weights_bf16, b0 and w1row [HP] float32, zero
+// padded; outputs dw0 = dW0^T [HP, XP] whose last column is db0 (db0
+// itself is not written), dw1 [HP, OP], dw1row [HP].  All outputs f32.
+// Returns a cudaError_t (0 = success).
 extern "C" int stencil_head_bwd(int dtype, int S, int B, int n_sm, int N,
                                 int C, int E, int H, int O, int XW,
                                 const float* fr, const void* V,
                                 const void* pe, const float* rot,
-                                const void* w0big, const void* w0t,
-                                const float* b0, const void* w1t,
-                                const void* w1row, const float* g_c,
-                                const float* g_off, void* const* dP,
-                                void* const* dL, float* dpe, void* workspace, float* dw0, float* db0,
+                                const void* w0, const float* b0,
+                                const void* w1, const void* w1row,
+                                const float* g_c, const float* g_off,
+                                void* const* dP, void* const* dL, float* dpe,
+                                void* workspace, float* dw0, float* db0,
                                 float* dw1, float* dw1row, void* stream) {
-  if (bad_shape(dtype, S, B, n_sm, N, C, E, H, XW))
+  if (bad_shape(dtype, S, B, n_sm, N, C, E, H, O, XW))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define SH_CASE(TT, SS, BB)                                                  \
-  return (int)launch<TT, SS, BB>(n_sm, N, C, E, H, O, XW, fr, V, pe, rot,    \
-                                 w0big, w0t, b0, w1t, w1row, g_c, g_off, dP, \
-                                 dL,                                         \
-                                 dpe, workspace, dw0, db0, dw1, dw1row, st)
-  if (dtype == 0) {
-    if (S == 7 && B == 1) SH_CASE(float, 7, 1);
-    if (S == 7 && B == 2) SH_CASE(float, 7, 2);
-    if (S == 1 && B == 1) SH_CASE(float, 1, 1);
-    if (S == 1 && B == 2) SH_CASE(float, 1, 2);
-  } else if (dtype == 1) {
-    if (S == 7 && B == 1) SH_CASE(__nv_bfloat16, 7, 1);
-    if (S == 7 && B == 2) SH_CASE(__nv_bfloat16, 7, 2);
-    if (S == 1 && B == 1) SH_CASE(__nv_bfloat16, 1, 1);
-    if (S == 1 && B == 2) SH_CASE(__nv_bfloat16, 1, 2);
+  Args a = {n_sm, N,  C,     E,   H,   O,   XW,  fr,  V,      pe,
+            rot,  w0, b0,    w1,  w1row, g_c, g_off, {}, {}, dpe,
+            static_cast<char*>(workspace), dw0, db0, dw1, dw1row,
+            (cudaStream_t)stream};
+  for (int k = 0; k < 6; ++k) {
+    a.dP.p[k] = k < 3 * B ? dP[k] : nullptr;
+    a.dL.p[k] = k < 3 * B ? dL[k] : nullptr;
   }
+#define SH_CASE(SS, BB)                                     \
+  if (S == SS && B == BB)                                   \
+    return (int)(dtype == 0 ? launch_f32<SS, BB>(a)         \
+                            : launch_bf16<SS, BB>(a))
+  SH_CASE(7, 1);
+  SH_CASE(7, 2);
+  SH_CASE(1, 1);
+  SH_CASE(1, 2);
 #undef SH_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -24,7 +24,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# extra -D flags (measurement builds, see bench/stencil_phases.py): part of
+# a library's name, so such a build never stands in for the real one
+DEFINES: Tuple[str, ...] = ()
+
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -41,7 +45,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    h = hashlib.sha256()
+    h = hashlib.sha256(' '.join(DEFINES).encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn.endswith(('.cu', '.cuh')):
             with open(os.path.join(CSRC, fn), 'rb') as f:
@@ -59,7 +63,7 @@ def build(names: Sequence[str]):
         out = _lib_path(name)
         if os.path.exists(out):
             continue
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', out + '.tmp',
+        cmd = [_nvcc(), *NVCC_FLAGS, *DEFINES, '-o', out + '.tmp',
                os.path.join(CSRC, name + '.cu')]
         procs[name] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
@@ -79,11 +83,11 @@ def build(names: Sequence[str]):
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, building it if needed."""
-    lib = _LIBS.get(name)
+    lib = _LIBS.get((name, DEFINES))
     if lib is None:
         build([name])
         lib = ctypes.CDLL(_lib_path(name))
-        _LIBS[name] = lib
+        _LIBS[(name, DEFINES)] = lib
     return lib
 
 

@@ -16,6 +16,9 @@ sdf column only at the 6 offset points.
   * ``StencilHead`` — autograd.Function whose forward launches
     csrc/stencil_head_fwd.cu (saving the tap variants V) and whose
     backward launches csrc/stencil_head_bwd.cu.  CUDA tensors only.
+    bf16 patches take the wgmma kernels, which read their weights in the
+    tensor cores' shared-memory operand layout (``tile_matrix``,
+    ``pack_weights_bf16``); anything else the float32 FMA kernels.
   * ``stencil_head`` / ``point_head`` — the public wrappers: the plain
     version for CPU tensors, the kernels for CUDA tensors (no fallback).
 
@@ -79,6 +82,71 @@ def xw(C: int, E: int) -> int:
 def vw(S: int, C: int) -> int:
     """Saved-variant row width: (n_pv + n_lv) * 3 planes * C."""
     return ((5 + 3) if S > 1 else 2) * 3 * C
+
+
+# Widths the bf16 kernels are built for (csrc/stencil_sm90.cuh): hidden
+# width, X row width (its last column is all ones, so 3C+E < XP), layer-1
+# width, X rows per tile.
+HP, XP, OP, MR = 256, 144, 144, 128
+
+
+def tile_matrix(mat):
+    """[A, B] (both multiples of 8) -> flat tensor in the operand layout of
+    the bf16 kernels: 8x8 blocks of 64 contiguous elements, block (a/8, b/8)
+    at ((a/8) * B/8 + b/8) * 64, element (a, b) at + (a%8)*8 + b%8."""
+    a, b = mat.shape
+    if a % 8 or b % 8:
+        raise ValueError(f'tile_matrix: {a}x{b} is not a multiple of 8x8')
+    return mat.reshape(a // 8, 8, b // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+
+
+def untile_matrix(flat, a, b):
+    """Inverse of tile_matrix."""
+    return flat.reshape(a // 8, b // 8, 8, 8).permute(0, 2, 1, 3).reshape(a, b)
+
+
+def pack_weights_bf16(w0, b0, w1):
+    """The bf16 kernels' weight operands from W0 [3C+E, H], b0 [H] and
+    W1 [H, O]: (W0 zero padded to [XP, HP] and tiled, b0 [HP] f32,
+    W1^T zero padded to [OP, HP] and tiled, column 0 of W1 [HP] f32 rounded
+    to bf16).  Zero pads change nothing: a pad column of z meets a zero row
+    of W1, a pad column of X a zero row of W0."""
+    k0, h = w0.shape
+    o = w1.shape[1]
+    if k0 >= XP or h > HP or o > OP:
+        raise ValueError(f'stencil head (bf16 kernels): 3C+E={k0} must be '
+                         f'< {XP}, H={h} <= {HP}, O={o} <= {OP}')
+    bf = torch.bfloat16
+    w0p = w0.new_zeros((XP, HP), dtype=bf)
+    w0p[:k0, :h] = w0.to(bf)
+    w1p = w1.new_zeros((OP, HP), dtype=bf)
+    w1p[:o, :h] = w1.t().to(bf)
+    b0p = b0.new_zeros((HP,), dtype=torch.float32)
+    b0p[:h] = b0.float()
+    return (tile_matrix(w0p).contiguous(), b0p,
+            tile_matrix(w1p).contiguous(), w1p[0].float().contiguous())
+
+
+def tile_rows(S: int) -> int:
+    """Rows of the head's input per tile of the bf16 kernels: 16 rows x
+    (7 stencil points + 1 pad group) or 128 single points = MR X rows."""
+    return 16 if S > 1 else MR
+
+
+def workspace_bytes_bf16(S: int, n_sm: int, n: int) -> int:
+    """Bytes of the bf16 backward's workspace, as csrc/stencil_head_bwd.cu
+    lays it out: per tile X [MR, XP], dz [MR, HP], the centre h
+    [tile_rows, HP] and the rounded centre cotangent [tile_rows, OP] in
+    bf16, then one f32 partial per block of dw1row [HP], dW0^T [HP, XP]
+    and dW1 [HP, OP]; each piece padded to 256 bytes."""
+    tn = tile_rows(S)
+    tiles = -(-n // tn)
+    blocks = min(tiles, n_sm)
+    blocks_dw1 = min(-(-tiles * tn // MR), n_sm)
+    pieces = [tiles * MR * XP * 2, tiles * MR * HP * 2, tiles * tn * HP * 2,
+              tiles * tn * OP * 2, blocks * HP * 4, blocks * HP * XP * 4,
+              blocks_dw1 * HP * OP * 4]
+    return sum(-(-p // 256) * 256 for p in pieces)
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +289,8 @@ def stencil_head_plain(pp, lp, fr, sigmas, pe_c, rot, w0_parts, b0, w1, b1,
 # Hopper kernels
 # ---------------------------------------------------------------------------
 
-_FWD_ARGS = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 14
-_BWD_ARGS = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 20
+_FWD_ARGS = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 13
+_BWD_ARGS = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 19
 
 
 def _lib(name, argtypes):
@@ -249,6 +317,10 @@ def _dtype_code(cd):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _n_sm(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check_cuda(ts, what):
@@ -309,35 +381,39 @@ class StencilHead(torch.autograd.Function):
         pe_cd = pe.to(cd).contiguous()
         rot32 = rot.float().contiguous()
         w0 = torch.cat([w.to(cd) for w in w0_parts], dim=0)
-        w0big = torch.cat([w0, w0.new_zeros((XW - w0.shape[0], H))],
-                          dim=0).contiguous()
-        w0t = w0big.t().contiguous()       # [H, XW]: the bf16 mma operand
-        b0f = b0.float().contiguous()
-        w1cd = w1.to(cd).contiguous()
-        w1row = w1[:, 0].to(cd).contiguous()
+        if cd == torch.bfloat16:
+            xw_k = XP
+            w0_op, b0f, w1_op, w1row = pack_weights_bf16(w0, b0, w1)
+        else:
+            xw_k = XW
+            w0_op = torch.cat([w0, w0.new_zeros((XW - w0.shape[0], H))],
+                              dim=0).contiguous()
+            b0f = b0.float().contiguous()
+            w1_op = w1.to(cd).contiguous()
+            w1row = w1_op[:, 0].contiguous()
         out_c = torch.empty((n, O), dtype=torch.float32, device=dev)
         out_off = torch.empty((max(S - 1, 1), n), dtype=torch.float32,
                               device=dev)
         v = (torch.empty((n, vw(S, C)), dtype=cd, device=dev) if save_v
              else None)
-        _check_cuda(pp + lp + [fr32, pe_cd, rot32, w0big, w0t, b0f, w1cd,
-                               w1row], 'stencil_head_fwd')
+        _check_cuda(pp + lp + [fr32, pe_cd, rot32, w0_op, b0f, w1_op, w1row],
+                    'stencil_head_fwd')
         lib = _lib('stencil_head_fwd', _FWD_ARGS)
         pa, la = _ptr_array(pp), _ptr_array(lp)
         err = lib.stencil_head_fwd(
-            _dtype_code(cd), S, B, n, C, E, H, O, XW,
+            _dtype_code(cd), S, B, _n_sm(dev), n, C, E, H, O, xw_k,
             ctypes.addressof(pa), ctypes.addressof(la), fr32.data_ptr(),
-            pe_cd.data_ptr(), rot32.data_ptr(), w0big.data_ptr(),
-            w0t.data_ptr(), b0f.data_ptr(), w1cd.data_ptr(), w1row.data_ptr(),
+            pe_cd.data_ptr(), rot32.data_ptr(), w0_op.data_ptr(),
+            b0f.data_ptr(), w1_op.data_ptr(), w1row.data_ptr(),
             out_c.data_ptr(), out_off.data_ptr(),
             v.data_ptr() if v is not None else None, _stream(dev))
         cuda_build.check(err, 'stencil_head_fwd')
         LAUNCHES['stencil_head_fwd'] += 1
         if save_v:
-            ctx.save_for_backward(fr32, v, pe_cd, rot32, w0big, w0t, b0f,
-                                  w1cd, w1row)
+            ctx.save_for_backward(fr32, v, pe_cd, rot32, w0_op, b0f, w1_op,
+                                  w1row)
         ctx.static = static
-        ctx.meta = (pe.dtype, b0.dtype, w1.dtype,
+        ctx.meta = (pe.dtype, b0.dtype, w1.dtype, xw_k, H, O,
                     [(w.shape[0], w.dtype) for w in w0_parts])
         return out_c, (out_off if S > 1 else None)
 
@@ -346,13 +422,11 @@ class StencilHead(torch.autograd.Function):
         S, B, C, cd, sigmas, save_v = ctx.static
         if not save_v:
             raise RuntimeError('StencilHead: forward ran without saving V')
-        fr32, v, pe_cd, rot32, w0big, w0t, b0f, w1cd, w1row = \
-            ctx.saved_tensors
-        pe_dtype, b0_dtype, w1_dtype, parts = ctx.meta
+        fr32, v, pe_cd, rot32, w0_op, b0f, w1_op, w1row = ctx.saved_tensors
+        pe_dtype, b0_dtype, w1_dtype, xw_k, H, O, parts = ctx.meta
         n, E = pe_cd.shape
-        H, O = w1cd.shape
-        XW = w0big.shape[0]
         dev = fr32.device
+        bf = cd == torch.bfloat16
         g_c = (torch.zeros((n, O), dtype=torch.float32, device=dev)
                if g_c is None else g_c.float().contiguous())
         if S > 1 and g_off is not None:
@@ -360,34 +434,42 @@ class StencilHead(torch.autograd.Function):
         else:
             g_off = torch.zeros((max(S - 1, 1), n), dtype=torch.float32,
                                 device=dev)
-        w1t = w1cd.t().contiguous()
+        if not bf:
+            w1_op = w1_op.t().contiguous()          # [O, H]
         dP = [torch.empty((n, 16 * C), dtype=cd, device=dev)
               for _ in range(3 * B)]
         dL = [torch.empty((n, 4 * C), dtype=cd, device=dev)
               for _ in range(3 * B)]
         dpe = torch.empty((n, E), dtype=torch.float32, device=dev)
         lib = _lib('stencil_head_bwd', _BWD_ARGS)
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        shape = (_dtype_code(cd), S, B, n_sm, n, C, E, H, O, XW)
+        shape = (_dtype_code(cd), S, B, _n_sm(dev), n, C, E, H, O, xw_k)
         ws_bytes = lib.stencil_head_bwd_workspace(*shape)
         if ws_bytes <= 0:
             raise ValueError(f'stencil_head_bwd: unsupported shape {shape}')
         workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
-        dw0 = torch.empty((XW, H), dtype=torch.float32, device=dev)
-        db0 = torch.empty((H,), dtype=torch.float32, device=dev)
-        dw1 = torch.empty((H, O), dtype=torch.float32, device=dev)
-        dw1row = torch.empty((H,), dtype=torch.float32, device=dev)
-        _check_cuda([g_c, g_off, w1t], 'stencil_head_bwd')
+        # bf16: dW0 comes transposed and padded, db0 as its last column
+        hk = HP if bf else H
+        dw0 = torch.empty((HP, XP) if bf else (xw_k, H), dtype=torch.float32,
+                          device=dev)
+        db0 = torch.empty((hk,), dtype=torch.float32, device=dev)
+        dw1 = torch.empty((hk, OP if bf else O), dtype=torch.float32,
+                          device=dev)
+        dw1row = torch.empty((hk,), dtype=torch.float32, device=dev)
+        _check_cuda([g_c, g_off, w1_op], 'stencil_head_bwd')
         pa, la = _ptr_array(dP), _ptr_array(dL)
         err = lib.stencil_head_bwd(
             *shape, fr32.data_ptr(), v.data_ptr(), pe_cd.data_ptr(),
-            rot32.data_ptr(), w0big.data_ptr(), w0t.data_ptr(),
-            b0f.data_ptr(), w1t.data_ptr(), w1row.data_ptr(), g_c.data_ptr(),
+            rot32.data_ptr(), w0_op.data_ptr(), b0f.data_ptr(),
+            w1_op.data_ptr(), w1row.data_ptr(), g_c.data_ptr(),
             g_off.data_ptr(), ctypes.addressof(pa), ctypes.addressof(la),
             dpe.data_ptr(), workspace.data_ptr(), dw0.data_ptr(),
             db0.data_ptr(), dw1.data_ptr(), dw1row.data_ptr(), _stream(dev))
         cuda_build.check(err, 'stencil_head_bwd')
         LAUNCHES['stencil_head_bwd'] += 1
+        if bf:
+            db0 = dw0[:H, XP - 1]
+            dw0 = dw0[:H].t()
+            dw1, dw1row = dw1[:H, :O].contiguous(), dw1row[:H]
         if S > 1:
             dw1[:, 0] += dw1row
         dw0_parts, off = [], 0

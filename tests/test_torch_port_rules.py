@@ -276,3 +276,15 @@ def test_kernels_match_plain_on_the_card():
         chip_smoke.check_case('S=7 B=2', 4096, 7, 2, cd, seed=2)
         chip_smoke.check_case('S=1 B=1', 4096, 1, 1, cd, seed=3)
         chip_smoke.check_case('S=7 B=1 ragged', 1003, 7, 1, cd, seed=6)
+        # fewer row tiles than SMs: the persistent grids run short
+        chip_smoke.check_case('S=7 B=1 small', 520, 7, 1, cd, seed=7)
+        chip_smoke.check_case('S=1 B=1 small', 520, 1, 1, cd, seed=8)
+    # the documented workspace layout is the one the library allocates by
+    from tensoflow_tpu_torch.ops import stencil as st
+    lib = st._lib('stencil_head_bwd', st._BWD_ARGS)
+    n_sm = st._n_sm(torch.device('cuda'))
+    for S in (1, 7):
+        for n in (520, 1003, 131072):
+            assert lib.stencil_head_bwd_workspace(
+                1, S, 1, n_sm, n, 36, 21, 256, 129, st.XP) \
+                == st.workspace_bytes_bf16(S, n_sm, n)

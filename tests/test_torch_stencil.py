@@ -141,3 +141,104 @@ def test_pe_rot_layout_and_mapping():
     assert pst.MAPPING1 == ps.MAPPING1
     assert pst.vw(7, 36) == ps._vw(7, 36)
     assert pst.xw(36, 21) == 144 and pst.xw(36, 21) % 16 == 0
+
+
+# ---------------------------------------------------------------------------
+# host-side layouts of the bf16 (wgmma) kernels
+# ---------------------------------------------------------------------------
+
+def _tiled_offset(a, b, width):
+    """Element offset of (a, b) in the kernels' operand layout
+    (csrc/stencil_sm90.cuh `tiled`, in elements instead of bytes)."""
+    return (a // 8) * (width * 8) + (b // 8) * 64 + (a % 8) * 8 + b % 8
+
+
+@pytest.mark.parametrize('rows,cols', [(8, 8), (16, 24), (144, 256),
+                                       (128, 144), (16, 144)])
+def test_tile_matrix_round_trips(rows, cols):
+    """tile_matrix puts element (a, b) where the kernels read it, and
+    untile_matrix brings the plain layout back."""
+    m = torch.arange(rows * cols, dtype=torch.float32).reshape(rows, cols)
+    flat = pst.tile_matrix(m)
+    assert flat.shape == (rows * cols,)
+    rng = np.random.RandomState(rows + cols)
+    for a, b in zip(rng.randint(0, rows, 32), rng.randint(0, cols, 32)):
+        assert flat[_tiled_offset(a, b, cols)] == m[a, b]
+    assert torch.equal(pst.untile_matrix(flat, rows, cols), m)
+    with pytest.raises(ValueError):
+        pst.tile_matrix(torch.zeros(rows + 1, cols))
+
+
+@pytest.mark.parametrize('C,E,H,O', [(36, 21, 256, 129), (4, 5, 8, 3),
+                                     (8, 9, 32, 5)])
+def test_pack_weights_bf16_round_trips(C, E, H, O):
+    """The padded, tiled weight operands hold the bf16-rounded weights at
+    their plain positions, zeros elsewhere; padding changes no product."""
+    rng = np.random.RandomState(C)
+    k0 = 3 * C + E
+    w0 = torch.tensor(rng.randn(k0, H).astype(np.float32))
+    b0 = torch.tensor(rng.randn(H).astype(np.float32))
+    w1 = torch.tensor(rng.randn(H, O).astype(np.float32))
+    w0t, b0p, w1t, w1row = pst.pack_weights_bf16(w0, b0, w1)
+    assert w0t.dtype == torch.bfloat16 and w1t.dtype == torch.bfloat16
+    w0u = pst.untile_matrix(w0t, pst.XP, pst.HP)
+    w1u = pst.untile_matrix(w1t, pst.OP, pst.HP)          # W1^T
+    assert torch.equal(w0u[:k0, :H], w0.bfloat16())
+    assert torch.equal(w1u[:O, :H], w1.t().bfloat16())
+    assert float(w0u[k0:].abs().max()) == 0 and float(w0u[:, H:].abs().sum()) == 0
+    assert float(w1u[O:].abs().sum()) == 0 and float(w1u[:, H:].abs().sum()) == 0
+    assert torch.equal(b0p[:H], b0) and float(b0p[H:].abs().sum()) == 0
+    assert torch.equal(w1row[:H], w1[:, 0].bfloat16().float())
+    # a padded X row (zero pad columns, the last one 1) through the padded
+    # operands gives the plain z and head outputs (f32 sums over another
+    # width: rtol 1e-5)
+    x = torch.tensor(rng.randn(5, k0).astype(np.float32)).bfloat16()
+    xp = torch.zeros(5, pst.XP)
+    xp[:, :k0] = x.float()
+    xp[:, pst.XP - 1] = 1.0
+    z = xp @ w0u.float() + b0p
+    np.testing.assert_allclose(z[:, :H].numpy(),
+                               (x.float() @ w0.bfloat16().float() + b0).numpy(),
+                               rtol=1e-5, atol=1e-4)
+    h = torch.nn.functional.softplus(z, beta=100).bfloat16().float()
+    np.testing.assert_allclose(
+        (h @ w1u.float().t())[:, :O].numpy(),
+        (h[:, :H] @ w1.bfloat16().float()).numpy(), rtol=1e-5, atol=1e-4)
+    # and its last column turns the dW0 product into db0
+    dz = torch.tensor(rng.randn(5, pst.HP).astype(np.float32))
+    np.testing.assert_allclose((dz.t() @ xp)[:, pst.XP - 1].numpy(),
+                               dz.sum(0).numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('widths', [dict(k0=144, h=256, o=129),
+                                    dict(k0=129, h=264, o=129),
+                                    dict(k0=129, h=256, o=145)])
+def test_pack_weights_bf16_refuses_what_the_kernels_do_not_take(widths):
+    with pytest.raises(ValueError):
+        pst.pack_weights_bf16(torch.zeros(widths['k0'], widths['h']),
+                              torch.zeros(widths['h']),
+                              torch.zeros(widths['h'], widths['o']))
+
+
+@pytest.mark.parametrize('S', [1, 7])
+@pytest.mark.parametrize('n', [1, 520, 1003, 131072])
+def test_bf16_tiles_and_workspace_sizing(S, n):
+    """Row tiles cover a ragged N; the workspace holds, per tile, X, dz,
+    the centre h and cotangent, and one partial per block."""
+    tn = pst.tile_rows(S)
+    assert tn * (7 + 1 if S > 1 else 1) == pst.MR
+    tiles = -(-n // tn)
+    assert (tiles - 1) * tn < n <= tiles * tn
+    n_sm = 132
+    total = pst.workspace_bytes_bf16(S, n_sm, n)
+    assert total % 256 == 0
+    per_tile = 2 * (pst.MR * pst.XP + pst.MR * pst.HP + tn * pst.HP
+                    + tn * pst.OP)
+    blocks = min(tiles, n_sm)
+    partials = 4 * pst.HP * (blocks * (1 + pst.XP)
+                             + min(-(-tiles * tn // pst.MR), n_sm) * pst.OP)
+    assert tiles * per_tile + partials <= total
+    assert total < tiles * per_tile + partials + 7 * 256
+    # one more row never shrinks it; a full extra tile grows it
+    assert pst.workspace_bytes_bf16(S, n_sm, n + 1) >= total
+    assert pst.workspace_bytes_bf16(S, n_sm, n + tn) > total
