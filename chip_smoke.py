@@ -3,9 +3,9 @@
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases (any failure exits nonzero; no phase's failure is caught; the
-two training phases run before the kernel phases, and their profiled
-steps last, because a profiler session slows every later launch of the
-process):
+three training phases (3, 5, 3b, in this order) run before the kernel
+phases, and their profiled steps last, because a profiler session slows
+every later launch of the process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
                (one nvcc per source, started together) and print the seconds.
   2. kernels — hold the stencil-head fwd and bwd kernels to their plain
@@ -13,11 +13,12 @@ process):
                (N = 2048 rays x 64 samples = 131,072 rows, C=36, E=21,
                H=256, O=129), in bf16 (against the plain version in bf16)
                and f32 (against the plain version in f64), with B=2
-               dynamic sigma lanes and with S=1 at N=16,384, at a
+               dynamic sigma lanes (the shape after the first upsample) at
+               N=131,072 and with S=1 at N=16,384, at a
                ragged N=1,003 (a partial last row tile) and at N=520
                for both heads (fewer row tiles than SMs: the persistent
-               grids run short); then time kernel and plain version
-               beside the byte/op bound, and point_head (S=1, bf16) at
+               grids run short); then time kernel and plain version, B=1
+               and B=2, beside the byte/op bound, and point_head (S=1, bf16) at
                the occupancy update's chunk of 131,072 points.
   3. slice   — first a small float32 configuration trained for 2 steps on
                the card and on the CPU (plain versions) from the same
@@ -29,6 +30,16 @@ process):
                and one fwd + one bwd kernel launch per step; then 10 more
                steps for the step time and one profiled step (device time
                by kernel, launches, host operators, idle share).
+  3b. schedule — ShapeTrainer at the compressor_occ widths over the
+               published schedule cut to single digits (upsample_list
+               [2, 4], radiance head and Gaussian loss from step 4): 128^3
+               -> 256^3 -> 512^3 grids, one -> three mip levels, p16 -> p4
+               atlas; per-step loss, one fwd + one bwd launch a step with
+               B=2 from the first upsample; 10 timed 512^3 steps, peak
+               memory; the B=2 kernels on a 512^3 step's own inputs;
+               render_image of the held-out toy view at downsample_ratio
+               (PSNR, SSIM, forward-only kernel) and validate(); the mesh at
+               256^3 with the SDF on the card, written under build/.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions at every shape of the gather probes
                (exact equality), timed beside the byte bound and
@@ -52,7 +63,9 @@ process):
                one profiled step.  The cuts are the database and the NIS
                schedule, both printed.
 Then it prints the card's name and power limit, one JSON line listing
-every hand-written kernel, and as the last line
+every hand-written kernel (the stencil kernels with their B=2 figures, the
+shape of 80 % of a published run, and their launches in phase 3b), and as
+the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
 exits nonzero and prints no result.
 """
@@ -211,9 +224,16 @@ def _as_f64(d):
 
 
 def check_case(name, n, S, B, cd, seed):
-    """Kernel fwd + bwd vs the plain version on one set of inputs; raises
-    beyond TOL.  Returns (max abs err fwd, bwd)."""
-    d = head_inputs(n, S, B, cd, seed)
+    """Kernel fwd + bwd vs the plain version on random inputs made from a
+    seed; raises beyond TOL.  Returns (max abs err fwd, bwd)."""
+    return check_inputs(name, head_inputs(n, S, B, cd, seed), S, cd)
+
+
+def check_inputs(name, d, S, cd):
+    """Kernel fwd + bwd vs the plain version on the inputs d (as
+    head_inputs makes them); raises beyond TOL.  Returns (max abs err fwd,
+    bwd)."""
+    B = len(d['sigmas'])
     ko, kg = run_head(d, S, kernel=True)
     po, pg = run_head(d if cd == torch.bfloat16 else _as_f64(d), S,
                       kernel=False)
@@ -290,7 +310,8 @@ def time_head(n, S, B, cd, seed):
     for kernel in (False, True, True, False):
         leaves = [t.detach().clone().requires_grad_(True)
                   for t in d['pp'] + d['lp'] + d['w0p']]
-        pp, lp, w0p = leaves[:3], leaves[3:6], leaves[6:]
+        pp, lp = leaves[:3 * B], leaves[3 * B:6 * B]
+        w0p = leaves[6 * B:]
         pe, b0, w1, b1 = [d[k].detach().clone().requires_grad_(True)
                           for k in ('pe', 'b0', 'w1', 'b1')]
         head = st.stencil_head if kernel else st.stencil_head_plain
@@ -357,8 +378,9 @@ def phase_kernels(card):
         tag = 'bf16' if cd == torch.bfloat16 else 'f32'
         errs[tag] = check_case(f'S=7 B=1 static {tag} N={N_MAIN}', N_MAIN,
                                7, 1, cd, seed=1)
-        check_case(f'S=7 B=2 dynamic {tag} N=16384', 16384, 7, 2, cd,
-                   seed=2)
+        errs[tag + ' B=2'] = check_case(
+            f'S=7 B=2 dynamic {tag} N={N_MAIN} (after the first upsample)',
+            N_MAIN, 7, 2, cd, seed=2)
         check_case(f'S=1 B=1 static {tag} N=16384', 16384, 1, 1, cd,
                    seed=4)
         check_case(f'S=7 B=1 static {tag} N=1003 (ragged last tile)', 1003,
@@ -368,32 +390,35 @@ def phase_kernels(card):
         check_case(f'S=1 B=1 static {tag} N=520 (point_head, fewer tiles '
                    'than SMs)', 520, 1, 1, cd, seed=8)
     cd = torch.bfloat16
-    t = time_head(N_MAIN, 7, 1, cd, seed=5)
-    (fb, fo), (bb, bo) = head_bytes_ops(N_MAIN, 7, 1, cd)
-    fbound, fby = bound_ms(fb, fo, cd)
-    bbound, bby = bound_ms(bb, bo, cd)
-    dev = t['device']
-    # a kernel's ms is its device time; the wrapper's (kernel + argument
-    # prep) where the profiler shows none
-    k_ms = [dev[i] if dev[i] is not None else t['kernel'][i]
-            for i in range(2)]
-    print(f'[kernels] timing at N={N_MAIN} bf16 on {card}: '
-          f'fwd kernel {k_ms[0]:.3f} ms (wrapper {t["kernel"][0]:.3f}), '
-          f'plain {t["plain"][0]:.3f} ms, bound {fbound:.4f} ms ({fby}: '
-          f'{fb / 1e9:.3f} GB, {fo / 1e9:.1f} GFLOP); bwd kernel '
-          f'{k_ms[1]:.3f} ms (wrapper {t["kernel"][1]:.3f}), plain '
-          f'{t["plain"][1]:.3f} ms, bound {bbound:.4f} ms ({bby}: '
-          f'{bb / 1e9:.3f} GB, {bo / 1e9:.1f} GFLOP); device times from '
-          f'the profiler: {dev}', flush=True)
+    rows = {}
+    for B in (1, 2):
+        t = time_head(N_MAIN, 7, B, cd, seed=5)
+        (fb, fo), (bb, bo) = head_bytes_ops(N_MAIN, 7, B, cd)
+        fbound, fby = bound_ms(fb, fo, cd)
+        bbound, bby = bound_ms(bb, bo, cd)
+        dev = t['device']
+        # a kernel's ms is its device time; the wrapper's (kernel + argument
+        # prep) where the profiler shows none
+        k_ms = [dev[i] if dev[i] is not None else t['kernel'][i]
+                for i in range(2)]
+        print(f'[kernels] timing B={B} at N={N_MAIN} bf16 on {card}: '
+              f'fwd kernel {k_ms[0]:.3f} ms (wrapper {t["kernel"][0]:.3f}), '
+              f'plain {t["plain"][0]:.3f} ms, bound {fbound:.4f} ms ({fby}: '
+              f'{fb / 1e9:.3f} GB, {fo / 1e9:.1f} GFLOP); bwd kernel '
+              f'{k_ms[1]:.3f} ms (wrapper {t["kernel"][1]:.3f}), plain '
+              f'{t["plain"][1]:.3f} ms, bound {bbound:.4f} ms ({bby}: '
+              f'{bb / 1e9:.3f} GB, {bo / 1e9:.1f} GFLOP); device times from '
+              f'the profiler: {dev}', flush=True)
+        tag = 'bf16' if B == 1 else 'bf16 B=2'
+        rows[B] = {
+            'stencil_head_fwd': dict(max_abs_err=errs[tag][0], ms=k_ms[0],
+                                     plain_ms=t['plain'][0], bound_ms=fbound,
+                                     bound_by=fby),
+            'stencil_head_bwd': dict(max_abs_err=errs[tag][1], ms=k_ms[1],
+                                     plain_ms=t['plain'][1], bound_ms=bbound,
+                                     bound_by=bby)}
     time_point_head(card)
-    return {
-        'stencil_head_fwd': dict(max_abs_err=errs['bf16'][0], ms=k_ms[0],
-                                 plain_ms=t['plain'][0], bound_ms=fbound,
-                                 bound_by=fby),
-        'stencil_head_bwd': dict(max_abs_err=errs['bf16'][1], ms=k_ms[1],
-                                 plain_ms=t['plain'][1], bound_ms=bbound,
-                                 bound_by=bby),
-    }
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -484,6 +509,10 @@ def profile_step(trainer, card, step_ms, top=12, tag='slice'):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, host = [], []
     for e in prof.key_averages():
+        if getattr(e, 'is_user_annotation', False):
+            # a range on the device timeline (Optimizer.step#Adam.step)
+            # spans kernels that are counted on their own
+            continue
         if str(getattr(e, 'device_type', '')).endswith('CUDA'):
             # kernels only: an operator's entry repeats its kernels' time
             dev_us = float(getattr(e, 'self_device_time_total', 0.0)
@@ -552,6 +581,194 @@ def phase_slice(card, steps=5, timed_steps=10):
     step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
     print(f'[slice] {timed_steps} more steps on {card}: {step_ms:.1f} '
           f'ms/step = {rays / (step_ms / 1e3):.0f} rays/s', flush=True)
+    return launches, trainer, step_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: stage 1 over its published schedule (upsamplings, eval, mesh)
+# ---------------------------------------------------------------------------
+
+# compressor_occ upsamples at steps 20,000 and 40,000 and turns the
+# radiance head and the Gaussian loss on after step 20,000; cut to single
+# digits so that a few steps cross both upsamplings with both live.  The
+# toy scene keeps one view out (split_manul=false) for the render.
+SCHEDULE_CUTS = ['database_name=toy/sphere_128_12', 'gather_dtype=bfloat16',
+                 'upsample_list=[2,4]', 'radiance_field_step=3',
+                 'gaussianLoss_step=3', 'split_manul=false']
+
+
+class HeadSpy:
+    """Records the mip-branch count B of every stencil-head kernel call
+    and, when ``capture_next`` is set, a copy of the next call's inputs; it
+    wraps StencilHead.apply and launches nothing itself."""
+
+    def __init__(self):
+        from tensoflow_tpu_torch.ops import stencil as st
+        self.st = st
+        self.bs, self.capture_next, self.captured = [], False, None
+
+    def __enter__(self):
+        orig = self.st.StencilHead.apply
+
+        def apply(static, *args):
+            self.bs.append(static[1])
+            if self.capture_next:
+                self.captured = (static, [t.detach().clone() for t in args])
+                self.capture_next = False
+            return orig(static, *args)
+        self.st.StencilHead.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        del self.st.StencilHead.apply        # the inherited classmethod
+
+
+def _captured_inputs(captured, b1, seed=11):
+    """check_inputs' dict from a captured StencilHead call (with the
+    layer-1 bias it adds outside) and random cotangents."""
+    (S, B, C_, cd, sigmas, _), args = captured
+    fr, pe, rot, b0, w1 = args[:5]
+    rest = args[5:]
+    n, o = fr.shape[0], w1.shape[1]
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    return {'pp': rest[:3 * B], 'lp': rest[3 * B:6 * B],
+            'w0p': rest[6 * B:], 'fr': fr, 'sigmas': sigmas, 'pe': pe,
+            'rot': rot, 'b0': b0, 'w1': w1, 'b1': b1.detach().clone(),
+            'g_c': torch.randn((n, o), generator=g, device='cuda'),
+            'g_off': torch.randn((S - 1, n), generator=g, device='cuda')}
+
+
+def phase_schedule(card, timed_steps=10):
+    """ShapeTrainer at the compressor_occ widths through both upsamplings
+    (128^3 -> 256^3 -> 512^3, one -> three mip levels, p16 -> p4 atlas):
+    per-step loss and kernel launches, the 512^3 step time and memory, the
+    B=2 kernels on a 512^3 step's own inputs, one test view rendered and
+    scored, and the mesh of the trained field at 256^3."""
+    from tensoflow_tpu_torch import extract_mesh
+    from tensoflow_tpu_torch.ops import mesh as mesh_mod
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.ops import tensor_field as tfield
+    from tensoflow_tpu_torch.train import metrics_vis
+    from tensoflow_tpu_torch.train.trainer import EVAL_KEYS, ShapeTrainer
+    import numpy as np
+    cfg = _load_cfg(SCHEDULE_CUTS)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30   # earlier phases' state
+    trainer = ShapeTrainer(cfg)                # device=None: the card
+    trainer.init_dataset()
+    rays = cfg['train_ray_num']
+    print(f'[schedule] cuts: {SCHEDULE_CUTS} (published: upsample_list '
+          '[20000, 40000], radiance_field_step and gaussianLoss_step 20000, '
+          'database tensoSDF/compressor, split_manul true)', flush=True)
+
+    def grid_line():
+        sdf = trainer.rcfg.sdf
+        with torch.no_grad():
+            fmt = tfield.pack_vm_patches(trainer.params['sdf']['field'],
+                                         sdf.n_levels).meta.plane_fmt
+        return (f'grid {sdf.grid_size}, n_levels {sdf.n_levels}, atlas '
+                f'{fmt}, march_stride {trainer.rcfg.march_stride}, '
+                f'compact budget {trainer.rcfg.compact_samples_per_ray}')
+    print(f'[schedule] start: {grid_line()}', flush=True)
+    logs = []
+    st.reset_launches()
+    with HeadSpy() as spy:
+        # the main path: the five steps that cross both upsamplings and the
+        # first 512^3 step, whose stencil inputs are kept
+        for step in range(6):
+            spy.capture_next = step == 5
+            logs += trainer.train(n_steps=1, log_every=1)
+            if step in cfg['upsample_list']:
+                print(f'[schedule] after step {step} (upsample): '
+                      f'{grid_line()}; Adam rebased at step '
+                      f'{trainer.opt.reset_step}', flush=True)
+        torch.cuda.synchronize()
+        launches = dict(st.LAUNCHES)
+        if spy.bs != [1, 1, 1, 2, 2, 2]:
+            raise AssertionError(f'stencil branch counts per step {spy.bs}')
+    _check_finite(logs)
+    print('[schedule] loss per step: ' + ', '.join(
+        f'{r["loss"]:.6f}' for r in logs), flush=True)
+    print('[schedule] step 6 terms: ' + json.dumps(
+        {k: round(v, 6) for k, v in logs[-1].items()}), flush=True)
+    for k in ('stencil_head_fwd', 'stencil_head_bwd'):
+        if launches[k] != len(logs):
+            raise AssertionError(f'{k} launched {launches[k]} times in '
+                                 f'{len(logs)} steps')
+    print(f'[schedule] launches over the {len(logs)} steps {launches}; '
+          f'mip branches per step {spy.bs}', flush=True)
+
+    t0 = time.perf_counter()
+    timed = trainer.train(n_steps=timed_steps, log_every=timed_steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
+    _check_finite(timed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[schedule] {timed_steps} steps at 512^3 on {card}: '
+          f'{step_ms:.1f} ms/step = {rays / (step_ms / 1e3):.0f} rays/s; peak '
+          f'device memory {peak:.2f} GiB in all, {peak - base:.2f} GiB above '
+          f'what earlier phases hold; loss {timed[-1]["loss"]:.6f}',
+          flush=True)
+
+    d = _captured_inputs(spy.captured, trainer.params['sdf']['mlp'][1]['b'])
+    spy.captured = None
+    n = d['fr'].shape[0]
+    check_inputs(f'S=7 B=2 dynamic bf16 N={n} (a 512^3 step\'s own inputs)',
+                 d, 7, torch.bfloat16)
+    del d
+
+    # one held-out view at the validation size, rendered in chunks of 1536
+    # rays (the last one padded), scored; then validate() itself
+    (vid,) = trainer.test_ids
+    db = trainer.database
+    ds = cfg['downsample_ratio']
+    gt = db.get_image(vid).astype(np.float32) / 255.0
+    h, w = int(gt.shape[0] * ds), int(gt.shape[1] * ds)
+    gt = metrics_vis.resize_linear(gt, h, w)
+    K = np.diag([ds, ds, 1.0]).astype(np.float32) @ db.get_K(vid)
+    st.reset_launches()
+    t0 = time.perf_counter()
+    out = trainer.render_image(db.get_pose(vid), K, h, w, chunk=1536)
+    render_s = time.perf_counter() - t0
+    render_launches = dict(st.LAUNCHES)
+    bad = [k for k in EVAL_KEYS if not np.isfinite(out[k]).all()]
+    if bad or set(out) != set(EVAL_KEYS):
+        raise AssertionError(f'render_image: non-finite or missing {bad}')
+    # per chunk: the samples' head, then the surface normal's
+    chunks = -(-h * w // 1536)
+    if render_launches != {'stencil_head_fwd': 2 * chunks,
+                           'stencil_head_bwd': 0}:
+        raise AssertionError(f'render_image launches {render_launches}')
+    res = metrics_vis.eval_and_dump(gt, out, cfg['name'], trainer.start_step,
+                                    vid, vis_dir=os.path.join(_root(),
+                                                              'build'))
+    val_psnr = trainer.validate()
+    print(f'[schedule] render_image of view {vid} at {h}x{w} '
+          f'(downsample_ratio {ds}) in {render_s:.2f} s on {card}: PSNR '
+          f'{res["psnr"]:.3f} dB, SSIM {res["ssim"]:.4f}; all {len(out)} '
+          f'images finite; kernel launches {render_launches} (forward only); '
+          f'validate() PSNR {val_psnr:.3f} dB', flush=True)
+
+    # the mesh: SDF on the card at the blend_ratio mip level, marching
+    # tetrahedra on the host
+    res_mesh = 256
+    t0 = time.perf_counter()
+    query = extract_mesh.sdf_query(trainer.params, trainer.rcfg,
+                                   torch.device('cuda'),
+                                   float(cfg['blend_ratio']))
+    verts, tris = mesh_mod.extract_geometry(
+        np.array([-1.0, -1, -1]), np.array([1.0, 1, 1]), res_mesh, 0.0,
+        query)
+    ply = os.path.join(_root(), 'build', 'smoke_schedule.ply')
+    mesh_mod.write_ply(ply, verts, tris)
+    rv, rt = mesh_mod.read_ply(ply)
+    if len(tris) == 0 or len(rv) != len(verts) or len(rt) != len(tris) \
+            or not np.isfinite(verts).all():
+        raise AssertionError(f'mesh: {len(verts)} verts, {len(tris)} tris')
+    print(f'[schedule] extract_geometry at {res_mesh}^3 in '
+          f'{time.perf_counter() - t0:.1f} s: {len(verts)} vertices, '
+          f'{len(tris)} triangles, written to build/smoke_schedule.ply',
+          flush=True)
     return launches, trainer, step_ms
 
 
@@ -959,12 +1176,14 @@ def main():
     # (measured: the same stage-2 steps took 77 / 130 / 123 ms before and
     # 112 / 168 / 168 ms after a session), which would inflate the step
     # times of these host-bound steps
-    launches, shape_trainer, shape_ms = phase_slice(card)
+    _, shape_trainer, shape_ms = phase_slice(card)
     mat_trainer, mat_ms = phase_stage2(card)
-    kinds = phase_kernels(card)
+    launches, sched_trainer, sched_ms = phase_schedule(card)
+    kinds = phase_kernels(card)[2]
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
     profile_step(mat_trainer, card, mat_ms, tag='stage2')
+    profile_step(sched_trainer, card, sched_ms, tag='schedule')
     for k, n in gather_launches.items():
         if n <= 0:
             raise AssertionError(f'{k} was not launched by microbench_r3')

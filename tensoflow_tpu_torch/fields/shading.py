@@ -99,9 +99,12 @@ def _fix_normals(normals):
 
 
 def apply_shading(params, cfg: ShadingConfig, mips, points, normals,
-                  view_dirs, feature_vectors, step: Optional[int] = None):
+                  view_dirs, feature_vectors, step: Optional[int] = None,
+                  inter_results: bool = False):
     """Forward shading (ref: fields.py:448-567).  step=None disables the
-    radiance head.  Returns (color [N,3], radiance or None, occ_info)."""
+    radiance head.  Returns (color [N,3], radiance or None, occ_info), and
+    with inter_results the intermediates dict (materials, lights and
+    colours, the displayed ones as clipped sRGB) as a fourth item."""
     if cfg.human_light:
         raise NotImplementedError('human_light is not ported')
     normals = _fix_normals(normals)
@@ -161,4 +164,23 @@ def apply_shading(params, cfg: ShadingConfig, mips, points, normals,
                         0.0, 1.0)
     occ_info = {'reflective': reflective, 'occ_prob': occ_prob,
                 'roughness': roughness}
+    if inter_results:
+        def srgb01(x):
+            return torch.clamp(linear_to_srgb(x), 0.0, 1.0)
+        inter = {
+            'specular_albedo': specular_albedo,
+            'specular_ref': torch.clamp(specular_ref, 0.0, 1.0),
+            'specular_direct_light': direct_light,
+            'specular_light': srgb01(specular_light),
+            'specular_color': srgb01(specular_color),
+            'diffuse_albedo': diffuse_albedo,
+            'diffuse_light': srgb01(diffuse_light),
+            'diffuse_color': srgb01(diffuse_color),
+            'metallic': metallic,
+            'roughness': roughness,
+            'albedo': albedo,
+            'occ_prob': occ_prob_c,
+            'indirect_light': indirect_light * occ_prob_c,
+        }
+        return color, radiance, occ_info, inter
     return color, radiance, occ_info

@@ -208,3 +208,17 @@ def gradient_only(params, cfg: SDFConfig, xyz, aabb, level=None):
     """FD gradient without hessian (ref: fields.py:227-248)."""
     return sdf_with_grad_hessian(params, cfg, xyz, aabb, level,
                                  with_hessian=False)[2]
+
+
+def upsample_tenso_sdf(params, cfg: SDFConfig, res_target
+                       ) -> Tuple[Dict[str, Any], SDFConfig]:
+    """Coarse-to-fine upsample (ref: fields.py:168-178): the resolution is
+    rounded down to a multiple of 2^(n_levels_new - 1), n_levels goes up by
+    one, the MLP is carried over unchanged.  No gradient flows through."""
+    new_levels = cfg.n_levels + 1
+    q = 2 ** (new_levels - 1)
+    res = [(int(r) // q) * q for r in res_target]
+    with torch.no_grad():
+        new_field = tfield.upsample_vm(params['field'], res)
+    return ({'field': new_field, 'mlp': params['mlp']},
+            cfg._replace(grid_size=tuple(res), n_levels=new_levels))

@@ -3,8 +3,12 @@ tensoflow_tpu/models/shape_renderer.py): NeuS volume rendering over the
 TensoSDF field, on the occupancy-grid sampler with global sample
 compaction — the path the stage-1 training step runs.
 
-Not ported yet (see ROADMAP.md): the hierarchical sampler, the alpha mask,
-predict_BG and eval_extras.  Random draws come in as pre-drawn noise
+``render_rays(..., eval_extras=True)`` adds what a rendered view shows
+beside its colour: depth, the surface normal, the materials and lights at
+the surface and the marched occlusion (the render_image outputs).
+
+Not ported yet (see ROADMAP.md): the hierarchical sampler, the alpha mask
+and predict_BG.  Random draws come in as pre-drawn noise
 (``noise``): the trainer draws them from its torch.Generator, the parity
 tests with jax.random from the JAX step's own keys.
 """
@@ -111,9 +115,9 @@ def draw_noise(gen: torch.Generator, cfg: ShapeRendererConfig, rn: int,
 def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
                 ray_batch, step: int, cos_anneal_ratio, noise,
                 is_train: bool, radiance_on: bool = False,
-                occ_loss_on: bool = False):
+                occ_loss_on: bool = False, eval_extras: bool = False):
     """Render a batch of rays; returns the outputs dict (occupancy-grid
-    sampler + compacted samples, the training path)."""
+    sampler + compacted samples).  ``noise`` is read only when is_train."""
     if not (cfg.use_occ_grid and cfg.compact_samples_per_ray > 0):
         raise NotImplementedError('only the occupancy-grid sampler with '
                                   'sample compaction is ported')
@@ -149,6 +153,7 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
                       dists.reshape(-1, 1)], -1)
     s_cols = cols[src]
     s_pts, s_lv = s_cols[:, 0:3], s_cols[:, 3:4]
+    s_mid = mid.reshape(-1)[src] if eval_extras else None
     s_dirs, s_dists = s_cols[:, 4:7], s_cols[:, 7]
 
     sdf, app_feat, grads, hessian = tenso_sdf.sdf_with_grad_hessian(
@@ -181,6 +186,8 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
         rough_c = occ_info['roughness']
         rough_c = rough_c if rough_c.ndim > 1 else rough_c[:, None]
         cols += [w_col * sampled_radiance, w_col * rough_c]
+    if eval_extras:
+        cols.append(w_col * s_mid[:, None])
     sums = composite.segment_sums_sorted(torch.cat(cols, -1), ray_id, rn)
     acc = sums[:, 0:1]
     color = sums[:, 1:4]
@@ -229,7 +236,48 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
             _occ_loss(cfg, s_pts, sdf, normals, s_dirs, occ_info, slot_mask,
                       noise['occ_score'], inv_s, occ_state)
             if occ_loss_on else torch.zeros((), device=dev))
+    if eval_extras:
+        n_cols = 11 if radiance_cols else 7
+        outputs.update(_eval_extras(
+            params, cfg, mips, aabb, ray_batch, sums[:, n_cols:n_cols + 1],
+            inv_s, step))
     return outputs
+
+
+def _eval_extras(params, cfg: ShapeRendererConfig, mips, aabb, ray_batch,
+                 t_depth, inv_s, step):
+    """Depth, surface normal, materials and lights at the expected-depth
+    surface point, and the occlusion marched on the live field
+    (shape_renderer.py:509-538 of the JAX package).  The normal comes from
+    the stencil head run forward only."""
+    rays_o, dirs = ray_batch['rays_o'], ray_batch['dirs']
+    radii, rays_cos = ray_batch['radiis'], ray_batch['rays_cos']
+    br = base_radii(cfg)
+    packed = tenso_sdf.pack_field(params['sdf'], cfg.sdf)
+    out = {'depth': t_depth * rays_cos}
+    surf_pts = t_depth * dirs + rays_o
+    lv_d = torch.log2(compute_ball_radii(t_depth, radii, rays_cos) / br)
+    nrm = safe_normalize(tenso_sdf.gradient_only(params['sdf'], cfg.sdf,
+                                                 surf_pts, aabb, lv_d))
+    inner_d = (~torch.any((aabb[0] > surf_pts) | (surf_pts > aabb[1]), -1,
+                          keepdim=True)).to(nrm.dtype)
+    out['normal_vis'] = ((nrm + 1.0) * 0.5) * inner_d
+    feat = tenso_sdf.apply_tenso_sdf(params['sdf'], cfg.sdf, surf_pts, aabb,
+                                     lv_d, packed=packed)[..., 1:]
+    _, _, occ_info, inter = shading_mod.apply_shading(
+        params['shading'], cfg.shading, mips, surf_pts, nrm, -dirs, feat,
+        step=step, inter_results=True)
+
+    def sdf_fun(x):
+        return tenso_sdf.sdf_only(params['sdf'], cfg.sdf, x, aabb,
+                                  packed=packed)
+    _, occ_w, _ = secondary.secondary_intersection(
+        sdf_fun, inv_s, surf_pts, occ_info['reflective'], 128, 9)
+    out['occ_prob_gt'] = torch.sum(occ_w, -1, keepdim=True)
+    for k, v in inter.items():
+        out[k] = v * inner_d
+    out['occ_prob'] = occ_info['occ_prob'] * inner_d
+    return out
 
 
 def _occ_loss(cfg: ShapeRendererConfig, flat_pts, sdf, normals, flat_dirs,

@@ -6,8 +6,10 @@ layouts and atlas formats so its tests compare like with like:
 
   * ``pack_vm_field``  — 2x2 patch rows for the single-point field eval
     (occupancy update, sdf_only);
-  * ``pack_vm_patches`` — 4x4 (p16) patch rows feeding the stencil head
-    (ops/stencil.py), one gathered row per texture per mip branch.
+  * ``pack_vm_patches`` — the patch atlas feeding the stencil head
+    (ops/stencil.py): 4x4 (p16) rows, one gathered row per texture per mip
+    branch, or, from a 256x256 top plane up, 1x4 (p4) rows, four gathered
+    rows per plane per mip branch reassembled into the same 4x4 block.
 
 Coordinates are detached (FD stencil, ref fields.py:268-270); the field
 gradient flows through the row gathers, whose backward is index_add_.
@@ -20,10 +22,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import device_constant
+
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
 FRAC_STRIDE = 32        # fr lanes per mip branch (see vm_patch_gather)
 SMALL_TABLE_ROWS = 4096
+# top-plane size (texels) from which the whole patch atlas takes p4 rows
+# (tensor_field.py:601-605 of the JAX package)
+PACK_P4_MIN_TEXELS = 256 * 256
 
 FieldParams = Dict[str, Any]   # {'planes': [3 x (H,W,C)], 'lines': [3 x (L,C)]}
 
@@ -272,7 +279,11 @@ def _level_branches(n_levels: int, level, n):
 
 
 def _table(vals, like_idx):
-    return torch.as_tensor(vals, dtype=torch.int64, device=like_idx.device)
+    """Per-level ints as an int64 tensor on like_idx's device (cached: a
+    host-to-device copy would make the step wait for the device)."""
+    vals = tuple(vals)
+    return device_constant(('level_table', vals), lambda: vals,
+                           like_idx.device, torch.int64)
 
 
 def _plane_params(meta, i: int, l0):
@@ -355,22 +366,41 @@ class PatchMeta(NamedTuple):
     line_lens: Tuple[Tuple[int, ...], ...]
     n_levels: int
     n_comp: int
+    # 'p16': rows are whole 4x4 patches [16C], one gather per sample;
+    # 'p4': rows are 1x4 dv-spans [4C] of the edge-padded texture, four
+    # consecutive padded rows per sample (one format per atlas, so that
+    # the dynamic-mip branches index one buffer alike)
+    plane_fmt: str = 'p16'
 
 
 class PatchAtlas(NamedTuple):
-    """Planes [Tp, 16C] (p16 rows), lines [Tl, 4C]."""
+    """Planes [Tp, 16C] (p16 rows) or [Tp, 4C] (p4 rows), lines [Tl, 4C]."""
     plane_buf: torch.Tensor
     line_buf: torch.Tensor
     meta: PatchMeta
 
 
 def pack_vm_patches(field: FieldParams, n_levels: int = 1,
-                    gather_dtype=None) -> PatchAtlas:
-    """p16 patch atlas: row a_u*(W+1)+a_v holds the 16 edge-clamped texels
-    (clip(a_u-1+du), clip(a_v-1+dv)), du,dv in [-1,2], slot-major du*4+dv;
-    each line row holds the 4 texels clip(a-1+dx).  Differentiable; built
-    once per step.  (The JAX package's p4 rows, used from 256^2 planes up,
-    are not ported.)"""
+                    gather_dtype=None, pack_impl: str = 'auto') -> PatchAtlas:
+    """Patch atlas of the stencil head.  Differentiable; built once per
+    step.
+
+    p16 rows (a_u*(W+1) + a_v) hold the 16 edge-clamped texels
+    (clip(a_u-1+du), clip(a_v-1+dv)), du,dv in [-1,2], slot-major du*4+dv.
+    p4 rows (u_p*(W+1) + a_v, u_p in [0, H+3]) hold the 4 texels
+    pad[u_p, a_v..a_v+3] of one row of the texture edge-padded by 2, so
+    that padded rows a_u..a_u+3 make up the p16 row a_u*(W+1) + a_v (the
+    gather side reassembles it, vm_patch_gather).  p4 packs 4x the plane
+    bytes instead of 16x.  Each line row holds the 4 texels clip(a-1+dx).
+
+    pack_impl: 'auto' takes p4 when the top plane has at least
+    PACK_P4_MIN_TEXELS texels, else p16; 'p4' / 'p16' force a format."""
+    if pack_impl not in ('auto', 'p4', 'p16'):
+        raise ValueError(f'pack_impl={pack_impl!r}: auto, p4 or p16')
+    top = field['planes'][0].shape
+    fmt = pack_impl
+    if fmt == 'auto':
+        fmt = 'p4' if top[0] * top[1] >= PACK_P4_MIN_TEXELS else 'p16'
     pparts, lparts = [], []
     p_offs, p_shapes, l_offs, l_lens = [], [], [], []
     poff = loff = 0
@@ -379,13 +409,18 @@ def pack_vm_patches(field: FieldParams, n_levels: int = 1,
         for tex in build_pyramid_2d(field['planes'][i], n_levels):
             h, w, c = tex.shape
             pad = _edge_pad_2d(tex, 2)
-            slots = [pad[du + 1:du + 2 + h, dv + 1:dv + 2 + w]
-                     for du in (-1, 0, 1, 2) for dv in (-1, 0, 1, 2)]
+            if fmt == 'p4':
+                slots = [pad[:, dv + 1:dv + 2 + w] for dv in (-1, 0, 1, 2)]
+                rows = h + 4
+            else:
+                slots = [pad[du + 1:du + 2 + h, dv + 1:dv + 2 + w]
+                         for du in (-1, 0, 1, 2) for dv in (-1, 0, 1, 2)]
+                rows = h + 1
             pparts.append(torch.cat(slots, -1).reshape(
-                (h + 1) * (w + 1), 16 * c))
+                rows * (w + 1), len(slots) * c))
             offs.append(poff)
             shps.append((h, w))
-            poff += (h + 1) * (w + 1)
+            poff += rows * (w + 1)
         p_offs.append(tuple(offs))
         p_shapes.append(tuple(shps))
     for i in range(3):
@@ -407,7 +442,7 @@ def pack_vm_patches(field: FieldParams, n_levels: int = 1,
         lbuf = lbuf.to(gather_dtype)
     meta = PatchMeta(tuple(p_offs), tuple(p_shapes), tuple(l_offs),
                      tuple(l_lens), n_levels,
-                     int(field['planes'][0].shape[-1]))
+                     int(field['planes'][0].shape[-1]), plane_fmt=fmt)
     return PatchAtlas(pbuf, lbuf, meta)
 
 
@@ -463,6 +498,7 @@ def vm_patch_gather(atlas: PatchAtlas, xyz01, delta01, level=None):
     for l0, mw in _level_branches(meta.n_levels, level, n):
         static = isinstance(l0, int)
         sgs, fracs, sig_lanes, p_idx, l_idx, sig_x = [], [], [], [], [], []
+        p_strides = []
         for i in range(3):
             a, b = MAT_MODE[i]
             base, hi, wi, hf, wf = _plane_params(meta, i, l0)
@@ -475,6 +511,7 @@ def vm_patch_gather(atlas: PatchAtlas, xyz01, delta01, level=None):
             au = _clip_idx(u0.long() + 1, hi)
             av = _clip_idx(v0.long() + 1, wi)
             p_idx.append(base + au * (wi + 1) + av)
+            p_strides.append(wi + 1)
             sgs.append((d01[a] * hf, d01[b] * wf) if static else None)
         for i in range(3):
             c = VEC_MODE[i]
@@ -486,7 +523,16 @@ def vm_patch_gather(atlas: PatchAtlas, xyz01, delta01, level=None):
             l_idx.append(_clip_idx(x0.long() + 1, li) + base)
             if static:
                 sgs[i] = sgs[i] + (d01[c] * lf,)
-        pps = [_take(atlas.plane_buf, ix) for ix in p_idx]
+        if meta.plane_fmt == 'p4':
+            # padded rows a_u..a_u+3 (stride W+1) side by side make up the
+            # same slot-major [N, 16C] block as a p16 row
+            k4 = device_constant('p4_rows', lambda: range(4), xyz01.device,
+                                 torch.int64)[None, :]
+            pps = [_take(atlas.plane_buf, ix[:, None] + k4 * (
+                       st if isinstance(st, int) else st[:, None])
+                   ).reshape(n, -1) for ix, st in zip(p_idx, p_strides)]
+        else:
+            pps = [_take(atlas.plane_buf, ix) for ix in p_idx]
         small = atlas.line_buf.shape[0] <= SMALL_TABLE_ROWS
         lps = [take_rows_small(atlas.line_buf, ix) if small
                else _take(atlas.line_buf, ix) for ix in l_idx]
@@ -501,6 +547,63 @@ def vm_patch_gather(atlas: PatchAtlas, xyz01, delta01, level=None):
     if fr.shape[-1] < 2 * FRAC_STRIDE:
         fr = F.pad(fr, (0, 2 * FRAC_STRIDE - fr.shape[-1]))
     return pp, lp, fr, tuple(sigmas)
+
+
+# ---------------------------------------------------------------------------
+# grid upsampling
+# ---------------------------------------------------------------------------
+
+def _align_corners_taps(n_in: int, n_out: int, device):
+    """(i0, i1, f) of an align-corners linear resize n_in -> n_out at the
+    positions jnp.linspace(0, n_in - 1, n_out) takes in the JAX package:
+    XLA folds its start * (1 - t) + stop * t, t = i / (n_out - 1), into
+    i * (stop * (1 / (n_out - 1))) in float32 (equal on every size pair
+    tried), the last one exactly stop.  floor() and the fractions round
+    as the JAX package's do."""
+    stop = np.float32(n_in - 1.0)
+    pos = np.zeros((n_out,), np.float32)
+    if n_out > 1:
+        rate = stop * (np.float32(1.0) / np.float32(n_out - 1))
+        pos[:-1] = np.arange(n_out - 1, dtype=np.float32) * rate
+        pos[-1] = stop
+    i0 = np.floor(pos).astype(np.int64)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    f = (pos - i0.astype(np.float32)).astype(np.float32)
+    return (torch.as_tensor(i0, device=device),
+            torch.as_tensor(i1, device=device),
+            torch.as_tensor(f, device=device))
+
+
+def _interp_bilinear_resize(tex, out_hw):
+    """align_corners=True bilinear resize of [H,W,C] (ref: fields.py:154-166)
+    by index gathers, as the JAX package computes it."""
+    h, w, _ = tex.shape
+    u0, u1, fu = _align_corners_taps(h, out_hw[0], tex.device)
+    v0, v1, fv = _align_corners_taps(w, out_hw[1], tex.device)
+    fu = fu[:, None, None]
+    fv = fv[None, :, None]
+    r0, r1 = tex[u0], tex[u1]
+    t00, t01 = r0[:, v0], r0[:, v1]
+    t10, t11 = r1[:, v0], r1[:, v1]
+    return ((1 - fu) * ((1 - fv) * t00 + fv * t01)
+            + fu * ((1 - fv) * t10 + fv * t11))
+
+
+def _interp_linear_resize(line, out_l: int):
+    x0, x1, f = _align_corners_taps(line.shape[0], out_l, line.device)
+    f = f[:, None]
+    return (1 - f) * line[x0] + f * line[x1]
+
+
+def upsample_vm(field: FieldParams, res_target: Sequence[int]) -> FieldParams:
+    """Coarse-to-fine grid upsampling (ref: fields.py:154-178)."""
+    planes, lines = [], []
+    for i in range(3):
+        hw = (int(res_target[MAT_MODE[i][0]]), int(res_target[MAT_MODE[i][1]]))
+        planes.append(_interp_bilinear_resize(field['planes'][i], hw))
+        lines.append(_interp_linear_resize(field['lines'][i],
+                                           int(res_target[VEC_MODE[i]])))
+    return {'planes': planes, 'lines': lines}
 
 
 # ---------------------------------------------------------------------------

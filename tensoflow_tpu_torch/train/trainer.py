@@ -16,8 +16,14 @@ when CUDA is absent; the CPU runs only when the caller passes
 device for the per-step noise); ``step_noise`` / ``occ_jitter`` are the
 only places the loop draws, so a caller can substitute its own draws.
 
-Not ported yet (see ROADMAP.md): grid upsampling, the alpha mask,
-render_image/validate and the multi-device mesh.
+Grid upsampling (``upsample_list``) starts a new grid phase: the field is
+resized, one more mip level joins, and Adam restarts with fresh moments
+and its cosine factor rebased at that step.  ``render_image`` renders a
+full view in chunks without gradients; ``validate`` scores the held-out
+views.
+
+Not ported yet (see ROADMAP.md): the alpha mask (the hierarchical
+sampler's), predict_BG and the multi-device mesh.
 """
 from __future__ import annotations
 
@@ -36,7 +42,13 @@ from ..fields import shading as shading_mod
 from ..fields import tenso_sdf
 from ..models import shape_renderer as sr
 from ..ops import grid as grid_mod
-from . import checkpoints, losses
+from . import checkpoints, losses, metrics_vis
+
+# the images render_image returns
+EVAL_KEYS = ('ray_rgb', 'normal', 'normal_vis', 'acc', 'depth', 'albedo',
+             'roughness', 'metallic', 'occ_prob', 'occ_prob_gt',
+             'diffuse_color', 'specular_color', 'diffuse_light',
+             'specular_light', 'indirect_light')
 
 # adaptive sample-budget buckets and margin (trainer.py:46-47 of the JAX
 # package)
@@ -46,6 +58,8 @@ BUDGET_MARGIN = 1.5
 
 def build_shape_config(cfg: Dict[str, Any], grid_size, n_levels: int
                        ) -> sr.ShapeRendererConfig:
+    if cfg.get('predict_BG'):
+        raise NotImplementedError('predict_BG is not ported yet')
     sdf_cfg = tenso_sdf.SDFConfig(
         grid_size=tuple(int(g) for g in grid_size),
         n_comp=cfg['sdf_n_comp'], sdf_dim=cfg['sdf_dim'],
@@ -210,6 +224,7 @@ class ShapeTrainer:
         self.occ_cfg = grid_mod.OccGridConfig(resolution=cfg['occ_grid_reso'])
         self.occ_state = grid_mod.init_occ_grid(self.occ_cfg, self.device)
         self.start_step = 0
+        self.best_para = 0.0
         self.occ_update_interval = 100
         self._budget_ema = None
         self.set_params(params)
@@ -335,12 +350,29 @@ class ShapeTrainer:
         if bucket != self.rcfg.compact_samples_per_ray:
             self.rcfg = self.rcfg._replace(compact_samples_per_ray=bucket)
 
-    def check_schedule(self, step: int):
-        """Raise at a step whose schedule needs a part not ported yet."""
-        if step in (self.cfg.get('upsample_list') or ()) \
-                and self.n_voxel_list:
-            raise NotImplementedError(
-                f'step {step}: grid upsampling is not ported yet')
+    def maybe_update_alpha_mask(self, step: int):
+        """Alpha-mask refresh schedule (ref: trainer_inv.py:272-279): a
+        no-op on the occupancy-grid sampler, the only one ported."""
+        lst = self.cfg.get('update_AlphaMask_lst')
+        if self.rcfg.use_occ_grid or not lst or step not in lst:
+            return
+        raise NotImplementedError('the alpha mask is not ported yet')
+
+    def maybe_upsample(self, step: int) -> bool:
+        """Grid upsample + optimizer reset (ref: trainer_inv.py:283-291):
+        the next grid of the voxel schedule, one more mip level, the MLP
+        carried over, fresh Adam moments with the cosine factor rebased at
+        this step.  The occupancy state and the budget EMA carry over."""
+        ul = self.cfg.get('upsample_list')
+        if not ul or step not in ul or not self.n_voxel_list:
+            return False
+        n_vox = self.n_voxel_list.pop(0)
+        reso = config_mod.n_to_reso(n_vox, self.cfg['aabb'])
+        new_sdf, new_sdf_cfg = tenso_sdf.upsample_tenso_sdf(
+            self.params['sdf'], self.rcfg.sdf, reso)
+        self.rcfg = self.rcfg._replace(sdf=new_sdf_cfg)
+        self.set_params({**self.params, 'sdf': new_sdf}, reset_step=step)
+        return True
 
     # ------------------------------------------------------------------
     # checkpointing
@@ -348,6 +380,7 @@ class ShapeTrainer:
     def save(self, path: str):
         checkpoints.save_checkpoint(path, {
             'step': self.start_step,
+            'best_para': self.best_para,
             'params': self.params,
             'opt_state': self.opt.state(),
             'occ_state': self.occ_state,
@@ -374,8 +407,9 @@ class ShapeTrainer:
                 compact_samples_per_ray=ckpt['compact_samples_per_ray'])
         to_dev = lambda t: t.to(self.device)   # noqa: E731
         self.occ_state = checkpoints.tree_map(to_dev, ckpt['occ_state'])
-        self.n_voxel_list = ckpt['N_voxel_list']
+        self.n_voxel_list = list(ckpt['N_voxel_list'])
         self.start_step = ckpt['step']
+        self.best_para = ckpt.get('best_para', 0.0)
         # restore the Adam moments + schedule count against the ORIGINAL
         # reset step (ref: trainer_inv.py:108-113); a shape mismatch falls
         # back to a fresh optimizer rebased at the resume step
@@ -394,7 +428,6 @@ class ShapeTrainer:
         end_step = min(self.start_step + total, self.cfg['total_step'])
         logs = []
         for step in range(self.start_step, end_step):
-            self.check_schedule(step)
             self.maybe_set_march_stride(step)
             if self.rcfg.use_occ_grid and step % self.occ_update_interval == 0:
                 self.occ_update(step, prune=step >= self.occ_warmup_steps())
@@ -411,5 +444,73 @@ class ShapeTrainer:
                 if callback:
                     callback(host)
             self.maybe_adapt_budget(step, aux)
+            self.maybe_update_alpha_mask(step)
+            self.maybe_upsample(step)
         self.start_step = end_step
         return logs
+
+    # ------------------------------------------------------------------
+    # rendering / validation
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def render_image(self, pose, K, h: int, w: int,
+                     step: Optional[int] = None,
+                     chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Full-frame render (ref: shapeRenderer.py:568-668) in chunks of
+        ``test_ray_num`` rays, the last one padded with copies of its last
+        ray; returns the EVAL_KEYS images [h, w, k] on the host."""
+        step = step if step is not None else 300000
+        chunk = chunk or self.cfg['test_ray_num']
+        info = {'imgs': np.zeros((1, h, w, 3), np.float32),
+                'Ks': np.asarray(K, np.float32)[None],
+                'poses': np.asarray(pose, np.float32)[None]}
+        if self.cfg['nerfDataType']:
+            batch, rn, _, _ = rays_mod.construct_ray_batch_nerf(info)
+        else:
+            batch, rn, _, _ = rays_mod.construct_ray_batch_w2c(info)
+        del batch['rgbs']
+        mips = light_mod.build_mips(self.params['shading']['envlight'],
+                                    self.rcfg.shading.env)
+        out = {k: [] for k in EVAL_KEYS}
+        for ri in range(0, rn, chunk):
+            sub = {k: v[ri:ri + chunk] for k, v in batch.items()}
+            n_real = len(sub['rays_o'])
+            if n_real < chunk:
+                sub = {k: np.concatenate(
+                    [v, np.repeat(v[-1:], chunk - n_real, 0)], 0)
+                    for k, v in sub.items()}
+            res = sr.render_rays(
+                self.params, self.rcfg, mips, self.occ_state,
+                _batch_to_device(sub, self.device), step, 1.0, None, False,
+                radiance_on=self.cfg['has_radiance_field'],
+                eval_extras=True)
+            for k in EVAL_KEYS:
+                out[k].append(res[k][:n_real].float().cpu().numpy())
+        return {k: np.concatenate(v, 0).reshape(h, w, -1)
+                for k, v in out.items()}
+
+    def validate(self, max_views: Optional[int] = None,
+                 downsample: Optional[float] = None) -> float:
+        """Mean PSNR over the held-out split (ref: trainer_inv.py:217-237),
+        every view by default; writes each view's diagnostic tile where
+        cv2 imports (metrics_vis.eval_and_dump)."""
+        psnrs = []
+        ds = downsample if downsample is not None else (
+            self.cfg['downsample_ratio'] if self.cfg['test_downsample_ratio']
+            else 1.0)
+        vids = self.test_ids if max_views is None else \
+            self.test_ids[:max_views]
+        for vid in vids:
+            gt = self.database.get_image(vid).astype(np.float32) / 255.0
+            K = np.asarray(self.database.get_K(vid), np.float32).copy()
+            pose = self.database.get_pose(vid)
+            h, w = gt.shape[:2]
+            if ds != 1.0:
+                h, w = int(h * ds), int(w * ds)
+                gt = metrics_vis.resize_linear(gt, h, w)
+                K = np.diag([ds, ds, 1.0]).astype(np.float32) @ K
+            out = self.render_image(pose, K, h, w)
+            res = metrics_vis.eval_and_dump(gt, out, self.cfg['name'],
+                                            self.start_step, vid)
+            psnrs.append(res['psnr'])
+        return float(np.mean(psnrs))

@@ -292,6 +292,12 @@ class MaterialTrainer:
         if repl:
             self.rcfg = self.rcfg._replace(shader=scfg._replace(**repl))
 
+    def validate(self, max_views: Optional[int] = None,
+                 downsample: float = 1.0) -> float:
+        """Stage-2 validation renders views through eval_outputs, which is
+        not ported yet (ROADMAP.md)."""
+        raise NotImplementedError('stage-2 validation is not ported yet')
+
     # ------------------------------------------------------------------
     def save(self, path: str):
         checkpoints.save_checkpoint(path, {

@@ -4,8 +4,10 @@
     package: checked by AST over every module, and by importing every
     port module in a fresh interpreter where ``import jax`` fails.
   * No silent CPU: an entry point without an explicit device (both
-    trainers, the microbench) means the card and raises where CUDA is
-    absent.
+    trainers, the microbench, the training and mesh CLIs) means the card
+    and raises where CUDA is absent.
+  * The marching-tetrahedra library is built from the port's own copy of
+    its source (csrc/), never from the JAX package's native/.
   * The kernel wrappers take the plain version only for CPU tensors, and
     no ``try`` stands around a build or a launch.
   * A training step, of either stage, copies nothing from the host but
@@ -118,6 +120,36 @@ def test_material_trainer_and_microbench_without_device_need_cuda(tmp_path):
         MaterialTrainer(pconfig.load_config(extra=SMALL_MAT), geo)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         microbench_r3.main(['--small'])
+
+
+def test_clis_without_device_need_cuda(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip('a card is present: device=None means the card')
+    from tensoflow_tpu_torch import extract_mesh, run_training
+    monkeypatch.chdir(tmp_path)
+    cfg = os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        run_training.main(['--cfg', cfg, '--steps', '1', *SMALL_SHAPE])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        extract_mesh.main(['--cfg', cfg, '--resolution', '8', *SMALL_SHAPE])
+
+
+def test_marching_tets_builds_the_ports_own_source(tmp_path, monkeypatch):
+    """ops/mesh.py compiles csrc/marching_tets.cpp of the port into the
+    build directory, and nothing in it names the JAX package's native/."""
+    from tensoflow_tpu_torch.ops import mesh
+    src = open(os.path.join(PKG, 'ops', 'mesh.py')).read()
+    assert 'native' not in src
+    assert mesh._SRC == os.path.join(PKG, 'csrc', 'marching_tets.cpp')
+    calls = []
+    monkeypatch.setattr(mesh, 'BUILD_DIR', str(tmp_path))
+    monkeypatch.setattr(mesh.subprocess, 'check_call',
+                        lambda cmd: calls.append(cmd) or open(
+                            cmd[-1], 'wb').close())
+    out = mesh._build_library()
+    assert os.path.dirname(out) == str(tmp_path)
+    (cmd,) = calls
+    assert mesh._SRC in cmd and not any('native' in c for c in cmd)
 
 
 def test_tile_gather_has_no_try_and_counts_only_at_launches():
