@@ -3,7 +3,7 @@
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases (any failure exits nonzero; no phase's failure is caught; the
-three training phases (3, 5, 3b, in this order) run before the kernel
+four training phases (3, 5, 3b, 3c, in this order) run before the kernel
 phases, and their profiled steps last, because a profiler session slows
 every later launch of the process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
@@ -18,8 +18,9 @@ every later launch of the process):
                ragged N=1,003 (a partial last row tile) and at N=520
                for both heads (fewer row tiles than SMs: the persistent
                grids run short); then time kernel and plain version, B=1
-               and B=2, beside the byte/op bound, and point_head (S=1, bf16) at
-               the occupancy update's chunk of 131,072 points.
+               and B=2, in bf16 and in f32, beside the byte/op bound, and
+               point_head (S=1, bf16) at the occupancy update's chunk of
+               131,072 points.
   3. slice   — first a small float32 configuration trained for 2 steps on
                the card and on the CPU (plain versions) from the same
                parameters, batches and noise, loss terms compared; then
@@ -40,6 +41,22 @@ every later launch of the process):
                render_image of the held-out toy view at downsample_ratio
                (PSNR, SSIM, forward-only kernel) and validate(); the mesh at
                256^3 with the SDF on the card, written under build/.
+  3c. hierarchical — check_slice_small's twin on the hierarchical sampler
+               (alpha mask, live-field occ loss, background; card vs CPU);
+               then ShapeTrainer at configs/shape/syn/compressor.yaml as
+               published (float32 gathers, 64 + 64 samples in 4 rounds,
+               the alpha mask, no sample-variance clip) over its schedule
+               cut to six steps (alpha mask after step 2, upsample_list
+               [2, 4], occ loss, radiance head and Gaussian loss from step
+               3): 128^3 -> 256^3 -> 512^3; per-step loss, launches, mip
+               branches and live-sample share, the alpha-mask build time
+               and occupied share; 10 timed 512^3 steps and peak memory;
+               the f32 B=2 kernels on a 512^3 step's own inputs;
+               render_image of the held-out view (PSNR, SSIM).  Then the
+               background sub-phase: 5 steps at the widths of
+               configs/shape/custom/shoe.yaml (predict_BG, the sample
+               variance clipped) with the background net moved by the
+               first step.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions at every shape of the gather probes
                (exact equality), timed beside the byte bound and
@@ -63,9 +80,10 @@ every later launch of the process):
                one profiled step.  The cuts are the database and the NIS
                schedule, both printed.
 Then it prints the card's name and power limit, one JSON line listing
-every hand-written kernel (the stencil kernels with their B=2 figures, the
-shape of 80 % of a published run, and their launches in phase 3b), and as
-the last line
+every hand-written kernel (the stencil kernels with their float32 B=2
+figures, the shape of 80 % of a published run, and their launches in
+phase 3c, the other instantiations and phase 3b's launches beside them),
+and as the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
 exits nonzero and prints no result.
 """
@@ -372,6 +390,36 @@ def time_point_head(card, n=131072):
           f'{fo / 1e9:.1f} GFLOP)', flush=True)
 
 
+def time_row(card, B, cd, errs):
+    """Kernel, plain version and bound of both heads at N_MAIN, S=7; the
+    kernels line's numbers for one (type, B)."""
+    tag = 'bf16' if cd == torch.bfloat16 else 'f32'
+    t = time_head(N_MAIN, 7, B, cd, seed=5)
+    (fb, fo), (bb, bo) = head_bytes_ops(N_MAIN, 7, B, cd)
+    fbound, fby = bound_ms(fb, fo, cd)
+    bbound, bby = bound_ms(bb, bo, cd)
+    dev = t['device']
+    # a kernel's ms is its device time; the wrapper's (kernel + argument
+    # prep) where the profiler shows none
+    k_ms = [dev[i] if dev[i] is not None else t['kernel'][i]
+            for i in range(2)]
+    print(f'[kernels] timing B={B} at N={N_MAIN} {tag} on {card}: '
+          f'fwd kernel {k_ms[0]:.3f} ms (wrapper {t["kernel"][0]:.3f}), '
+          f'plain {t["plain"][0]:.3f} ms, bound {fbound:.4f} ms ({fby}: '
+          f'{fb / 1e9:.3f} GB, {fo / 1e9:.1f} GFLOP); bwd kernel '
+          f'{k_ms[1]:.3f} ms (wrapper {t["kernel"][1]:.3f}), plain '
+          f'{t["plain"][1]:.3f} ms, bound {bbound:.4f} ms ({bby}: '
+          f'{bb / 1e9:.3f} GB, {bo / 1e9:.1f} GFLOP); device times from '
+          f'the profiler: {dev}', flush=True)
+    return {
+        'stencil_head_fwd': dict(max_abs_err=errs[0], ms=k_ms[0],
+                                 plain_ms=t['plain'][0], bound_ms=fbound,
+                                 bound_by=fby),
+        'stencil_head_bwd': dict(max_abs_err=errs[1], ms=k_ms[1],
+                                 plain_ms=t['plain'][1], bound_ms=bbound,
+                                 bound_by=bby)}
+
+
 def phase_kernels(card):
     errs = {}
     for cd in (torch.bfloat16, torch.float32):
@@ -389,34 +437,12 @@ def phase_kernels(card):
                    7, 1, cd, seed=7)
         check_case(f'S=1 B=1 static {tag} N=520 (point_head, fewer tiles '
                    'than SMs)', 520, 1, 1, cd, seed=8)
-    cd = torch.bfloat16
     rows = {}
-    for B in (1, 2):
-        t = time_head(N_MAIN, 7, B, cd, seed=5)
-        (fb, fo), (bb, bo) = head_bytes_ops(N_MAIN, 7, B, cd)
-        fbound, fby = bound_ms(fb, fo, cd)
-        bbound, bby = bound_ms(bb, bo, cd)
-        dev = t['device']
-        # a kernel's ms is its device time; the wrapper's (kernel + argument
-        # prep) where the profiler shows none
-        k_ms = [dev[i] if dev[i] is not None else t['kernel'][i]
-                for i in range(2)]
-        print(f'[kernels] timing B={B} at N={N_MAIN} bf16 on {card}: '
-              f'fwd kernel {k_ms[0]:.3f} ms (wrapper {t["kernel"][0]:.3f}), '
-              f'plain {t["plain"][0]:.3f} ms, bound {fbound:.4f} ms ({fby}: '
-              f'{fb / 1e9:.3f} GB, {fo / 1e9:.1f} GFLOP); bwd kernel '
-              f'{k_ms[1]:.3f} ms (wrapper {t["kernel"][1]:.3f}), plain '
-              f'{t["plain"][1]:.3f} ms, bound {bbound:.4f} ms ({bby}: '
-              f'{bb / 1e9:.3f} GB, {bo / 1e9:.1f} GFLOP); device times from '
-              f'the profiler: {dev}', flush=True)
-        tag = 'bf16' if B == 1 else 'bf16 B=2'
-        rows[B] = {
-            'stencil_head_fwd': dict(max_abs_err=errs[tag][0], ms=k_ms[0],
-                                     plain_ms=t['plain'][0], bound_ms=fbound,
-                                     bound_by=fby),
-            'stencil_head_bwd': dict(max_abs_err=errs[tag][1], ms=k_ms[1],
-                                     plain_ms=t['plain'][1], bound_ms=bbound,
-                                     bound_by=bby)}
+    for cd in (torch.bfloat16, torch.float32):
+        tag = 'bf16' if cd == torch.bfloat16 else 'f32'
+        for B in (1, 2):
+            rows[tag, B] = time_row(card, B, cd, errs[tag if B == 1
+                                                     else tag + ' B=2'])
     time_point_head(card)
     return rows
 
@@ -433,12 +459,11 @@ SMALL_OVERRIDES = [
     'compact_samples_per_ray=16', 'gather_dtype=float32']
 
 
-def _load_cfg(overrides):
+def _load_cfg(overrides, yaml='configs/shape/syn/compressor_occ.yaml'):
     from tensoflow_tpu_torch import config as config_mod
     root = os.path.dirname(os.path.abspath(__file__))
-    return config_mod.load_config(
-        os.path.join(root, 'configs/shape/syn/compressor_occ.yaml'),
-        overrides=overrides)
+    return config_mod.load_config(os.path.join(root, yaml),
+                                  overrides=overrides)
 
 
 def _check_finite(logs):
@@ -449,14 +474,15 @@ def _check_finite(logs):
                                  f'{rec["step"]}: {bad}')
 
 
-def check_slice_small(steps=2):
+def card_vs_cpu(cfg, what, steps=2):
     """The training step on the card (kernels) against the same step on
     the CPU (plain versions) at a small float32 configuration: same
     initial parameters (both trainers seed the same CPU generator), same
     batches, same noise (drawn on the CPU and copied).  Loss terms agree
     to rtol 1e-4 at the first step (float32 summation order through the
     1/eps^2 hessian) and 1e-3 at the second (Adam's first update is
-    sign(g) * lr, so tiny grads may step either way)."""
+    sign(g) * lr, so tiny grads may step either way).  Returns the
+    trainers by device, their logs and the worst relative error."""
     from tensoflow_tpu_torch.models import shape_renderer as sr
     from tensoflow_tpu_torch.train.trainer import ShapeTrainer
 
@@ -475,9 +501,9 @@ def check_slice_small(steps=2):
             return torch.rand((r ** 3, 3), generator=self.cpu_gen).to(
                 self.device)
 
-    cfg = _load_cfg(SMALL_OVERRIDES)
-    logs = {dev: CpuDraws(cfg, dev).train(n_steps=steps, log_every=1)
-            for dev in ('cuda', 'cpu')}
+    runs = {dev: CpuDraws(cfg, dev) for dev in ('cuda', 'cpu')}
+    logs = {dev: t.train(n_steps=steps, log_every=1)
+            for dev, t in runs.items()}
     _check_finite(logs['cuda'])
     worst = 0.0
     for i, (g, c) in enumerate(zip(logs['cuda'], logs['cpu'])):
@@ -485,14 +511,25 @@ def check_slice_small(steps=2):
         for k, v in c.items():
             err = abs(g[k] - v)
             if err > rtol * abs(v) + 1e-6:
-                raise AssertionError(f'small slice step {i}: {k} on the '
-                                     f'card {g[k]!r} vs CPU {v!r}')
+                raise AssertionError(f'{what} step {i}: {k} on the card '
+                                     f'{g[k]!r} vs CPU {v!r}')
             if abs(v) > 1e-6:
                 worst = max(worst, err / abs(v))
+    return runs, logs, worst
+
+
+def _losses(logs):
+    return (f'losses card {[round(r["loss"], 6) for r in logs["cuda"]]} '
+            f'cpu {[round(r["loss"], 6) for r in logs["cpu"]]}')
+
+
+def check_slice_small(steps=2):
+    """card_vs_cpu at a small float32 occupancy-grid configuration."""
+    _, logs, worst = card_vs_cpu(_load_cfg(SMALL_OVERRIDES), 'small slice',
+                                 steps)
     print(f'[slice] small float32 config: {steps} steps on the card match '
           f'the CPU plain path (worst loss-term rel err {worst:.2e}); '
-          f'losses card {[round(r["loss"], 6) for r in logs["cuda"]]} cpu '
-          f'{[round(r["loss"], 6) for r in logs["cpu"]]}', flush=True)
+          f'{_losses(logs)}', flush=True)
 
 
 def profile_step(trainer, card, step_ms, top=12, tag='slice'):
@@ -605,13 +642,15 @@ class HeadSpy:
     def __init__(self):
         from tensoflow_tpu_torch.ops import stencil as st
         self.st = st
-        self.bs, self.capture_next, self.captured = [], False, None
+        self.bs, self.dtypes = [], []
+        self.capture_next, self.captured = False, None
 
     def __enter__(self):
         orig = self.st.StencilHead.apply
 
         def apply(static, *args):
             self.bs.append(static[1])
+            self.dtypes.append(static[3])
             if self.capture_next:
                 self.captured = (static, [t.detach().clone() for t in args])
                 self.capture_next = False
@@ -770,6 +809,228 @@ def phase_schedule(card, timed_steps=10):
           f'{len(tris)} triangles, written to build/smoke_schedule.ply',
           flush=True)
     return launches, trainer, step_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: stage 1 on the hierarchical sampler, as published
+# ---------------------------------------------------------------------------
+
+HIER_YAML = 'configs/shape/syn/compressor.yaml'
+# compressor.yaml builds the alpha mask at step 20,000, upsamples at
+# 20,000 and 40,000 and turns the occ loss on at 10,000 and the radiance
+# head and the Gaussian loss after 20,000; cut to single digits so that
+# six steps cross all of them.  Everything else is the config's own:
+# float32 gathers, 64 + 64 samples in 4 rounds, no sample-variance clip.
+HIER_CUTS = ['database_name=toy/sphere_128_12', 'split_manul=false',
+             'upsample_list=[2,4]', 'update_AlphaMask_lst=[2]',
+             'occ_loss_step=3', 'radiance_field_step=3',
+             'gaussianLoss_step=3']
+# the background sub-phase: shoe.yaml's widths and losses, the same
+# database cut; the sample-variance clip at the config default (on), so
+# that the sampler carries deviation's gradient on the card
+BG_YAML = 'configs/shape/custom/shoe.yaml'
+BG_CUTS = ['database_name=toy/sphere_128_12', 'split_manul=false',
+           'clip_sample_variance=true']
+HIER_SMALL = ['database_name=toy/sphere_32_4', 'sdf_n_comp=4', 'sdf_dim=32',
+              'app_dim=16', 'N_voxel_init=4096', 'N_voxel_final=4096',
+              'train_ray_num=64', 'n_samples=16', 'n_importance=16',
+              'occ_loss_max_pn=64', 'upsample_list=null',
+              'update_AlphaMask_lst=[0]', 'occ_loss_step=0',
+              'n_bg_samples=16', 'init_radius=0.5']
+
+
+def check_hier_small(steps=2):
+    """card_vs_cpu on the hierarchical sampler with the alpha mask (built
+    after step 0), the live-field occ loss and the NeRF++ background, at
+    shoe.yaml's settings cut to a small float32 size."""
+    runs, logs, worst = card_vs_cpu(_load_cfg(HIER_SMALL, BG_YAML),
+                                    'small hierarchical', steps)
+    masks = [runs[d].alpha_mask.volume.cpu() for d in ('cuda', 'cpu')]
+    print(f'[hier] small float32 config (hierarchical sampler, alpha mask, '
+          f'background): {steps} steps on the card match the CPU plain '
+          f'path (worst loss-term rel err {worst:.2e}); alpha masks differ '
+          f'in {int((masks[0] != masks[1]).sum())} of {masks[0].numel()} '
+          f'voxels; {_losses(logs)}', flush=True)
+
+
+def phase_hierarchical(card, timed_steps=10):
+    """ShapeTrainer at configs/shape/syn/compressor.yaml as published
+    (float32 gathers, the hierarchical sampler with 64 + 64 samples a ray,
+    the alpha mask, the live-field occ loss) over its schedule cut to six
+    steps: 128^3 -> 256^3 -> 512^3; per-step loss, launches, mip branches
+    and live-sample share; the alpha-mask build; 10 timed 512^3 steps and
+    the peak memory; the float32 kernels on a 512^3 step's own inputs; one
+    test view rendered and scored.  Then the background sub-phase."""
+    from tensoflow_tpu_torch.models import shape_renderer as sr
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.ops import tensor_field as tfield
+    from tensoflow_tpu_torch.train import metrics_vis
+    from tensoflow_tpu_torch.train.trainer import EVAL_KEYS, ShapeTrainer
+    import numpy as np
+    check_hier_small()
+    cfg = _load_cfg(HIER_CUTS, HIER_YAML)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    trainer = ShapeTrainer(cfg)                # device=None: the card
+    trainer.init_dataset()
+    rays, sn = cfg['train_ray_num'], sr.n_dense_samples(trainer.rcfg)
+    print(f'[hier] cuts: {HIER_CUTS} (published: database tensoSDF/'
+          'compressor, split_manul true, upsample_list [20000, 40000], '
+          'update_AlphaMask_lst [20000], occ_loss_step 10000, '
+          'radiance_field_step and gaussianLoss_step 20000); as published: '
+          f'gather_dtype {cfg["gather_dtype"]}, {rays} rays x '
+          f'({cfg["n_samples"]} + {cfg["n_importance"]}) samples in '
+          f'{cfg["up_sample_steps"]} rounds, clip_sample_variance '
+          f'{cfg["clip_sample_variance"]}, mul_length {cfg["mul_length"]}, '
+          f'alphaMask_thres {cfg["alphaMask_thres"]}', flush=True)
+    if trainer.rcfg.use_occ_grid or trainer.rcfg.sdf.gather_dtype != \
+            'float32':
+        raise AssertionError('compressor.yaml: expected the hierarchical '
+                             'sampler and float32 gathers')
+
+    def grid_line():
+        sdf = trainer.rcfg.sdf
+        with torch.no_grad():
+            fmt = tfield.pack_vm_patches(trainer.params['sdf']['field'],
+                                         sdf.n_levels).meta.plane_fmt
+        return f'grid {sdf.grid_size}, n_levels {sdf.n_levels}, atlas {fmt}'
+    print(f'[hier] start: {grid_line()}', flush=True)
+
+    mask_s = []
+    build = trainer.maybe_update_alpha_mask
+
+    def timed_build(step):
+        before = trainer.alpha_mask
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build(step)
+        torch.cuda.synchronize()
+        if trainer.alpha_mask is not before:
+            mask_s.append(time.perf_counter() - t0)
+            vol = trainer.alpha_mask.volume
+            print(f'[hier] alpha mask after step {step}: '
+                  f'{tuple(vol.shape)} built in {mask_s[-1]:.2f} s on '
+                  f'{card}, occupied share {float(vol.mean()):.4f}',
+                  flush=True)
+    trainer.maybe_update_alpha_mask = timed_build
+    logs = []
+    st.reset_launches()
+    with HeadSpy() as spy:
+        # the main path: six steps across the mask and both upsamplings;
+        # the first 512^3 step's stencil inputs are kept
+        for step in range(6):
+            spy.capture_next = step == 5
+            logs += trainer.train(n_steps=1, log_every=1)
+            if step in cfg['upsample_list']:
+                print(f'[hier] after step {step} (upsample): '
+                      f'{grid_line()}', flush=True)
+        torch.cuda.synchronize()
+        launches = dict(st.LAUNCHES)
+    if spy.bs != [1, 1, 1, 2, 2, 2] or set(spy.dtypes) != {torch.float32}:
+        raise AssertionError(f'stencil calls per step: branches {spy.bs}, '
+                             f'types {spy.dtypes}')
+    if not mask_s:
+        raise AssertionError('the alpha mask was not built')
+    _check_finite(logs)
+    for k in ('stencil_head_fwd', 'stencil_head_bwd'):
+        if launches[k] != len(logs):
+            raise AssertionError(f'{k} launched {launches[k]} times in '
+                                 f'{len(logs)} steps')
+    print('[hier] loss per step: ' + ', '.join(
+        f'{r["loss"]:.6f}' for r in logs), flush=True)
+    print('[hier] live samples per step (share of the '
+          f'{sn} a ray): ' + ', '.join(
+              f'{r["sample_num"] / sn:.4f}' for r in logs), flush=True)
+    print('[hier] step 6 terms: ' + json.dumps(
+        {k: round(v, 6) for k, v in logs[-1].items()}), flush=True)
+    print(f'[hier] launches over the {len(logs)} steps {launches} (float32 '
+          f'kernels, one fwd + one bwd a step); mip branches per step '
+          f'{spy.bs}; stencil rows a step {rays * sn}', flush=True)
+
+    t0 = time.perf_counter()
+    timed = trainer.train(n_steps=timed_steps, log_every=timed_steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
+    _check_finite(timed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[hier] {timed_steps} steps at 512^3 on {card}: {step_ms:.1f} '
+          f'ms/step = {rays / (step_ms / 1e3):.0f} rays/s; live-sample '
+          f'share {timed[-1]["sample_num"] / sn:.4f}; peak device memory '
+          f'{peak:.2f} GiB in all, {peak - base:.2f} GiB above what earlier '
+          f'phases hold; loss {timed[-1]["loss"]:.6f}', flush=True)
+
+    d = _captured_inputs(spy.captured, trainer.params['sdf']['mlp'][1]['b'])
+    spy.captured = None
+    n = d['fr'].shape[0]
+    errs = check_inputs(f'S=7 B=2 dynamic f32 N={n} (a 512^3 step\'s own '
+                        'inputs)', d, 7, torch.float32)
+    del d
+
+    (vid,) = trainer.test_ids
+    db = trainer.database
+    ds = cfg['downsample_ratio']
+    gt = db.get_image(vid).astype(np.float32) / 255.0
+    h, w = int(gt.shape[0] * ds), int(gt.shape[1] * ds)
+    gt = metrics_vis.resize_linear(gt, h, w)
+    K = np.diag([ds, ds, 1.0]).astype(np.float32) @ db.get_K(vid)
+    st.reset_launches()
+    t0 = time.perf_counter()
+    out = trainer.render_image(db.get_pose(vid), K, h, w, chunk=1024)
+    render_s = time.perf_counter() - t0
+    render_launches = dict(st.LAUNCHES)
+    bad = [k for k in EVAL_KEYS if not np.isfinite(out[k]).all()]
+    if bad or set(out) != set(EVAL_KEYS):
+        raise AssertionError(f'render_image: non-finite or missing {bad}')
+    chunks = -(-h * w // 1024)
+    if render_launches != {'stencil_head_fwd': 2 * chunks,
+                           'stencil_head_bwd': 0}:
+        raise AssertionError(f'render_image launches {render_launches}')
+    res = metrics_vis.eval_and_dump(gt, out, cfg['name'], trainer.start_step,
+                                    vid, vis_dir=os.path.join(_root(),
+                                                              'build'))
+    print(f'[hier] render_image of view {vid} at {h}x{w} (downsample_ratio '
+          f'{ds}, no alpha mask, as the JAX package renders) in '
+          f'{render_s:.2f} s on {card}: PSNR {res["psnr"]:.3f} dB, SSIM '
+          f'{res["ssim"]:.4f}; all {len(out)} images finite; kernel launches '
+          f'{render_launches} (forward only)', flush=True)
+    phase_background(card)
+    return launches, trainer, step_ms, errs
+
+
+def phase_background(card, steps=5):
+    """ShapeTrainer at the widths and losses of configs/shape/custom/
+    shoe.yaml (the NeRF++ background, a black background, Hessian and
+    Sparse losses) on the toy database: 5 steps at 128^3."""
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer, named_leaves
+    cfg = _load_cfg(BG_CUTS, BG_YAML)
+    trainer = ShapeTrainer(cfg)
+    trainer.init_dataset()
+    if not trainer.rcfg.predict_BG or trainer.rcfg.isBGWhite:
+        raise AssertionError('shoe.yaml: expected predict_BG, no white '
+                             'background')
+    bg0 = [t.detach().clone() for _, t in named_leaves(trainer.params['bg'])]
+    logs = trainer.train(n_steps=1, log_every=1)
+    moved = sum(not torch.equal(t.detach(), b) for (_, t), b in
+                zip(named_leaves(trainer.params['bg']), bg0))
+    if moved != len(bg0):
+        raise AssertionError(f'the first step moved {moved} of {len(bg0)} '
+                             'background leaves')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs += trainer.train(n_steps=steps - 1, log_every=1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    _check_finite(logs)
+    print(f'[bg] cuts: {BG_CUTS} (published: database custom/shoe/raw_1600, '
+          'split_manul true, clip_sample_variance false); widths: grid '
+          f'{trainer.rcfg.sdf.grid_size}, {cfg["train_ray_num"]} rays x '
+          f'{cfg["n_samples"]} + {cfg["n_importance"]} samples, '
+          f'{trainer.rcfg.n_bg_samples} background samples', flush=True)
+    print(f'[bg] {steps} steps on {card}: loss per step '
+          + ', '.join(f'{r["loss"]:.6f}' for r in logs)
+          + f' (all finite); the first step moved all {len(bg0)} background '
+          f'leaves; {step_ms:.1f} ms/step over steps 2-{steps} = '
+          f'{cfg["train_ray_num"] / (step_ms / 1e3):.0f} rays/s', flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1179,20 +1440,36 @@ def main():
     _, shape_trainer, shape_ms = phase_slice(card)
     mat_trainer, mat_ms = phase_stage2(card)
     launches, sched_trainer, sched_ms = phase_schedule(card)
-    kinds = phase_kernels(card)[2]
+    hier_launches, hier_trainer, hier_ms, hier_errs = phase_hierarchical(card)
+    kinds = phase_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
     profile_step(mat_trainer, card, mat_ms, tag='stage2')
     profile_step(sched_trainer, card, sched_ms, tag='schedule')
+    profile_step(hier_trainer, card, hier_ms, tag='hier')
     for k, n in gather_launches.items():
         if n <= 0:
             raise AssertionError(f'{k} was not launched by microbench_r3')
     print(card)
-    print(json.dumps({'kernels': [
-        {'name': k, 'route': 'cuda',
-         'source': f'tensoflow_tpu_torch/csrc/{k}.cu',
-         'replaces': TPU_KERNELS[k], 'launches': launches[k],
-         'library_ms': None, **kinds[k]} for k in TPU_KERNELS] + [
+    # the stencil rows: the float32 B=2 figures of this slice's main path
+    # (every published stage-1 config after its first upsample), its
+    # launches, and beside them the other instantiations and the launches
+    # of the occupancy-grid schedule (bf16)
+    stencil = []
+    for k in TPU_KERNELS:
+        row = dict(kinds['f32', 2][k])
+        row['max_abs_err'] = max(row['max_abs_err'],
+                                 hier_errs[k == 'stencil_head_bwd'])
+        stencil.append({
+            'name': k, 'route': 'cuda',
+            'source': f'tensoflow_tpu_torch/csrc/{k}.cu',
+            'replaces': TPU_KERNELS[k], 'launches': hier_launches[k],
+            'library_ms': None, **row, 'dtype': 'float32', 'B': 2,
+            'launches_by_path': {'hierarchical_f32': hier_launches[k],
+                                 'occ_schedule_bf16': launches[k]},
+            'other_rows': {f'{t} B={b}': kinds[t, b][k]
+                           for t, b in kinds if (t, b) != ('f32', 2)}})
+    print(json.dumps({'kernels': stencil + [
         {'name': k, 'route': 'cuda',
          'source': 'tensoflow_tpu_torch/csrc/tile_gather.cu',
          'replaces': GATHER_KERNELS[k][0], 'launches': gather_launches[k],

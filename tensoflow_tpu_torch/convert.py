@@ -13,8 +13,10 @@ stays bfloat16.
 The stage-2 parameter tree (``init_mc_shading``'s dict, with its
 ``flow_*`` and ``outer_light`` entries) and the frozen flow copies are
 nested dicts and lists of float32 arrays and map through
-``params_from_jax`` as they are.  A packed trace grid and a stage-1
-checkpoint payload have their own functions below.
+``params_from_jax`` as they are, and so does the NeRF++ background net
+(the ``bg`` subtree of a ``predict_BG`` run).  An alpha mask, a packed
+trace grid and a stage-1 checkpoint payload have their own functions
+below.
 """
 from __future__ import annotations
 
@@ -50,6 +52,13 @@ def params_from_jax(tree_of_numpy: Any, device='cpu'):
 def occ_state_from_jax(state_of_numpy: Any, device='cpu'):
     """JAX occupancy-grid state (numpy leaves) -> the port's state."""
     return _map(state_of_numpy, device)
+
+
+def alpha_mask_from_jax(payload: Any, device='cpu'):
+    """The JAX package's alpha-mask payload (checkpoints.pack_alpha_mask,
+    numpy leaves) -> the port's AlphaGridMask; None stays None."""
+    from .train.checkpoints import unpack_alpha_mask
+    return unpack_alpha_mask(payload, device)
 
 
 def sdf_grid_from_jax(values, aabb, device='cpu'):

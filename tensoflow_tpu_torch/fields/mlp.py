@@ -9,9 +9,12 @@ jax.random's numbers, and parity tests carry the JAX params over instead.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
+
+from ..ops.math import pe_dim, positional_encoding
 
 Params = Dict[str, Any]
 
@@ -159,3 +162,59 @@ def apply_variance(p: Params, activation: str = 'exp'):
     if activation == 'square':
         return (v * 10.0) ** 2
     raise NotImplementedError(activation)
+
+
+# ---------------------------------------------------------------------------
+# NeRF++ background network (ref: other_field.py:213-305)
+# ---------------------------------------------------------------------------
+
+def init_nerf_bg(gen, d_in: int = 4, d_in_view: int = 3, width: int = 256,
+                 depth: int = 8, multires: int = 10, multires_view: int = 4,
+                 skips: Sequence[int] = (4,), device='cpu') -> Params:
+    """``depth`` ReLU layers over the PE of (x/r, 1/r), the PE input
+    concatenated again after each layer in ``skips``; density, feature and
+    a view-conditioned rgb head whose bias starts at log 0.5."""
+    input_ch = pe_dim(d_in, multires)
+    input_ch_view = pe_dim(d_in_view, multires_view)
+    pts_layers = []
+    for i in range(depth):
+        d = (input_ch if i == 0 else
+             width + input_ch if (i - 1) in skips else width)
+        pts_layers.append(init_linear(gen, d, width, device=device))
+    rgb = init_linear(gen, width // 2, 3, device=device)
+    rgb['b'] = torch.full_like(rgb['b'], float(np.log(0.5)))
+    return {
+        'pts': pts_layers,
+        'views0': init_linear(gen, input_ch_view + width, width // 2,
+                              device=device),
+        'feature': init_linear(gen, width, width, device=device),
+        'alpha': init_linear(gen, width, 1, device=device),
+        'rgb': rgb,
+    }
+
+
+def _nerf_bg_trunk(p: Params, pts4, multires: int, skips):
+    x = positional_encoding(pts4, multires)
+    h = x
+    for i, layer in enumerate(p['pts']):
+        h = torch.relu(apply_linear(layer, h))
+        if i in skips:
+            h = torch.cat([x, h], dim=-1)
+    return h
+
+
+def apply_nerf_bg(p: Params, pts4, view_dirs, multires: int = 10,
+                  multires_view: int = 4, skips=(4,)):
+    """pts4 [N, 4] (x/r, y/r, z/r, 1/r), view_dirs [N, 3] -> (raw density
+    [N, 1], log-space rgb [N, 3])."""
+    h = _nerf_bg_trunk(p, pts4, multires, skips)
+    alpha = apply_linear(p['alpha'], h)
+    h = torch.cat([apply_linear(p['feature'], h),
+                   positional_encoding(view_dirs, multires_view)], dim=-1)
+    h = torch.relu(apply_linear(p['views0'], h))
+    return alpha, apply_linear(p['rgb'], h)
+
+
+def apply_nerf_bg_density(p: Params, pts4, multires: int = 10, skips=(4,)):
+    """The raw density [N, 1] alone."""
+    return apply_linear(p['alpha'], _nerf_bg_trunk(p, pts4, multires, skips))

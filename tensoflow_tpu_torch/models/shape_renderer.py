@@ -1,16 +1,24 @@
 """Stage-1 shape renderer of the port (counterpart of
 tensoflow_tpu/models/shape_renderer.py): NeuS volume rendering over the
-TensoSDF field, on the occupancy-grid sampler with global sample
-compaction — the path the stage-1 training step runs.
+TensoSDF field, on either sampler of the JAX package.
+
+  * the occupancy grid (``use_occ_grid``): a fixed per-ray budget of
+    candidates, compacted globally to ``compact_samples_per_ray`` slots a
+    ray, composited in compact space; the occ loss marches the SDF baked
+    into the occupancy state;
+  * the NeuS hierarchical sampler: a stratified lattice plus
+    ``up_sample_steps`` rounds of importance upsampling, every
+    ``[rays, samples]`` sample through the field (culled ones masked, as
+    in the JAX package: no compaction), dense compositing, an optional
+    alpha mask and NeRF++ background; the occ loss marches the live field.
 
 ``render_rays(..., eval_extras=True)`` adds what a rendered view shows
 beside its colour: depth, the surface normal, the materials and lights at
 the surface and the marched occlusion (the render_image outputs).
 
-Not ported yet (see ROADMAP.md): the hierarchical sampler, the alpha mask
-and predict_BG.  Random draws come in as pre-drawn noise
-(``noise``): the trainer draws them from its torch.Generator, the parity
-tests with jax.random from the JAX step's own keys.
+Random draws come in as pre-drawn noise (``noise``, see ``draw_noise``):
+the trainer draws them from its torch.Generator, the parity tests with
+jax.random from the JAX step's own keys.
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ import torch
 from .. import device_constant
 from ..fields import mlp, shading as shading_mod, tenso_sdf
 from ..ops import composite, grid as grid_mod
-from ..ops.math import charbonnier, safe_normalize
+from ..ops.math import (charbonnier, safe_normalize, sample_pdf,
+                        xla_linspace)
 from ..ops.tensor_field import gaussian_smooth_loss_vm, tv_loss_vm
 from . import secondary
 
@@ -35,9 +44,15 @@ class ShapeRendererConfig(NamedTuple):
     std_act: str = 'exp'
     inv_s_init: float = 0.3
     freeze_inv_s_step: Optional[int] = None
+    # the hierarchical sampler (ref: shapeRenderer.py:121-130)
+    n_samples: int = 64
+    n_importance: int = 64
+    up_sample_steps: int = 4
+    perturb: float = 1.0
     anneal_end: int = 50000
     train_ray_num: int = 1024
-    use_occ_grid: bool = True
+    clip_sample_variance: bool = True
+    use_occ_grid: bool = False
     occ_grid_reso: int = 128
     step_ratio: float = 0.5
     occ_max_samples: int = 192
@@ -57,6 +72,9 @@ class ShapeRendererConfig(NamedTuple):
     has_radiance_field: bool = False
     radiance_field_step: int = 0
     isBGWhite: bool = True
+    # NeRF++ inverted-sphere background
+    predict_BG: bool = False
+    n_bg_samples: int = 32
 
 
 def aabb_tensor(cfg: ShapeRendererConfig, device):
@@ -81,11 +99,14 @@ def n_march_candidates(cfg: ShapeRendererConfig) -> int:
 
 def init_shape_renderer(gen: torch.Generator, cfg: ShapeRendererConfig,
                         device='cpu') -> Dict[str, Any]:
-    return {
+    params = {
         'sdf': tenso_sdf.init_tenso_sdf(gen, cfg.sdf, device),
         'deviation': mlp.init_variance(cfg.inv_s_init, device),
         'shading': shading_mod.init_shading(gen, cfg.shading, device),
     }
+    if cfg.predict_BG:
+        params['bg'] = mlp.init_nerf_bg(gen, device=device)
+    return params
 
 
 def near_far_from_sphere(rays_o, dirs, radius: float = 1.0):
@@ -102,25 +123,175 @@ def compute_ball_radii(distance, radii, cos):
     return distance * radii * cos / torch.sqrt(tmp * tmp + 1.0)
 
 
+def n_dense_samples(cfg: ShapeRendererConfig) -> int:
+    """Samples a ray takes on the hierarchical sampler."""
+    ups = cfg.up_sample_steps
+    if cfg.n_importance > 0 and ups > 0:
+        return cfg.n_samples + ups * (cfg.n_importance // ups)
+    return cfg.n_samples
+
+
 def draw_noise(gen: torch.Generator, cfg: ShapeRendererConfig, rn: int,
                device):
-    """The step's random draws: the sampler's per-ray lattice jitter and
-    the occ loss's selection scores (one per compacted slot)."""
-    m = rn * cfg.compact_samples_per_ray
-    return {'sample_jitter': torch.rand((rn, 1), generator=gen,
-                                        device=device),
-            'occ_score': torch.rand((m,), generator=gen, device=device)}
+    """The step's random draws, the shapes the JAX step draws: the
+    sampler's per-ray jitter [rn, 1] (k_sample), the occ loss's selection
+    scores, one per evaluated sample (k_occ), and with predict_BG the
+    background's inverse-radius jitter [rn, n_bg_samples]
+    (fold_in(rng, 7))."""
+    sn = (cfg.compact_samples_per_ray if cfg.use_occ_grid
+          else n_dense_samples(cfg))
+    noise = {'sample_jitter': torch.rand((rn, 1), generator=gen,
+                                         device=device),
+             'occ_score': torch.rand((rn * sn,), generator=gen,
+                                     device=device)}
+    if cfg.predict_BG:
+        noise['bg_jitter'] = torch.rand((rn, cfg.n_bg_samples),
+                                        generator=gen, device=device)
+    return noise
 
+
+# ---------------------------------------------------------------------------
+# the hierarchical sampler (ref: shapeRenderer.py:819-932)
+# ---------------------------------------------------------------------------
+
+def _upsample_zvals(rays_o, dirs, z_vals, sdf, n_importance, inv_s):
+    """One NeuS importance-upsampling round (ref: shapeRenderer.py:819-849):
+    new samples [rn, n_importance] drawn from the section weights of the
+    sdf (carries no gradient) at z_vals."""
+    pts = rays_o[:, None, :] + dirs[:, None, :] * z_vals[..., None]
+    radius = torch.linalg.norm(pts, dim=-1)
+    inside_sphere = (radius[:, :-1] < 1.0) | (radius[:, 1:] < 1.0)
+    prev_sdf, next_sdf = sdf[:, :-1], sdf[:, 1:]
+    prev_z, next_z = z_vals[:, :-1], z_vals[:, 1:]
+    mid_sdf = 0.5 * (prev_sdf + next_sdf)
+    cos_val = (next_sdf - prev_sdf) / (next_z - prev_z + 1e-5)
+    prev_cos = torch.cat([torch.zeros_like(cos_val[:, :1]), cos_val[:, :-1]],
+                         -1)
+    cos_val = torch.minimum(prev_cos, cos_val)
+    cos_val = torch.clamp(cos_val, -1e3, 0.0) * inside_sphere
+    dist = next_z - prev_z
+    prev_esti = mid_sdf - cos_val * dist * 0.5
+    next_esti = mid_sdf + cos_val * dist * 0.5
+    prev_cdf = torch.sigmoid(prev_esti * inv_s)
+    next_cdf = torch.sigmoid(next_esti * inv_s)
+    alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+    weights, _ = composite.weights_from_alpha(alpha)
+    return sample_pdf(z_vals, weights, n_importance)
+
+
+def sample_ray_hierarchical(params, cfg: ShapeRendererConfig, rays_o, dirs,
+                            near, far, radii, rays_cos, jitter=None,
+                            packed=None):
+    """Fixed-count stratified + importance sampling (ref: 871-932): the
+    lattice over the aabb clip of [near, far], shifted per ray by
+    ``jitter`` (uniform [rn, 1]; None: no perturbation), then
+    ``up_sample_steps`` rounds of NeuS upsampling, each merged by a stable
+    sort.  The SDF queries carry no gradient; the sample positions do
+    (through inv_s with clip_sample_variance).
+    Returns (t_starts, t_ends, inside-aabb mask), each [rn, n_dense]."""
+    dev = rays_o.device
+    aabb = aabb_tensor(cfg, dev)
+    n_s, n_imp, ups = cfg.n_samples, cfg.n_importance, cfg.up_sample_steps
+    br = base_radii(cfg)
+    t = device_constant(('linspace', 0.0, 1.0, n_s),
+                        lambda: xla_linspace(0.0, 1.0, n_s), dev)
+    vec = torch.where(dirs == 0, torch.full_like(dirs, 1e-6), dirs)
+    rate_a = (aabb[1] - rays_o) / vec
+    rate_b = (aabb[0] - rays_o) / vec
+    t_min = torch.clamp(torch.amax(torch.minimum(rate_a, rate_b), -1),
+                        near[:, 0], far[:, 0])[:, None]
+    t_max = torch.clamp(torch.amin(torch.maximum(rate_a, rate_b), -1),
+                        near[:, 0], far[:, 0])[:, None]
+    t_vals = t_min + (t_max - t_min) * t[None, :]
+    if jitter is not None and cfg.perturb > 0:
+        t_vals = t_vals + (jitter - 0.5) * 2.0 / n_s
+
+    @torch.no_grad()
+    def sdf_at(tv):
+        pts = rays_o[:, None, :] + dirs[:, None, :] * tv[..., None]
+        sbr = compute_ball_radii(tv[..., None], radii[:, None, :],
+                                 rays_cos[:, None, :])
+        lv = torch.log2(sbr[..., 0] / br)
+        return tenso_sdf.sdf_only(
+            params['sdf'], cfg.sdf, pts.reshape(-1, 3), aabb,
+            lv.reshape(-1, 1), packed=packed).reshape(tv.shape)
+
+    if n_imp > 0:
+        sdf = sdf_at(t_vals)
+        inv_s0 = mlp.apply_variance(params['deviation'], cfg.std_act)
+        for i in range(ups):
+            cap = 64.0 * 2 ** i
+            inv_s = (torch.clamp(inv_s0, max=cap) if cfg.clip_sample_variance
+                     else cap)
+            new_t = _upsample_zvals(rays_o, dirs, t_vals, sdf, n_imp // ups,
+                                    inv_s)
+            # merge (ref cat_z_vals, 851-869); stable as jnp.argsort
+            t_vals, order = torch.sort(torch.cat([t_vals, new_t], -1),
+                                       stable=True, dim=-1)
+            if i + 1 < ups:
+                sdf = torch.gather(torch.cat([sdf, sdf_at(new_t)], -1), -1,
+                                   order)
+
+    dists = t_vals[:, 1:] - t_vals[:, :-1]
+    dists = torch.cat([dists, dists[:, -1:]], -1)
+    mid = t_vals + dists * 0.5
+    pts = rays_o[:, None, :] + dirs[:, None, :] * mid[..., None]
+    outer = torch.any((aabb[0] > pts) | (pts > aabb[1]), -1)
+    return t_vals, t_vals + dists, ~outer
+
+
+# ---------------------------------------------------------------------------
+# the NeRF++ background
+# ---------------------------------------------------------------------------
+
+def render_background(params_bg, cfg: ShapeRendererConfig, rays_o, dirs,
+                      jitter=None):
+    """NeRF++ inverted-sphere background colour [rn, 3]: n_bg_samples
+    inverse radii 1/r descending in (0, 1] (with ``jitter``, uniform
+    [rn, n], each shifted by (u - 1/2) / n, clipped and sorted again), the
+    far intersection of the ray with each sphere, the background net on
+    (x/r, 1/r) and the view, rgb = exp(output), composited front to back
+    with alpha = 1 - exp(-softplus(sigma) * dist)."""
+    n = cfg.n_bg_samples
+    rn = rays_o.shape[0]
+    s = device_constant(('linspace', 1.0, 1.0 / n, n),
+                        lambda: xla_linspace(1.0, 1.0 / n, n), rays_o.device)
+    if jitter is not None:
+        s = torch.clamp(s[None] + (jitter - 0.5) * (1.0 / n), 1e-4, 1.0)
+        s = -torch.sort(-s, dim=-1).values
+    else:
+        s = s[None].expand(rn, n)
+    r = 1.0 / s
+    od = torch.sum(rays_o * dirs, -1, keepdim=True)
+    oo = torch.sum(rays_o * rays_o, -1, keepdim=True)
+    t = -od + torch.sqrt(torch.clamp(od ** 2 - oo + r ** 2, min=1e-6))
+    pts = rays_o[:, None, :] + dirs[:, None, :] * t[..., None]
+    pr = torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True), min=1e-3)
+    pts4 = torch.cat([pts / pr, 1.0 / pr], -1)
+    view = dirs[:, None, :].expand(pts.shape)
+    sigma, rgb = mlp.apply_nerf_bg(params_bg, pts4.reshape(-1, 4),
+                                   view.reshape(-1, 3))
+    sigma = sigma.reshape(rn, n)
+    rgb = torch.exp(rgb.reshape(rn, n, 3))
+    dists = torch.cat([t[:, 1:] - t[:, :-1], torch.full_like(t[:, :1], 1e4)],
+                      -1)
+    alpha = 1.0 - torch.exp(-torch.nn.functional.softplus(sigma) * dists)
+    weights, _ = composite.weights_from_alpha(alpha)
+    return composite.accumulate(weights, rgb)
+
+
+# ---------------------------------------------------------------------------
+# render core (ref: 1105-1277)
+# ---------------------------------------------------------------------------
 
 def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
                 ray_batch, step: int, cos_anneal_ratio, noise,
                 is_train: bool, radiance_on: bool = False,
-                occ_loss_on: bool = False, eval_extras: bool = False):
-    """Render a batch of rays; returns the outputs dict (occupancy-grid
-    sampler + compacted samples).  ``noise`` is read only when is_train."""
-    if not (cfg.use_occ_grid and cfg.compact_samples_per_ray > 0):
-        raise NotImplementedError('only the occupancy-grid sampler with '
-                                  'sample compaction is ported')
+                occ_loss_on: bool = False, eval_extras: bool = False,
+                alpha_mask: Optional[grid_mod.AlphaGridMask] = None):
+    """Render a batch of rays; returns the outputs dict.  ``noise``
+    (draw_noise's dict) is read only when is_train; ``alpha_mask`` culls
+    samples on the hierarchical sampler only."""
     rays_o, dirs = ray_batch['rays_o'], ray_batch['dirs']
     radii, rays_cos = ray_batch['radiis'], ray_batch['rays_cos']
     dev = rays_o.device
@@ -129,32 +300,57 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
     br = base_radii(cfg)
     near, far = near_far_from_sphere(rays_o, dirs)
 
-    stride = max(int(cfg.march_stride), 1)
-    ss = step_size(cfg) * stride
-    n_cand = -(-n_march_candidates(cfg) // stride)
-    t_starts, t_ends, valid = grid_mod.occ_grid_sampling(
-        occ_state, grid_mod.OccGridConfig(resolution=cfg.occ_grid_reso),
-        rays_o, dirs, near, far, ss, n_cand, cfg.occ_max_samples,
-        noise['sample_jitter'] if is_train else None)
+    compact = cfg.use_occ_grid
+    if compact:
+        if cfg.compact_samples_per_ray <= 0:
+            raise NotImplementedError('the occupancy-grid sampler runs with '
+                                      'sample compaction only')
+        stride = max(int(cfg.march_stride), 1)
+        ss = step_size(cfg) * stride
+        n_cand = -(-n_march_candidates(cfg) // stride)
+        t_starts, t_ends, valid = grid_mod.occ_grid_sampling(
+            occ_state, grid_mod.OccGridConfig(resolution=cfg.occ_grid_reso),
+            rays_o, dirs, near, far, ss, n_cand, cfg.occ_max_samples,
+            noise['sample_jitter'] if is_train else None)
+        packed = None
+    else:
+        # one atlas for the sampler's and the occ march's field queries,
+        # neither of which carries a gradient
+        with torch.no_grad():
+            packed = tenso_sdf.pack_field(params['sdf'], cfg.sdf)
+        t_starts, t_ends, valid = sample_ray_hierarchical(
+            params, cfg, rays_o, dirs, near, far, radii, rays_cos,
+            noise['sample_jitter'] if is_train else None, packed=packed)
 
     sn = t_starts.shape[1]
     mid = 0.5 * (t_starts + t_ends)
     dists = t_ends - t_starts
     pts = rays_o[:, None, :] + dirs[:, None, :] * mid[..., None]
     inner = valid & ~torch.any((aabb[0] > pts) | (pts > aabb[1]), -1)
+    if alpha_mask is not None and not cfg.use_occ_grid:
+        # alpha-mask sample culling (ref: shapeRenderer.py:1119-1128)
+        am = alpha_mask.sample_alpha(pts.reshape(-1, 3)).reshape(rn, sn)
+        inner = inner & (am > 0)
     sbr = compute_ball_radii(mid[..., None], radii[:, None, :],
                              rays_cos[:, None, :])
     levels = torch.log2(sbr[..., 0] / br)
     flat_dirs = dirs[:, None, :].expand(pts.shape).reshape(-1, 3)
 
-    m = rn * cfg.compact_samples_per_ray
-    src, slot_mask, _ = grid_mod.compact_indices(inner.reshape(-1), m)
-    cols = torch.cat([pts.reshape(-1, 3), levels.reshape(-1, 1), flat_dirs,
-                      dists.reshape(-1, 1)], -1)
-    s_cols = cols[src]
-    s_pts, s_lv = s_cols[:, 0:3], s_cols[:, 3:4]
-    s_mid = mid.reshape(-1)[src] if eval_extras else None
-    s_dirs, s_dists = s_cols[:, 4:7], s_cols[:, 7]
+    if compact:
+        m = rn * cfg.compact_samples_per_ray
+        src, slot_mask, _ = grid_mod.compact_indices(inner.reshape(-1), m)
+        cols = torch.cat([pts.reshape(-1, 3), levels.reshape(-1, 1),
+                          flat_dirs, dists.reshape(-1, 1)], -1)
+        s_cols = cols[src]
+        s_pts, s_lv = s_cols[:, 0:3], s_cols[:, 3:4]
+        s_mid = mid.reshape(-1)[src] if eval_extras else None
+        s_dirs, s_dists = s_cols[:, 4:7], s_cols[:, 7]
+    else:
+        # every [rays, samples] sample goes through the field, the masked
+        # ones included (the JAX package does not compact them)
+        s_pts, s_lv = pts.reshape(-1, 3), levels.reshape(-1, 1)
+        s_dirs, s_dists = flat_dirs, dists.reshape(-1)
+        slot_mask = inner.reshape(-1)
 
     sdf, app_feat, grads, hessian = tenso_sdf.sdf_with_grad_hessian(
         params['sdf'], cfg.sdf, s_pts, aabb, s_lv, with_hessian=is_train)
@@ -175,24 +371,50 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
 
     mask_f = inner.to(alpha_s.dtype)
     slot_f = slot_mask.to(alpha_s.dtype)
-    # composite in compact space: segmented transmittance + one
-    # scatter-free segment reduction; invalid slots carry ray_id = rn
-    ray_id = torch.where(slot_mask, src // sn, torch.full_like(src, rn))
-    w_c = composite.compact_weights(alpha_s, slot_mask, ray_id, rn)
-    w_col = w_c[:, None]
-    cols = [w_col, w_col * sampled_color, w_col * grads]
     radiance_cols = radiance_on and sampled_radiance is not None
-    if radiance_cols:
-        rough_c = occ_info['roughness']
-        rough_c = rough_c if rough_c.ndim > 1 else rough_c[:, None]
-        cols += [w_col * sampled_radiance, w_col * rough_c]
-    if eval_extras:
-        cols.append(w_col * s_mid[:, None])
-    sums = composite.segment_sums_sorted(torch.cat(cols, -1), ray_id, rn)
-    acc = sums[:, 0:1]
-    color = sums[:, 1:4]
-    acc_normal = sums[:, 4:7]
-    if cfg.isBGWhite:
+    radiance = rw = t_depth = None
+    if compact:
+        # composite in compact space: segmented transmittance + one
+        # scatter-free segment reduction; invalid slots carry ray_id = rn
+        ray_id = torch.where(slot_mask, src // sn, torch.full_like(src, rn))
+        w_c = composite.compact_weights(alpha_s, slot_mask, ray_id, rn)
+        w_col = w_c[:, None]
+        cols = [w_col, w_col * sampled_color, w_col * grads]
+        if radiance_cols:
+            rough_c = occ_info['roughness']
+            rough_c = rough_c if rough_c.ndim > 1 else rough_c[:, None]
+            cols += [w_col * sampled_radiance, w_col * rough_c]
+        if eval_extras:
+            cols.append(w_col * s_mid[:, None])
+        sums = composite.segment_sums_sorted(torch.cat(cols, -1), ray_id, rn)
+        acc = sums[:, 0:1]
+        color = sums[:, 1:4]
+        acc_normal = sums[:, 4:7]
+        if radiance_cols:
+            radiance, rw = sums[:, 7:10], sums[:, 10]
+        if eval_extras:
+            n_cols = 11 if radiance_cols else 7
+            t_depth = sums[:, n_cols:n_cols + 1]
+    else:
+        weights, _ = composite.weights_from_alpha(alpha_s.reshape(rn, sn),
+                                                  inner)
+        acc = composite.accumulate(weights)
+        color = composite.accumulate(weights,
+                                     sampled_color.reshape(rn, sn, 3))
+        acc_normal = composite.accumulate(weights, grads.reshape(rn, sn, 3))
+        if radiance_cols:
+            radiance = composite.accumulate(
+                weights, sampled_radiance.reshape(rn, sn, 3))
+            rw = composite.accumulate(
+                weights, occ_info['roughness'].reshape(rn, sn, 1))[:, 0]
+        if eval_extras:
+            t_depth = composite.accumulate(weights, mid[..., None])
+    # the background behind the foreground (ref: shapeRenderer.py:1178-1182)
+    if cfg.predict_BG:
+        bg = render_background(params['bg'], cfg, rays_o, dirs,
+                               noise['bg_jitter'] if is_train else None)
+        color = color + bg * (1.0 - acc)
+    elif cfg.isBGWhite:
         color = color + (1.0 - acc)
 
     outputs: Dict[str, Any] = {
@@ -221,26 +443,38 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
     outputs['std'] = torch.mean(1.0 / inv_s)
 
     if radiance_cols:
-        radiance = sums[:, 7:10]
-        if cfg.isBGWhite:
+        if not cfg.predict_BG and cfg.isBGWhite:
             radiance = radiance + (1.0 - acc)
         outputs['radiance'] = radiance
-        outputs['roughness_weights'] = sums[:, 10].detach()
+        outputs['roughness_weights'] = rw.detach()
 
     outputs['sdf_vals'] = sdf
     outputs['sdf_pts_norm'] = torch.linalg.norm(s_pts, dim=-1)
     outputs['sdf_mask'] = slot_f
 
     if cfg.apply_occ_loss and is_train:
-        outputs['loss_occ'] = (
-            _occ_loss(cfg, s_pts, sdf, normals, s_dirs, occ_info, slot_mask,
-                      noise['occ_score'], inv_s, occ_state)
-            if occ_loss_on else torch.zeros((), device=dev))
+        if not occ_loss_on:
+            outputs['loss_occ'] = torch.zeros((), device=dev)
+        else:
+            if cfg.use_occ_grid:
+                # the SDF baked at the last occupancy update
+                occ_cfg = grid_mod.OccGridConfig(resolution=cfg.occ_grid_reso)
+
+                def sdf_fun(x):
+                    return grid_mod.sample_occ_sdf(occ_state, occ_cfg,
+                                                   x)[:, None]
+            else:
+                # the live field (ref get_intersection branch,
+                # shapeRenderer.py:1052-1054)
+                def sdf_fun(x):
+                    return tenso_sdf.sdf_only(params['sdf'], cfg.sdf, x,
+                                              aabb, packed=packed)
+            outputs['loss_occ'] = _occ_loss(
+                cfg, s_pts, sdf, normals, s_dirs, occ_info, slot_mask,
+                noise['occ_score'], inv_s, sdf_fun)
     if eval_extras:
-        n_cols = 11 if radiance_cols else 7
-        outputs.update(_eval_extras(
-            params, cfg, mips, aabb, ray_batch, sums[:, n_cols:n_cols + 1],
-            inv_s, step))
+        outputs.update(_eval_extras(params, cfg, mips, aabb, ray_batch,
+                                    t_depth, inv_s, step))
     return outputs
 
 
@@ -281,12 +515,13 @@ def _eval_extras(params, cfg: ShapeRendererConfig, mips, aabb, ray_batch,
 
 
 def _occ_loss(cfg: ShapeRendererConfig, flat_pts, sdf, normals, flat_dirs,
-              occ_info, flat_inner, score_noise, inv_s, occ_state):
-    """Occlusion-probability supervision (ref: shapeRenderer.py:1027-1103),
-    marching the baked SDF lattice of the occupancy state: select up to
-    occ_loss_max_pn qualifying surface samples by the largest random
-    scores, march their reflection rays, L1 against the predicted
-    occlusion probability."""
+              occ_info, flat_inner, score_noise, inv_s, sdf_fun):
+    """Occlusion-probability supervision (ref: shapeRenderer.py:1027-1103):
+    select up to occ_loss_max_pn qualifying surface samples by the largest
+    random scores, march their reflection rays through ``sdf_fun`` (the
+    baked lattice on the occupancy grid, the live field otherwise; no
+    gradient either way), L1 against the predicted occlusion
+    probability."""
     n = flat_pts.shape[0]
     sdf_mask = torch.abs(sdf) < cfg.occ_sdf_thresh
     normal_mask = torch.sum(normals * flat_dirs, -1) < 0
@@ -299,11 +534,6 @@ def _occ_loss(cfg: ShapeRendererConfig, flat_pts, sdf, normals, flat_dirs,
     sel_pts = flat_pts[idx]
     sel_ref = occ_info['reflective'][idx]
     sel_occ = occ_info['occ_prob'][idx]
-    occ_cfg = grid_mod.OccGridConfig(resolution=cfg.occ_grid_reso)
-
-    def sdf_fun(x):
-        return grid_mod.sample_occ_sdf(occ_state, occ_cfg, x)[:, None]
-
     _, w, _ = secondary.secondary_intersection(sdf_fun, inv_s.detach(),
                                                sel_pts.detach(),
                                                sel_ref.detach(), 64, 16)
@@ -354,14 +584,56 @@ def compute_sdf_chunked(params, cfg: ShapeRendererConfig, pts,
                       for i in range(0, pts.shape[0], chunk)])
 
 
+def compute_grid_alpha(params, cfg: ShapeRendererConfig, pts,
+                       step_length: float, mul_length: float = 10.0,
+                       packed=None):
+    """Alpha for the alpha-mask update (ref: shapeRenderer.py:299-325):
+    isotropic NeuS alpha with near-surface cells forced opaque."""
+    aabb = aabb_tensor(cfg, pts.device)
+    sdf = tenso_sdf.sdf_only(params['sdf'], cfg.sdf, pts, aabb,
+                             packed=packed)[:, 0]
+    inv_s = torch.clamp(mlp.apply_variance(params['deviation'], cfg.std_act),
+                        1e-6, 1e6)
+    alpha = composite.neus_alpha_isotropic(sdf, inv_s, step_length)
+    near_surf = torch.abs(sdf) < mul_length * step_length
+    return torch.where(near_surf, torch.ones_like(alpha), alpha)
+
+
+@torch.no_grad()
+def build_alpha_mask(params, cfg: ShapeRendererConfig,
+                     grid_size: int = 128, mul_length: float = 10.0,
+                     alpha_thresh: float = 1e-4,
+                     chunk: int = 262144) -> grid_mod.AlphaGridMask:
+    """updateAlphaMask equivalent (ref: shapeRenderer.py:256-282): alpha
+    on a grid_size^3 lattice over the aabb in chunks, 3^3 max pool,
+    threshold.  The mask lives where the parameters do; the field atlas is
+    packed once per build."""
+    aabb_np = np.asarray(cfg.aabb, np.float32)
+    xs = [np.linspace(aabb_np[0][d], aabb_np[1][d], grid_size,
+                      dtype=np.float32) for d in range(3)]
+    step_length = float(((aabb_np[1] - aabb_np[0])
+                         / (grid_size - 1)).mean())
+    dev = params['deviation']['variance'].device
+    pts = torch.as_tensor(np.stack(np.meshgrid(*xs, indexing='ij'),
+                                   -1).reshape(-1, 3), device=dev)
+    packed = tenso_sdf.pack_field(params['sdf'], cfg.sdf)
+    vol = torch.cat([compute_grid_alpha(params, cfg, pts[i:i + chunk],
+                                        step_length, mul_length, packed)
+                     for i in range(0, pts.shape[0], chunk)])
+    vol = torch.clamp(vol.reshape((grid_size,) * 3), 0.0, 1.0)
+    vol = (grid_mod.max_pool_3d_3x3(vol) >= alpha_thresh).float()
+    return grid_mod.AlphaGridMask(aabb=aabb_tensor(cfg, dev), volume=vol)
+
+
 def train_step_outputs(params, cfg: ShapeRendererConfig, mips, occ_state,
                        ray_batch, step: int, noise, radiance_on: bool,
-                       occ_loss_on: bool):
+                       occ_loss_on: bool, alpha_mask=None):
     """Training forward: render + rgb/psnr/mask losses
     (ref: shapeRenderer.py:777-794)."""
     anneal = min(1.0, step / cfg.anneal_end) if cfg.anneal_end >= 0 else 1.0
     outputs = render_rays(params, cfg, mips, occ_state, ray_batch, step,
-                          anneal, noise, True, radiance_on, occ_loss_on)
+                          anneal, noise, True, radiance_on, occ_loss_on,
+                          alpha_mask=alpha_mask)
     rgb_gt = ray_batch['rgbs']
     outputs['loss_rgb'] = compute_rgb_loss(cfg, outputs['ray_rgb'], rgb_gt)
     mse = torch.mean((outputs['ray_rgb'] - rgb_gt) ** 2)

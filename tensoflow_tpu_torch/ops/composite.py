@@ -1,8 +1,8 @@
 """Volume-rendering compositing (counterpart of tensoflow_tpu/ops/composite.py).
 
-Dense [rays, samples] weights, and the compacted-sample path of the
-training step: per-ray transmittance on ray-major compacted slots and
-scatter-free per-ray sums.
+Dense [rays, samples] weights and sums (the hierarchical sampler's path),
+and the compacted-sample path of the occupancy-grid step: per-ray
+transmittance on ray-major compacted slots and scatter-free per-ray sums.
 """
 from __future__ import annotations
 
@@ -65,6 +65,14 @@ def segment_sums_sorted(cols, ray_id, n_rays: int):
     return p[right] - p[left]
 
 
+def accumulate(weights, values=None):
+    """sum_i w_i * v_i along the sample axis: weights [rn, sn], values
+    [rn, sn, C] -> [rn, C]; without values the opacity [rn, 1]."""
+    if values is None:
+        return torch.sum(weights, dim=1, keepdim=True)
+    return torch.sum(weights[..., None] * values, dim=1)
+
+
 def neus_alpha(sdf, inv_s, iter_cos, dists):
     """NeuS section alpha (ref: shapeRenderer.py:1014-1024)."""
     est_next = sdf + iter_cos * dists * 0.5
@@ -90,3 +98,17 @@ def anneal_cos(true_cos, cos_anneal_ratio):
     r = cos_anneal_ratio
     return -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - r)
              + torch.relu(-true_cos) * r)
+
+
+def segment_weights(sdf_mid, cos_val, dists, inv_s, surface_mask):
+    """Section weights of a secondary-ray SDF march (ref:
+    utils/network_utils.py:149-170): sdf_mid, cos_val, dists, inv_s and
+    surface_mask (bool) [rn, sn] -> weights [rn, sn]."""
+    cos_val = torch.clamp(cos_val, max=0.0)
+    prev_esti = sdf_mid - cos_val * dists * 0.5
+    next_esti = sdf_mid + cos_val * dists * 0.5
+    prev_cdf = torch.sigmoid(prev_esti * inv_s)
+    next_cdf = torch.sigmoid(next_esti * inv_s)
+    alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+    alpha = alpha * surface_mask.to(alpha.dtype)
+    return weights_from_alpha(alpha)[0]

@@ -1,5 +1,5 @@
-"""Occupancy grid, fixed-budget marching, sample compaction and the
-packed trilinear tap (counterpart of tensoflow_tpu/ops/grid.py).
+"""Occupancy grid, fixed-budget marching, sample compaction, the packed
+trilinear tap and the alpha mask (counterpart of tensoflow_tpu/ops/grid.py).
 
 Same state layout as the JAX package: 'occs' [R,R,R] f32, 'binary'
 [R,R,R] bool, 'blocks' [R^3, 2] 4^3-block bitmask rows (the JAX uint32
@@ -153,6 +153,25 @@ def trilinear_sample_3d(volume, xyz01):
             for bz, wz in ((i0[2], 1 - f[2]), (i1[2], f[2])):
                 out = out + wx * wy * wz * flat[bx * sy + by * sz + bz]
     return out
+
+
+class AlphaGridMask(NamedTuple):
+    """Binary alpha-mask volume over an aabb (ref: shapeRenderer.py:79-97):
+    aabb [2, 3], volume [X, Y, Z] float 0/1."""
+    aabb: torch.Tensor
+    volume: torch.Tensor
+
+    def sample_alpha(self, pts):
+        """Trilinear mask value at world points [N, 3] -> [N]."""
+        u = (pts - self.aabb[0]) / (self.aabb[1] - self.aabb[0])
+        return trilinear_sample_3d(self.volume, torch.clamp(u, 0.0, 1.0))
+
+
+def max_pool_3d_3x3(vol):
+    """3x3x3 stride-1 max pool of [X, Y, Z], padded with -inf (ref:
+    shapeRenderer.py:265)."""
+    return torch.nn.functional.max_pool3d(vol[None, None], 3, stride=1,
+                                          padding=1)[0, 0]
 
 
 def pack_occ_blocks(binary):

@@ -137,6 +137,20 @@ def integrated_dir_encoding(xyz, kappa_inv, deg_view: int = 5):
     return torch.cat([re_xy * zpart * atten, im_xy * zpart * atten], dim=-1)
 
 
+def xla_linspace(start: float, stop: float, n: int) -> np.ndarray:
+    """float32 [n]: jnp.linspace(start, stop, n) as XLA computes it under
+    jit, start * (1 - t) + stop * t with t = i * (1 / (n - 1)) in float32
+    and the last value exactly stop (torch.linspace rounds some values
+    the other way)."""
+    f = np.float32
+    if n == 1:
+        return np.full((1,), start, f)
+    t = np.arange(n, dtype=f) * (f(1.0) / f(n - 1))
+    out = f(start) * (f(1.0) - t) + f(stop) * t
+    out[-1] = f(stop)
+    return out
+
+
 def sample_pdf(bins, weights, n_samples: int, u=None):
     """Inverse-transform sampling of piecewise-constant pdfs; u None ->
     deterministic midpoints (ref: network_utils.py:117-147)."""

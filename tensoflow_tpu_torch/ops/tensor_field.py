@@ -637,7 +637,8 @@ def gaussian_smooth_loss_vm(field: FieldParams, kernel_size: int = 5,
     """Squared difference between the grids and their Gaussian blur,
     borders excluded (ref: fields.py:301-309)."""
     dev = field['planes'][0].device
-    k1 = torch.as_tensor(_gaussian_kernel_1d(kernel_size, sigma), device=dev)
+    k1 = device_constant(('gaussian_1d', kernel_size, sigma),
+                         lambda: _gaussian_kernel_1d(kernel_size, sigma), dev)
     k2 = k1[:, None] * k1[None, :]
     kk = kernel_size // 2
     total = 0.0

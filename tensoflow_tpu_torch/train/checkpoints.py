@@ -3,7 +3,8 @@ checkpoints.py): one ``torch.save`` file per save holding the step, the
 parameter tree, the optimizer state and the model kwargs needed to rebuild
 the static configs (keys ``params``, ``kwargs``, ``step`` as the JAX
 package's pickles have).  Tensors are stored on the CPU; bfloat16 and
-int64 leaves keep their types.  The format is the port's own: a JAX
+int64 leaves keep their types.  An alpha mask is stored as the JAX
+package stores it: packed bits (``pack_alpha_mask``).  The format is the port's own: a JAX
 checkpoint is carried over with convert.geo_checkpoint_from_jax.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 
@@ -53,3 +55,29 @@ def restore_opt_state(saved, opt, zero_if=None) -> bool:
             return False
     opt.load_state(saved, zero_if)
     return True
+
+
+def pack_alpha_mask(mask) -> Dict[str, Any]:
+    """AlphaGridMask -> packbits payload (ref: shapeRenderer.py:343-356):
+    numpy ``aabb``, ``shape`` and ``bits``, the JAX package's keys."""
+    if mask is None:
+        return None
+    vol = mask.volume.detach().cpu().numpy() > 0.5
+    return {'aabb': mask.aabb.detach().cpu().numpy().astype(np.float32),
+            'shape': list(vol.shape),
+            'bits': np.packbits(vol.reshape(-1))}
+
+
+def unpack_alpha_mask(payload, device='cpu'):
+    """pack_alpha_mask's payload (the port's or the JAX package's) -> an
+    AlphaGridMask on ``device``; None stays None."""
+    from ..ops import grid as grid_mod
+    if payload is None:
+        return None
+    n = int(np.prod(payload['shape']))
+    vol = np.unpackbits(np.asarray(payload['bits']))[:n].reshape(
+        payload['shape'])
+    return grid_mod.AlphaGridMask(
+        aabb=torch.tensor(np.asarray(payload['aabb'], np.float32),
+                          device=device),
+        volume=torch.as_tensor(vol.astype(np.float32), device=device))

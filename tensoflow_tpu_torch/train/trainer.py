@@ -2,12 +2,15 @@
 tensoflow_tpu/train/trainer.py).
 
 One eager PyTorch step per training iteration: build the envlight mips,
-render the ray batch through the occupancy-grid sampler, the TensoSDF
-stencil head and the split-sum shading, sum the loss terms, backpropagate
-and take one Adam step over three parameter groups (``xyz`` = tensor
-grids, ``env`` = envlight cubemap, ``net`` = everything else) with the
-JAX package's cosine learning-rate factor.  The occupancy grid is
-refreshed every ``occ_update_interval`` steps.
+render the ray batch through the sampler (the occupancy grid, or the NeuS
+hierarchical sampler with its alpha mask and, with predict_BG, the NeRF++
+background), the TensoSDF stencil head and the split-sum shading, sum the
+loss terms, backpropagate and take one Adam step over three parameter
+groups (``xyz`` = tensor grids, ``env`` = envlight cubemap, ``net`` =
+everything else, the background net included) with the JAX package's
+cosine learning-rate factor.  On the occupancy grid the grid is refreshed
+every ``occ_update_interval`` steps; on the hierarchical sampler the
+alpha mask is rebuilt at the steps of ``update_AlphaMask_lst``.
 
 Entry points run on the card: ``ShapeTrainer(cfg)`` means CUDA and raises
 when CUDA is absent; the CPU runs only when the caller passes
@@ -20,10 +23,9 @@ Grid upsampling (``upsample_list``) starts a new grid phase: the field is
 resized, one more mip level joins, and Adam restarts with fresh moments
 and its cosine factor rebased at that step.  ``render_image`` renders a
 full view in chunks without gradients; ``validate`` scores the held-out
-views.
+views.  As in the JAX package, render_image does not pass the alpha mask.
 
-Not ported yet (see ROADMAP.md): the alpha mask (the hierarchical
-sampler's), predict_BG and the multi-device mesh.
+Not ported yet (see ROADMAP.md): the multi-device mesh.
 """
 from __future__ import annotations
 
@@ -58,8 +60,6 @@ BUDGET_MARGIN = 1.5
 
 def build_shape_config(cfg: Dict[str, Any], grid_size, n_levels: int
                        ) -> sr.ShapeRendererConfig:
-    if cfg.get('predict_BG'):
-        raise NotImplementedError('predict_BG is not ported yet')
     sdf_cfg = tenso_sdf.SDFConfig(
         grid_size=tuple(int(g) for g in grid_size),
         n_comp=cfg['sdf_n_comp'], sdf_dim=cfg['sdf_dim'],
@@ -77,7 +77,10 @@ def build_shape_config(cfg: Dict[str, Any], grid_size, n_levels: int
         aabb=tuple(tuple(x) for x in cfg['aabb']),
         std_act=cfg['std_act'], inv_s_init=cfg['inv_s_init'],
         freeze_inv_s_step=cfg['freeze_inv_s_step'],
+        n_samples=cfg['n_samples'], n_importance=cfg['n_importance'],
+        up_sample_steps=cfg['up_sample_steps'], perturb=cfg['perturb'],
         anneal_end=cfg['anneal_end'], train_ray_num=cfg['train_ray_num'],
+        clip_sample_variance=cfg['clip_sample_variance'],
         use_occ_grid=cfg['use_occ_grid'], occ_grid_reso=cfg['occ_grid_reso'],
         step_ratio=cfg['step_ratio'], occ_max_samples=cfg['occ_max_samples'],
         compact_samples_per_ray=cfg.get('compact_samples_per_ray', 64),
@@ -93,7 +96,8 @@ def build_shape_config(cfg: Dict[str, Any], grid_size, n_levels: int
         apply_mask_loss=cfg['apply_mask_loss'],
         has_radiance_field=cfg['has_radiance_field'],
         radiance_field_step=cfg['radiance_field_step'],
-        isBGWhite=cfg['isBGWhite'])
+        isBGWhite=cfg['isBGWhite'], predict_BG=cfg['predict_BG'],
+        n_bg_samples=cfg.get('n_bg_samples', 32))
 
 
 def lr_factor_fn(cfg):
@@ -223,6 +227,7 @@ class ShapeTrainer:
         params = sr.init_shape_renderer(self.init_gen, self.rcfg, self.device)
         self.occ_cfg = grid_mod.OccGridConfig(resolution=cfg['occ_grid_reso'])
         self.occ_state = grid_mod.init_occ_grid(self.occ_cfg, self.device)
+        self.alpha_mask = None
         self.start_step = 0
         self.best_para = 0.0
         self.occ_update_interval = 100
@@ -262,7 +267,8 @@ class ShapeTrainer:
     # random draws
     # ------------------------------------------------------------------
     def step_noise(self, step: int) -> Dict[str, torch.Tensor]:
-        """The training step's draws (sampler jitter, occ-loss scores)."""
+        """The training step's draws (sampler jitter, occ-loss scores, the
+        background's jitter)."""
         return sr.draw_noise(self.gen, self.rcfg, self.cfg['train_ray_num'],
                              self.device)
 
@@ -299,7 +305,7 @@ class ShapeTrainer:
                                     self.rcfg.shading.env)
         outputs = sr.train_step_outputs(p, self.rcfg, mips, self.occ_state,
                                         batch, step, noise, radiance_on,
-                                        occ_on)
+                                        occ_on, alpha_mask=self.alpha_mask)
         total, terms = losses.total_loss_shape(outputs, weights)
         total.backward()
         self.opt.step()
@@ -351,12 +357,16 @@ class ShapeTrainer:
             self.rcfg = self.rcfg._replace(compact_samples_per_ray=bucket)
 
     def maybe_update_alpha_mask(self, step: int):
-        """Alpha-mask refresh schedule (ref: trainer_inv.py:272-279): a
-        no-op on the occupancy-grid sampler, the only one ported."""
+        """Alpha-mask refresh schedule (ref: trainer_inv.py:272-279), on
+        the hierarchical sampler only: a 128^3 mask of the field after this
+        step's update."""
         lst = self.cfg.get('update_AlphaMask_lst')
         if self.rcfg.use_occ_grid or not lst or step not in lst:
             return
-        raise NotImplementedError('the alpha mask is not ported yet')
+        self.alpha_mask = sr.build_alpha_mask(
+            self.params, self.rcfg,
+            mul_length=self.cfg.get('mul_length', 10),
+            alpha_thresh=self.cfg.get('alphaMask_thres', 1e-4))
 
     def maybe_upsample(self, step: int) -> bool:
         """Grid upsample + optimizer reset (ref: trainer_inv.py:283-291):
@@ -384,6 +394,7 @@ class ShapeTrainer:
             'params': self.params,
             'opt_state': self.opt.state(),
             'occ_state': self.occ_state,
+            'alpha_mask': checkpoints.pack_alpha_mask(self.alpha_mask),
             'N_voxel_list': self.n_voxel_list,
             'march_stride': self.rcfg.march_stride,
             'compact_samples_per_ray': self.rcfg.compact_samples_per_ray,
@@ -407,6 +418,8 @@ class ShapeTrainer:
                 compact_samples_per_ray=ckpt['compact_samples_per_ray'])
         to_dev = lambda t: t.to(self.device)   # noqa: E731
         self.occ_state = checkpoints.tree_map(to_dev, ckpt['occ_state'])
+        self.alpha_mask = checkpoints.unpack_alpha_mask(
+            ckpt.get('alpha_mask'), self.device)
         self.n_voxel_list = list(ckpt['N_voxel_list'])
         self.start_step = ckpt['step']
         self.best_para = ckpt.get('best_para', 0.0)
@@ -458,7 +471,9 @@ class ShapeTrainer:
                      chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Full-frame render (ref: shapeRenderer.py:568-668) in chunks of
         ``test_ray_num`` rays, the last one padded with copies of its last
-        ray; returns the EVAL_KEYS images [h, w, k] on the host."""
+        ray; returns the EVAL_KEYS images [h, w, k] on the host.  The alpha
+        mask is not applied: the JAX package's render_image does not pass
+        it (trainer.py:490-493 there)."""
         step = step if step is not None else 300000
         chunk = chunk or self.cfg['test_ray_num']
         info = {'imgs': np.zeros((1, h, w, 3), np.float32),

@@ -10,8 +10,10 @@
     its source (csrc/), never from the JAX package's native/.
   * The kernel wrappers take the plain version only for CPU tensors, and
     no ``try`` stands around a build or a launch.
-  * A training step, of either stage, copies nothing from the host but
-    its ray batch.
+  * A training step, of either stage and on either stage-1 sampler,
+    copies nothing from the host but its ray batch.
+  * Nothing of stage 1 raises NotImplementedError for the hierarchical
+    sampler, the alpha mask or predict_BG.
 """
 import ast
 import os
@@ -223,6 +225,71 @@ def test_training_step_copies_only_the_batch_to_the_device():
                    'compact_samples_per_ray=8'])
     trainer = ShapeTrainer(cfg, device='cpu')
     trainer.train(n_steps=1, log_every=1)
+    made = []
+
+    class FromHost(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.tensor, torch.as_tensor) \
+                    and not isinstance(args[0], torch.Tensor):
+                made.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with FromHost():
+        trainer.train(n_steps=1, log_every=1)
+    assert made == ['as_tensor'], made
+
+
+def test_no_not_implemented_for_hierarchical_alpha_mask_or_bg():
+    """No NotImplementedError left in stage 1's renderer or trainer that
+    names the sampler, the alpha mask or the background, and a config
+    with all three builds, trains a step across an alpha-mask build and
+    keeps its mask."""
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    for rel in ('models/shape_renderer.py', 'train/trainer.py'):
+        path = os.path.join(PKG, rel)
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Raise) and node.exc is not None \
+                    and 'NotImplementedError' in ast.unparse(node.exc):
+                text = ast.unparse(node.exc).lower()
+                assert not any(w in text for w in (
+                    'hierarch', 'alpha', 'predict_bg', 'background',
+                    'use_occ_grid', 'sampler is')), (rel, text)
+    cfg = pconfig.load_config(
+        os.path.join(ROOT, 'configs/shape/custom/shoe.yaml'),
+        overrides=HIER_SMALL + ['update_AlphaMask_lst=[0]'])
+    assert not cfg['use_occ_grid'] and cfg['predict_BG']
+    trainer = ShapeTrainer(cfg, device='cpu')
+    assert 'bg' in trainer.params and trainer.alpha_mask is None
+    logs = trainer.train(n_steps=2, log_every=1)
+    assert trainer.alpha_mask is not None
+    assert all(r['loss'] == r['loss'] for r in logs)
+
+
+HIER_SMALL = ['database_name=toy/sphere_16_2', 'sdf_n_comp=2', 'sdf_dim=16',
+              'app_dim=8', 'N_voxel_init=4096', 'N_voxel_final=4096',
+              'train_ray_num=16', 'n_samples=8', 'n_importance=8',
+              'occ_loss_max_pn=16', 'upsample_list=null', 'n_bg_samples=8',
+              'occ_loss_step=0', 'init_radius=0.5']
+
+
+def test_hierarchical_step_copies_only_the_batch_to_the_device():
+    """The rule of the test above, on the hierarchical sampler with the
+    alpha mask, the live-field occ loss, the background and the Gaussian
+    loss: a step builds one tensor from host data, its batch (the mask is
+    built between steps)."""
+    from torch.overrides import TorchFunctionMode
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    cfg = pconfig.load_config(
+        os.path.join(ROOT, 'configs/shape/custom/shoe.yaml'),
+        overrides=HIER_SMALL + ['update_AlphaMask_lst=[0]',
+                                'apply_gaussian_loss=true',
+                                'gaussianLoss_step=0'])
+    trainer = ShapeTrainer(cfg, device='cpu')
+    trainer.train(n_steps=2, log_every=1)
+    assert trainer.alpha_mask is not None
     made = []
 
     class FromHost(TorchFunctionMode):
