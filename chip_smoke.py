@@ -17,10 +17,14 @@ every later launch of the process):
                N=131,072 and with S=1 at N=16,384, at a
                ragged N=1,003 (a partial last row tile) and at N=520
                for both heads (fewer row tiles than SMs: the persistent
-               grids run short); then time kernel and plain version, B=1
-               and B=2, in bf16 and in f32, beside the byte/op bound, and
-               point_head (S=1, bf16) at the occupancy update's chunk of
-               131,072 points.
+               grids run short); two float32 backward launches on the
+               same inputs must give bit-identical weight gradients; then
+               time kernel and plain version, B=1 and B=2, in bf16 and in
+               f32, beside the byte/op bound; for each float32 kernel its
+               share of the bound, blocks per SM, registers and spills;
+               cuBLAS float32 at the three large products' shapes as a
+               yardstick; and point_head (S=1, bf16) at the occupancy
+               update's chunk of 131,072 points.
   3. slice   — first a small float32 configuration trained for 2 steps on
                the card and on the CPU (plain versions) from the same
                parameters, batches and noise, loss terms compared; then
@@ -50,7 +54,8 @@ every later launch of the process):
                [2, 4], occ loss, radiance head and Gaussian loss from step
                3): 128^3 -> 256^3 -> 512^3; per-step loss, launches, mip
                branches and live-sample share, the alpha-mask build time
-               and occupied share; 10 timed 512^3 steps and peak memory;
+               and occupied share; the 512^3 step time as the median of 5
+               windows of 4 steps (min, max beside it) and peak memory;
                the f32 B=2 kernels on a 512^3 step's own inputs;
                render_image of the held-out view (PSNR, SSIM).  Then the
                background sub-phase: 5 steps at the widths of
@@ -420,6 +425,81 @@ def time_row(card, B, cd, errs):
                                  bound_by=bby)}
 
 
+F32_KERNELS = (('fwd', 7, 2), ('fwd', 7, 1), ('fwd', 1, 1), ('fwd', 1, 2),
+               ('bwd', 7, 2), ('bwd', 7, 1), ('bwd', 1, 1), ('bwd', 1, 2),
+               ('atb', 0, 0))
+
+
+def f32_kernel_info():
+    """Blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local (spill) bytes a thread and shared memory a block
+    of each float32 kernel, from the libraries' own entry points."""
+    import ctypes
+    from tensoflow_tpu_torch.ops import stencil as st
+    fwd = st._lib('stencil_head_fwd', st._FWD_ARGS)
+    bwd = st._lib('stencil_head_bwd', st._BWD_ARGS)
+    out = {}
+    for kern, S, B in F32_KERNELS:
+        buf = (ctypes.c_int * 4)()
+        if kern == 'fwd':
+            err = fwd.stencil_head_fwd_f32_info(S, B, buf)
+            name = f'stencil_fwd_f32<{S},{B}>'
+        elif kern == 'bwd':
+            err = bwd.stencil_head_bwd_f32_info(0, S, B, buf)
+            name = f'stencil_bwd_rows_f32<{S},{B}>'
+        else:
+            err = bwd.stencil_head_bwd_f32_info(1, 0, 0, buf)
+            name = 'stencil_bwd_atb_f32'
+        if err != 0:
+            raise RuntimeError(f'{name}: info CUDA error {err}')
+        out[name] = dict(blocks_per_sm=buf[0], registers=buf[1],
+                         spill_bytes=buf[2], smem_bytes=buf[3])
+    return out
+
+
+def check_bwd_deterministic(n, S, B, seed):
+    """Two float32 backward launches on the same inputs give bit-identical
+    weight gradients (dW0, db0, dW1 with dw1row in its column 0): no
+    atomics, every sum over rows in a fixed order."""
+    d = head_inputs(n, S, B, torch.float32, seed)
+    grads = [run_head(d, S, kernel=True)[1] for _ in range(2)]
+    names = ('w0a', 'w0b', 'w0c', 'w0pe', 'pe', 'b0', 'w1')   # after pp, lp
+    same = {nm: bool(torch.equal(grads[0][6 * B + k], grads[1][6 * B + k]))
+            for k, nm in enumerate(names) if nm != 'pe'}
+    print(f'[kernels] f32 S={S} B={B} N={n}: two backward launches give '
+          f'bit-identical weight gradients: {same}', flush=True)
+    if not all(same.values()):
+        raise AssertionError(f'float32 backward is not deterministic: {same}')
+
+
+def cublas_yardstick(card, n=N_MAIN):
+    """cuBLAS float32 (TF32 off) torch.matmul at the float32 kernels' three
+    large products: z = X.W0 [7N,144].[144,256], dX = dz.W0^T
+    [7N,256].[256,144] and dW0 = X^T.dz [144,7N].[7N,256].  What the
+    card's SGEMM reaches on these shapes; a yardstick, not the port."""
+    from tensoflow_tpu_torch.ops import stencil as st
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m = 7 * n
+        x = torch.randn(m, st.F32_XP, device='cuda')
+        w = torch.randn(st.F32_XP, st.F32_HP, device='cuda')
+        dz = torch.randn(m, st.F32_HP, device='cuda')
+        ms = [cuda_ms(lambda: x @ w), cuda_ms(lambda: dz @ w.t()),
+              cuda_ms(lambda: x.t() @ dz)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    flops = 2 * m * st.F32_XP * st.F32_HP
+    rates = [flops / (t * 1e-3) / 1e12 for t in ms]
+    print(f'[kernels] cuBLAS float32 yardstick (allow_tf32 False) on {card}, '
+          f'{flops / 1e9:.1f} GFLOP each: X.W0 [{m},144].[144,256] '
+          f'{ms[0]:.3f} ms ({rates[0]:.1f} TFLOP/s), dz.W0^T '
+          f'[{m},256].[256,144] {ms[1]:.3f} ms ({rates[1]:.1f}), X^T.dz '
+          f'[144,{m}].[{m},256] {ms[2]:.3f} ms ({rates[2]:.1f})', flush=True)
+    del x, w, dz
+    return ms
+
+
 def phase_kernels(card):
     errs = {}
     for cd in (torch.bfloat16, torch.float32):
@@ -437,14 +517,40 @@ def phase_kernels(card):
                    7, 1, cd, seed=7)
         check_case(f'S=1 B=1 static {tag} N=520 (point_head, fewer tiles '
                    'than SMs)', 520, 1, 1, cd, seed=8)
+    check_bwd_deterministic(N_MAIN, 7, 2, seed=12)
+    info = f32_kernel_info()
     rows = {}
     for cd in (torch.bfloat16, torch.float32):
         tag = 'bf16' if cd == torch.bfloat16 else 'f32'
         for B in (1, 2):
             rows[tag, B] = time_row(card, B, cd, errs[tag if B == 1
                                                      else tag + ' B=2'])
+    for B in (2, 1):
+        report_f32(card, B, rows['f32', B], info)
+    cublas_yardstick(card)
     time_point_head(card)
     return rows
+
+
+def report_f32(card, B, row, info):
+    """The float32 kernels of one B at N_MAIN: ms, bound, share of the
+    bound, and what the card gives each kernel (blocks per SM, registers
+    and spills a thread, shared memory a block)."""
+    def what(name):
+        k = info[name]
+        return (f'{name}: {k["blocks_per_sm"]} blocks/SM, '
+                f'{k["registers"]} registers, {k["spill_bytes"]} spill '
+                f'bytes, {k["smem_bytes"]} B smem')
+    for key, kerns in (('stencil_head_fwd', [f'stencil_fwd_f32<7,{B}>']),
+                       ('stencil_head_bwd', [f'stencil_bwd_rows_f32<7,{B}>',
+                                             'stencil_bwd_atb_f32'])):
+        r = row[key]
+        row[key] = dict(r, **{'occupancy': {k: info[k] for k in kerns}})
+        print(f'[kernels] f32 B={B} N={N_MAIN} {key} on {card}: '
+              f'{r["ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
+              f'({r["bound_by"]}), share of bound '
+              f'{r["bound_ms"] / r["ms"]:.3f}; '
+              + '; '.join(what(k) for k in kerns), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -853,14 +959,15 @@ def check_hier_small(steps=2):
           f'voxels; {_losses(logs)}', flush=True)
 
 
-def phase_hierarchical(card, timed_steps=10):
+def phase_hierarchical(card, windows=5, per_window=4):
     """ShapeTrainer at configs/shape/syn/compressor.yaml as published
     (float32 gathers, the hierarchical sampler with 64 + 64 samples a ray,
     the alpha mask, the live-field occ loss) over its schedule cut to six
     steps: 128^3 -> 256^3 -> 512^3; per-step loss, launches, mip branches
-    and live-sample share; the alpha-mask build; 10 timed 512^3 steps and
-    the peak memory; the float32 kernels on a 512^3 step's own inputs; one
-    test view rendered and scored.  Then the background sub-phase."""
+    and live-sample share; the alpha-mask build; the 512^3 step time as
+    the median of 5 windows of 4 steps (min, max) and the peak memory; the
+    float32 kernels on a 512^3 step's own inputs; one test view rendered
+    and scored.  Then the background sub-phase."""
     from tensoflow_tpu_torch.models import shape_renderer as sr
     from tensoflow_tpu_torch.ops import stencil as st
     from tensoflow_tpu_torch.ops import tensor_field as tfield
@@ -947,14 +1054,23 @@ def phase_hierarchical(card, timed_steps=10):
           f'kernels, one fwd + one bwd a step); mip branches per step '
           f'{spy.bs}; stencil rows a step {rays * sn}', flush=True)
 
-    t0 = time.perf_counter()
-    timed = trainer.train(n_steps=timed_steps, log_every=timed_steps)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
-    _check_finite(timed)
+    # the step time: the median of `windows` windows of `per_window` steps
+    # (min and max beside it), each ending in a synchronize
+    window_ms = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = trainer.train(n_steps=per_window, log_every=per_window)
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t0) / per_window * 1e3)
+        _check_finite(timed)
+    step_ms = sorted(window_ms)[len(window_ms) // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'[hier] {timed_steps} steps at 512^3 on {card}: {step_ms:.1f} '
-          f'ms/step = {rays / (step_ms / 1e3):.0f} rays/s; live-sample '
+    print(f'[hier] {windows} windows of {per_window} steps at 512^3 on '
+          f'{card}: median {step_ms:.1f} ms/step (min {min(window_ms):.1f}, '
+          f'max {max(window_ms):.1f}; windows ' + ', '.join(
+              f'{t:.1f}' for t in window_ms) + f') = '
+          f'{rays / (step_ms / 1e3):.0f} rays/s; live-sample '
           f'share {timed[-1]["sample_num"] / sn:.4f}; peak device memory '
           f'{peak:.2f} GiB in all, {peak - base:.2f} GiB above what earlier '
           f'phases hold; loss {timed[-1]["loss"]:.6f}', flush=True)

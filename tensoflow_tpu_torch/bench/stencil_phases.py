@@ -1,12 +1,15 @@
-"""Where the bf16 stencil-head kernels spend their time, by leaving phases out.
+"""Where the stencil-head kernels spend their time, by leaving phases out.
 
     python -m tensoflow_tpu_torch.bench.stencil_phases [--rows 131072]
+        [--dtype bfloat16|float32] [--branches 1|2]
 
 Builds csrc/stencil_head_{fwd,bwd}.cu once as they are and once per
 -DSH_SKIP_* switch (taps: the hat-weight taps / product rule and routing;
-softplus: the activation on the accumulator fragment; workspace: the
-backward's stores of X, dz, h and g_c), runs forward and backward at the
-stage-1 shapes (C=36, E=21, H=256, O=129, S=7, B=1) and prints each
+softplus: the activation; workspace: the backward's stores of X, dz, h
+and g_c; for float32 also z: the z = X.W0 product, layer1: the forward's
+layer 1 and the backward's dh = g.W1^T, dx: the backward's dX = dz.W0^T),
+runs forward and backward at the stage-1 shapes (C=36, E=21, H=256,
+O=129, S=7; B mip branches, dynamic sigma lanes for B=2) and prints each
 kernel's device time from torch.profiler.  A build with a phase left out
 computes wrong results: only its time is read, and the difference to the
 full build is that phase's share.  Needs one CUDA card with nvcc.
@@ -19,28 +22,47 @@ import subprocess
 import torch
 
 C, E, H, O, S = 36, 21, 256, 129, 7
-VARIANTS = ((), ('-DSH_SKIP_TAPS',), ('-DSH_SKIP_SOFTPLUS',),
-            ('-DSH_SKIP_WORKSPACE',),
-            ('-DSH_SKIP_TAPS', '-DSH_SKIP_SOFTPLUS', '-DSH_SKIP_WORKSPACE'))
+VARIANTS = {
+    'bfloat16': ((), ('-DSH_SKIP_TAPS',), ('-DSH_SKIP_SOFTPLUS',),
+                 ('-DSH_SKIP_WORKSPACE',),
+                 ('-DSH_SKIP_TAPS', '-DSH_SKIP_SOFTPLUS',
+                  '-DSH_SKIP_WORKSPACE')),
+    'float32': ((), ('-DSH_SKIP_TAPS',), ('-DSH_SKIP_SOFTPLUS',),
+                ('-DSH_SKIP_WORKSPACE',), ('-DSH_SKIP_Z',),
+                ('-DSH_SKIP_LAYER1',), ('-DSH_SKIP_DX',),
+                ('-DSH_SKIP_Z', '-DSH_SKIP_LAYER1', '-DSH_SKIP_DX')),
+}
 
 
-def _inputs(n, seed=5):
+def _inputs(n, dtype, branches, seed=5):
     from ..ops.tensor_field import FRAC_STRIDE as FS
     g = torch.Generator(device='cuda').manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device='cuda') * scale
     fr = torch.zeros((n, 2 * FS), device='cuda')
-    fr[:, :9] = torch.rand((n, 9), generator=g, device='cuda')
-    fr[:, 9] = 1.0
-    leaves = ([rnd(n, 16 * C, scale=0.3).bfloat16() for _ in range(3)]
-              + [rnd(n, 4 * C, scale=0.3).bfloat16() for _ in range(3)]
+    sig = []
+    for b in range(branches):
+        o = b * FS
+        fr[:, o:o + 9] = torch.rand((n, 9), generator=g, device='cuda')
+        fr[:, o + 9] = 1.0 / branches
+        if branches > 1:
+            fr[:, o + 10:o + 19] = 0.5 + 0.5 * torch.rand(
+                (n, 9), generator=g, device='cuda')
+            sig.append(None)
+        else:
+            sig.append(((1.0, 1.0, 1.0),) * 3)
+    leaves = ([rnd(n, 16 * C, scale=0.3).to(dtype)
+               for _ in range(3 * branches)]
+              + [rnd(n, 4 * C, scale=0.3).to(dtype)
+                 for _ in range(3 * branches)]
               + [rnd(k, H, scale=(3 * C + E) ** -0.5) for k in (C, C, C, E)]
               + [rnd(n, E, scale=0.5), rnd(H, scale=0.1),
                  rnd(H, O, scale=H ** -0.5), rnd(O, scale=0.1)])
     for t in leaves:
         t.requires_grad_(True)
-    return leaves, fr, rnd(S, 4, E, scale=0.5), rnd(n, O), rnd(S - 1, n)
+    return (leaves, fr, tuple(sig), rnd(S, 4, E, scale=0.5), rnd(n, O),
+            rnd(S - 1, n))
 
 
 def main(argv=None):
@@ -48,16 +70,24 @@ def main(argv=None):
     from ..ops import cuda_build, stencil
     ap = argparse.ArgumentParser()
     ap.add_argument('--rows', type=int, default=2048 * 64)
+    ap.add_argument('--dtype', choices=('bfloat16', 'float32'),
+                    default='bfloat16')
+    ap.add_argument('--branches', type=int, choices=(1, 2), default=1)
     args = ap.parse_args(argv)
-    leaves, fr, rot, g_c, g_off = _inputs(args.rows)
-    pp, lp, w0p = leaves[:3], leaves[3:6], leaves[6:10]
-    pe, b0, w1, b1 = leaves[10:]
-    sig = (((1.0, 1.0, 1.0),) * 3,)
+    dtype = getattr(torch, args.dtype)
+    nb = 3 * args.branches
+    leaves, fr, sig, rot, g_c, g_off = _inputs(args.rows, dtype,
+                                               args.branches)
+    pp, lp, w0p = leaves[:nb], leaves[nb:2 * nb], leaves[2 * nb:2 * nb + 4]
+    pe, b0, w1, b1 = leaves[2 * nb + 4:]
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    for defines in VARIANTS:
+    variants = VARIANTS[args.dtype]
+    # every build at once: one nvcc per source and set of switches
+    cuda_build.build(['stencil_head_fwd', 'stencil_head_bwd'], variants)
+    for defines in variants:
         cuda_build.DEFINES = defines
         try:
             def step():
@@ -77,9 +107,9 @@ def main(argv=None):
             if 'stencil' in e.key:
                 k = e.key.split('(')[0].replace('void ', '')
                 ms[k] = ms.get(k, 0.0) + e.device_time_total / 3e3
-        print(f'[phases] {" ".join(defines) or "full"} N={args.rows} on '
-              f'{card}: ' + ', '.join(f'{k} {v:.3f} ms'
-                                      for k, v in sorted(ms.items())),
+        print(f'[phases] {args.dtype} B={args.branches} '
+              f'{" ".join(defines) or "full"} N={args.rows} on {card}: '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in sorted(ms.items())),
               flush=True)
 
 

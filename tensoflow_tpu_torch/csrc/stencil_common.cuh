@@ -15,12 +15,13 @@
 // arithmetic policies below); the _rn intrinsics keep nvcc from
 // contracting a multiply and an add into an FMA.  The
 // matrix products take T-rounded operands and accumulate in f32: on the
-// tensor cores (wgmma, stencil_sm90.cuh) for bf16, as FMAs for float32
-// (so a float32 kernel can be held to the plain version in float64).
+// tensor cores (wgmma, stencil_sm90.cuh) for bf16, as register-blocked
+// FMAs for float32 (stencil_f32.cuh; so a float32 kernel can be held to
+// the plain version in float64).
 //
 // The tap arithmetic lives here once (plane_variants .. route_line),
 // written over an arithmetic policy (F32, Bf2 below): the float32 kernels
-// (8-row tiles, one channel per thread) and the bf16 kernels (128-row
+// (112-row tiles, one channel per thread) and the bf16 kernels (128-row
 // tiles, four channels = two packed pairs per thread) both call it.
 #pragma once
 #include <cuda_runtime.h>
@@ -29,11 +30,7 @@
 
 namespace sh {
 
-constexpr int TN = 8;      // rows per tile of the float32 kernels
-constexpr int NT = 256;    // threads per block
 constexpr int FS = 32;     // fr lanes per mip branch
-constexpr int KC = 16;     // W0 rows staged in shared memory per chunk
-constexpr int JMAX = 8;    // hidden columns per thread (H <= 256)
 
 // storage type T <-> float: load, and round as a store would
 template <typename T> struct Cd;
@@ -318,11 +315,20 @@ __device__ __forceinline__ float pe_point(int s, int e, int E, float p0,
       R[3 * E + e]));
 }
 
-// softplus(beta=100) of z = zs / 100 and its derivative
+// softplus(beta=100) of z = zs / 100 and its derivative, in float32:
+// e = exp(-|zs|) and log(1 + e) from the special-function unit (ex2, lg2;
+// absolute error ~4e-7 on log(1 + e), i.e. ~4e-9 on h), the quotients as
+// a product with 0.01f and a correctly rounded reciprocal.  IEEE divisions
+// cost several times more and take a slow path on denormal operands (e is
+// one for zs < -87), so their time depended on the data; measured on an
+// NVIDIA H100 80GB HBM3 at 700 W, this form took 0.15-0.25 ms less a call
+// than expf / log1pf at N=131,072 (bench/stencil_phases.py), with the same
+// error against float64.  At zs == 0 the slope is exactly 1/2.
 __device__ __forceinline__ void softplus100(float zs, float* h, float* sig) {
-  const float e = expf(-fabsf(zs));
-  *h = (fmaxf(zs, 0.f) + log1pf(e)) / 100.f;
-  *sig = (zs >= 0.f ? 1.f : e) / (1.f + e);
+  const float e = __expf(-fabsf(zs));
+  const float r = __frcp_rn(1.f + e);
+  *h = (fmaxf(zs, 0.f) + __logf(1.f + e)) * 0.01f;
+  *sig = zs >= 0.f ? r : e * r;
 }
 // The same from the special-function unit (ex2, lg2, rcp: relative error
 // ~1e-6 before the result is rounded to bf16, which keeps 8 bits).
@@ -331,65 +337,6 @@ __device__ __forceinline__ void softplus100_fast(float zs, float* h,
   const float e = __expf(-fabsf(zs));
   *h = (fmaxf(zs, 0.f) + __logf(1.f + e)) * 0.01f;
   *sig = __fdividef(zs >= 0.f ? 1.f : e, 1.f + e);
-}
-
-// ---- float32 kernels: 8-row tiles ---------------------------------------
-
-// Centre-point PE -> the S stencil-point PEs, written as X columns
-// [3C, 3C+E) for local row r.  pe already holds T-rounded values.
-template <typename T, int S>
-__device__ __forceinline__ void fill_pe(float* Xs, int r, int e, int C,
-                                        int E, int XW, const T* pe,
-                                        const float* rot, int row, int N) {
-  float p0 = 0.f, pm3 = 0.f, pp3 = 0.f;
-  if (row < N) {
-    p0 = Cd<T>::ld(pe, (size_t)row * E + e);
-    pm3 = Cd<T>::ld(pe, (size_t)row * E + (e + 3) % E);
-    pp3 = Cd<T>::ld(pe, (size_t)row * E + (e + E - 3) % E);
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-    Xs[(s * TN + r) * XW + 3 * C + e] =
-        pe_point<T>(s, e, E, p0, pm3, pp3, rot);
-}
-
-// z = X.W0 + b0 for the tile's rows: warp = local row, lane + 32c = hidden
-// column, acc[s][c].  W0 is staged KC rows at a time in W0c (stride WS).
-template <int S>
-__device__ __forceinline__ void layer0(float (&acc)[S][JMAX], const float* Xs,
-                                       float* W0c, int WS,
-                                       const float* w0big, const float* b0,
-                                       int XW, int H, int lane, int warp,
-                                       int tid) {
-  const int JN = H / 32;
-#pragma unroll
-  for (int c = 0; c < JMAX; ++c) {
-    const float b = (c < JN) ? b0[lane + 32 * c] : 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) acc[s][c] = b;
-  }
-  for (int k0 = 0; k0 < XW; k0 += KC) {
-    __syncthreads();
-    for (int idx = tid; idx < KC * H; idx += NT) {
-      const int kk = idx / H, j = idx % H;
-      W0c[kk * WS + j] = w0big[(size_t)(k0 + kk) * H + j];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      float x[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) x[s] = Xs[(s * TN + warp) * XW + k0 + kk];
-#pragma unroll
-      for (int c = 0; c < JMAX; ++c) {
-        if (c < JN) {
-          const float w = W0c[kk * WS + lane + 32 * c];
-#pragma unroll
-          for (int s = 0; s < S; ++s) acc[s][c] = fmaf(x[s], w, acc[s][c]);
-        }
-      }
-    }
-  }
 }
 
 }  // namespace sh

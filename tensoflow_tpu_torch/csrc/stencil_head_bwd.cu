@@ -9,9 +9,10 @@
 // offset-point sdf-column gradient dw1row over all rows.  The scatter-add
 // of dP/dL into the atlas (the VJP of the row gather) stays outside.
 //
-// Bound on the H100: bytes.  Per row it must read V, fr, pe and the
-// output cotangents and write dP, dL and dpe (~7 KB at C=36 in bf16);
-// its ~1.5 MFLOP per row sits below the card's op:byte balance.
+// Bound on the H100: in bf16, bytes.  Per row it must read V, fr, pe and
+// the output cotangents and write dP, dL and dpe (~7 KB at C=36 in bf16);
+// its ~1.5 MFLOP per row sits below the tensor cores' op:byte balance.  In
+// float32, operations (~1.5 MFLOP per row at the FMA pipe's 67 TFLOP/s).
 //
 // Cross-tile sums: the TPU kernel carries the weight gradients in
 // resident outputs across a SEQUENTIAL grid.  Hopper blocks run in no
@@ -42,53 +43,72 @@
 //      registers: 256 x 144 f32 beside the z and dX fragments does not
 //      fit 64K registers.
 //   3. stencil_bwd_colsum — fixed-order sums of the partials.
-// float32: 8-row tiles, FMA products (stencil_bwd_rows_f32,
-// stencil_bwd_atb_f32), held to the plain version in float64.
+// float32 (every published config's own gather_dtype): full float32 FMAs,
+// held to the plain version in float64.
+//   1. stencil_bwd_rows_f32 — one persistent block of 448 threads per SM
+//      (128 registers, 217 KB of shared memory) walks tiles of 16 rows x 7
+//      points = 112 X rows, X transposed in shared memory.  dh = g.W1^T for
+//      the centre, then two passes over the hidden halves: z as 4x8
+//      register blocks, softplus' on the registers, dz^T of the half into
+//      shared memory, and dX += dz.W0^T as 4x9 blocks kept in registers
+//      across the halves (one pass of 64 z accumulators beside dX spilled
+//      at the 128-register cap).  W1^T, W0 and W0^T stream through a
+//      two-slot cp.async ring of 32 rows (stencil_f32.cuh).  X (with a
+//      ones column, so that db0 is the last row of dW0), dz, the centre h
+//      and the padded centre cotangent go to a workspace; each thread's
+//      dw1row terms are summed over its rows in registers and shared
+//      memory.
+//   2. stencil_bwd_atb_f32 — dW0 = X^T.dz and dW1^T = g^T.h over the
+//      workspace: 144 x 128 output tiles of 288 threads, 8x8 a thread, both
+//      operands staged 32 rows at a time through a two-slot cp.async ring,
+//      one partial per split of K.
+//   3. stencil_bwd_colsum — fixed-order sums of the partials (and of the
+//      blocks' dw1row), so that two runs give bit-identical gradients.
 // Both paths call the same tap arithmetic (stencil_common.cuh) and keep
 // the TPU kernel's bf16 rounding points op by op.
 //
-// -DSH_SKIP_TAPS / -DSH_SKIP_SOFTPLUS / -DSH_SKIP_WORKSPACE leave a phase of
-// the bf16 row kernel out: wrong results, built only by
+// -DSH_SKIP_TAPS / -DSH_SKIP_SOFTPLUS / -DSH_SKIP_WORKSPACE (both row
+// kernels), -DSH_SKIP_Z / -DSH_SKIP_LAYER1 / -DSH_SKIP_DX (the float32 row
+// kernel's products) leave a phase out: wrong results, built only by
 // bench/stencil_phases.py to time the rest.
 #include "stencil_common.cuh"
+#include "stencil_f32.cuh"
 #include "stencil_sm90.cuh"
 
 using namespace sh;
-
-namespace {
-
-constexpr int JC = 32;     // hidden columns of W0^T staged per chunk (dX)
-constexpr int KMAX = 6;    // X columns per lane in dX (XW <= 192)
-constexpr int BM = 64, BN = 64, BK = 16;   // split-K product tiles (FMA)
-constexpr int NSPLIT = 64;                  // K chunks of the products
-
-__host__ __device__ inline int wc_floats(int H, int XW) {
-  const int a = KC * (H + 1), b = JC * (XW + 1);
-  return a > b ? a : b;
-}
-
-template <int S>
-__host__ __device__ inline size_t rows_smem_f32(int C, int H, int O, int XW) {
-  const int VW = (Var<S>::NPV + Var<S>::NLV) * 3 * C;
-  return 4 * ((size_t)S * TN * XW + wc_floats(H, XW) + TN * O +
-              (S > 1 ? S - 1 : 1) * TN + (size_t)TN * VW +
-              (size_t)S * TN * H);
-}
-
-}  // namespace
 
 // ---------------------------------------------------------------------------
 // float32
 // ---------------------------------------------------------------------------
 
+// One persistent block of 448 threads per SM walks tiles of 16 rows = 112
+// X rows (row s*16 + r).  Per tile:
+//   build  X^T from V into XT (and X, with its ones column, to the
+//          workspace); the centre cotangent g^T into Gs (and, padded, to
+//          the workspace);
+//   dh     = g.W1^T for the 16 centre rows, 4x4 blocks, into DH;
+//   then for each half p of the hidden columns:
+//   z      = X.W0 + b0 over the half, 4x8 blocks (rows ry*4..; columns
+//          128p + cx*4.., 128p + 64+cx*4..); softplus' on the registers:
+//          dz = dh*sig (centre), g_off*w1row*sig (offsets), 0 (padding);
+//          dz and the centre h to the workspace, dz^T into D; the offset
+//          rows' h.g_off summed per thread (dw1row) in shared memory;
+//   dX    += dz.W0^T over the half, 4x9 blocks (rows ry*4..; columns
+//          cx*4.., 64+cx*4.., 128+cx), kept in registers across halves;
+//   route  dX^T into XT (X is no longer read); product rule + transposed
+//          hat weights -> dP, dL; dpe.
+// Two halves keep 32 z and 36 dX accumulators a thread, so that 448
+// threads stay within 128 registers.  W1^T, W0 and W0^T stream through
+// the ring (stencil_f32.cuh).
 template <int S, int B>
-__global__ void __launch_bounds__(NT, 2)
-stencil_bwd_rows_f32(int N, int C, int E, int H, int O, int XW,
+__global__ void __launch_bounds__(f32k::BWD_NT, 1)
+stencil_bwd_rows_f32(int N, int C, int E, int O,
                      const float* __restrict__ fr,
                      const float* __restrict__ V,
                      const float* __restrict__ pe,
                      const float* __restrict__ rot,
-                     const float* __restrict__ w0big,
+                     const float* __restrict__ w0,
+                     const float* __restrict__ w0t,
                      const float* __restrict__ b0,
                      const float* __restrict__ w1t,
                      const float* __restrict__ w1row,
@@ -96,271 +116,386 @@ stencil_bwd_rows_f32(int N, int C, int E, int H, int O, int XW,
                      const float* __restrict__ g_off, MPtrs6 dP, MPtrs6 dL,
                      float* __restrict__ dpe, float* __restrict__ xg,
                      float* __restrict__ dzg, float* __restrict__ hg,
-                     float* __restrict__ p_db0,
+                     float* __restrict__ gcg,
                      float* __restrict__ p_dw1row) {
   using T = float;
+  using namespace f32k;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int NPV = Var<S>::NPV, NLV = Var<S>::NLV;
-  const int VW = (NPV + NLV) * 3 * C;
-  float* Xs = reinterpret_cast<float*>(smem_raw);   // [S*TN, XW] X, then dX
-  float* Wc = Xs + S * TN * XW;              // W0 / W0^T chunks
-  float* gcs = Wc + wc_floats(H, XW);        // [TN, O]
-  float* gos = gcs + TN * O;                 // [S-1 (>=1), TN]
-  float* Vs = gos + (S > 1 ? S - 1 : 1) * TN;   // [TN, VW]
-  float* dzs = Vs + TN * VW;                 // [S*TN, H]
+  constexpr int NW = BWD_NT / 32;
+  float* XT = reinterpret_cast<float*>(smem_raw);  // X^T, then dX^T [XF][MS]
+  float* D = XT + XF * MS;                   // dz^T of one half [128][MS]
+  float* ring = D + 128 * MS;                // [BSTAGE][BWD_SLOT]
+  float* Gs = ring + BSTAGE * BWD_SLOT;      // g_c^T [OF][TR]
+  float* DH = Gs + OF * TR;                  // dh [TR][HF]
+  float* W1A = DH + TR * HF;                 // [16][BWD_NT] dw1row sums
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int JN = H / 32;
-  const int zr = warp;                       // this thread's row of z / dz
-  const int XWP = XW + 1;                    // padded stride of W0^T chunks
-  const int n_tiles = (N + TN - 1) / TN;
-  float db_acc[JMAX], w1r_acc[JMAX];
+  const int ry = tid >> 4, cx = tid & 15;    // 4-row, 8/9-column blocks
+  const int VW = (NPV + NLV) * 3 * C;
+  const int K0 = 3 * C + E, XK = round4(K0), OK = round4(O);
+  const int nko = (OK + KH - 1) / KH, nkc = (XK + BKC - 1) / BKC;
+  const int nhalf = nkc + 128 / BKC;         // ring chunks of one half
+  const int nch = nko + 2 * nhalf;           // ring chunks per tile
+  const int n_tiles = (N + TR - 1) / TR;
+  // this thread's dw1row sums, per half and column, over its rows: in
+  // shared memory (registers are the scarcer resource here)
 #pragma unroll
-  for (int c = 0; c < JMAX; ++c) db_acc[c] = w1r_acc[c] = 0.f;
+  for (int j = 0; j < 16; ++j) W1A[j * BWD_NT + tid] = 0.f;
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TN;
-    const size_t xrow0 = (size_t)tile * S * TN;   // workspace row of (s=0, r=0)
-    __syncthreads();
-    // ---- load V, cotangents ------------------------------------------
-    const size_t v_end = (size_t)N * VW;
-#pragma unroll 4
-    for (int idx = tid; idx < TN * VW; idx += NT) {
-      const size_t g = (size_t)row0 * VW + idx;
-      Vs[idx] = g < v_end ? V[g] : 0.f;
-    }
-    for (int idx = tid; idx < TN * O; idx += NT) {
-      const int rr = idx / O;
-      gcs[idx] = (row0 + rr < N) ? g_c[(size_t)row0 * O + idx] : 0.f;
-    }
-    if (S > 1) {
-      for (int idx = tid; idx < (S - 1) * TN; idx += NT) {
-        const int s = idx / TN, rr = idx % TN;
-        gos[idx] = (row0 + rr < N) ? g_off[(size_t)s * N + row0 + rr] : 0.f;
+  int g = 0;                                 // ring chunks consumed
+  auto fetch = [&](int ga) {
+    const int q = ga % nch;
+    float* slot = ring + (ga % BSTAGE) * BWD_SLOT;
+    if (q < nko) {                           // W1^T rows o0.., 256 wide
+      const int o0 = q * KH, kn = min(KH, OK - o0);
+      for (int idx = tid; idx < kn * (HF / 4); idx += BWD_NT) {
+        const int r = idx / (HF / 4), c4 = (idx % (HF / 4)) * 4;
+        cp16(slot + r * HF + c4, w1t + (size_t)(o0 + r) * HF + c4);
+      }
+    } else {
+      const int p = (q - nko) / nhalf, q3 = (q - nko) % nhalf;
+      if (q3 < nkc) {                        // W0 rows k0.., half p
+        const int k0 = q3 * BKC, kn = min(BKC, XK - k0);
+        for (int idx = tid; idx < kn * 32; idx += BWD_NT) {
+          const int r = idx >> 5, c4 = (idx & 31) * 4;
+          cp16(slot + r * 128 + c4,
+               w0 + (size_t)(k0 + r) * HF + 128 * p + c4);
+        }
+      } else {                               // W0^T rows j0.., XF wide
+        const int j0 = 128 * p + (q3 - nkc) * BKC;
+        for (int idx = tid; idx < BKC * (XF / 4); idx += BWD_NT) {
+          const int r = idx / (XF / 4), c4 = (idx % (XF / 4)) * 4;
+          cp16(slot + r * XF + c4, w0t + (size_t)(j0 + r) * XF + c4);
+        }
       }
     }
+    cp_commit();
+  };
+  auto next_chunk = [&]() -> const float* {
+    cp_wait<BSTAGE - 2>();
     __syncthreads();
-    // ---- rebuild X ----------------------------------------------------
-    for (int idx = tid; idx < TN * C; idx += NT) {
-      const int rr = idx / C, c = idx % C;
-      const float* vr = Vs + rr * VW;
+    fetch(g + BSTAGE - 1);
+    return ring + (g++ % BSTAGE) * BWD_SLOT;
+  };
+  for (int q = 0; q < BSTAGE - 1; ++q) fetch(q);
+  // Start late by 0-98 us, spread over the blocks, so that the blocks'
+  // memory-bound phases (build, routing) and FMA-bound ones (z, dX) do not
+  // run in step across the card (measured: 8.70 -> 8.41 ms at B=2, 7.51 ->
+  // 6.94 ms at B=1, N=131,072, on an NVIDIA H100 80GB HBM3 at 700 W;
+  // bench/stencil_phases.py).
+  for (int w = (blockIdx.x * 37) % 64 * 100 / 64; w > 0; w -= 5)
+    __nanosleep(5000);
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * TR;
+    const size_t xr0 = (size_t)tile * S * TR;     // workspace row of (0, 0)
+    __syncthreads();                 // the last tile's readers of XT are done
+#ifndef SH_SKIP_TAPS
+    // ---- build: X^T from V, X to the workspace --------------------------
+    for (int q = warp; q < tap_groups(C); q += NW) {
+      int rr, c;
+      tap_item(q, lane, &rr, &c);
+      if (c >= C) continue;
+      const int row = row0 + rr;
+      const bool ok = row < N;
+      const float* vr = V + (size_t)row * VW + c;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         float pv[NPV], lv[NLV], x[S];
 #pragma unroll
-        for (int v = 0; v < NPV; ++v) pv[v] = vr[(i * NPV + v) * C + c];
+        for (int v = 0; v < NPV; ++v)
+          pv[v] = ok ? __ldg(vr + (i * NPV + v) * C) : 0.f;
 #pragma unroll
         for (int v = 0; v < NLV; ++v)
-          lv[v] = vr[3 * NPV * C + (i * NLV + v) * C + c];
+          lv[v] = ok ? __ldg(vr + 3 * NPV * C + (i * NLV + v) * C) : 0.f;
         x_products<F32, S>(i, pv, lv, x);
 #pragma unroll
-        for (int s = 0; s < S; ++s) Xs[(s * TN + rr) * XW + i * C + c] = x[s];
-      }
-    }
-    for (int idx = tid; idx < TN * E; idx += NT) {
-      const int rr = idx / E, e = idx % E;
-      fill_pe<T, S>(Xs, rr, e, C, E, XW, pe, rot, row0 + rr, N);
-    }
-    const int padw = XW - 3 * C - E;
-    for (int idx = tid; idx < S * TN * padw; idx += NT)
-      Xs[(idx / padw) * XW + 3 * C + E + idx % padw] = 0.f;
-
-    // ---- layer 0; X to the workspace ---------------------------------
-    float acc[S][JMAX];
-    layer0<S>(acc, Xs, Wc, H + 1, w0big, b0, XW, H, lane, warp, tid);
-    for (int idx = tid; idx < S * TN * XW; idx += NT)
-      xg[xrow0 * XW + idx] = Xs[idx];
-
-    // ---- softplus', layer 1 backward -> dz ---------------------------
-    float dh[JMAX];
-#pragma unroll
-    for (int c = 0; c < JMAX; ++c) dh[c] = 0.f;
-    for (int o = 0; o < O; ++o) {
-      const float g = gcs[zr * O + o];
-#pragma unroll
-      for (int c = 0; c < JMAX; ++c)
-        if (c < JN) dh[c] = fmaf(g, w1t[(size_t)o * H + lane + 32 * c], dh[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < JMAX; ++c) {
-      if (c < JN) {
-        const int j = lane + 32 * c;
-        const float w1r = (S > 1) ? w1row[j] : 0.f;
-#pragma unroll
         for (int s = 0; s < S; ++s) {
-          float h, sig, dz;
-          softplus100(100.f * acc[s][c], &h, &sig);
-          if (s == 0) {
-            hg[(size_t)(row0 + zr) * H + j] = h;
-            dz = dh[c] * sig;
-          } else {
-            const float go = gos[(s - 1) * TN + zr];
-            w1r_acc[c] = fmaf(h, go, w1r_acc[c]);
-            dz = go * w1r * sig;
-          }
-          db_acc[c] += dz;
-          dzs[(size_t)(s * TN + zr) * H + j] = dz;
-          dzg[(xrow0 + s * TN + zr) * H + j] = dz;
+          XT[(i * C + c) * MS + s * TR + rr] = x[s];
+          xg[(xr0 + s * TR + rr) * XF + i * C + c] = x[s];
         }
+      }
+    }
+    for (int idx = tid; idx < TR * E; idx += BWD_NT) {
+      const int rr = idx / E, e = idx % E;
+      float p0, pm3, pp3;
+      pe_row(pe, row0 + rr, N, e, E, &p0, &pm3, &pp3);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float x = pe_point<T>(s, e, E, p0, pm3, pp3, rot);
+        XT[(3 * C + e) * MS + s * TR + rr] = x;
+        xg[(xr0 + s * TR + rr) * XF + 3 * C + e] = x;
+      }
+    }
+#endif  // SH_SKIP_TAPS
+    // pad rows of X^T up to XK: zero (XT held dX last tile)
+    for (int idx = tid; idx < (XK - K0) * MT; idx += BWD_NT)
+      XT[(K0 + idx / MT) * MS + idx % MT] = 0.f;
+    // pad columns of X in the workspace: zero, the last one all ones
+#ifndef SH_SKIP_WORKSPACE
+    for (int idx = tid; idx < S * TR * (XF - K0); idx += BWD_NT) {
+      const int col = K0 + idx % (XF - K0);
+      xg[(xr0 + idx / (XF - K0)) * XF + col] = col == XF - 1 ? 1.f : 0.f;
+    }
+#endif
+    // the centre cotangent: g^T into Gs (zero past O and N), padded to OF
+    // columns in the workspace
+    for (int idx = tid; idx < TR * OF; idx += BWD_NT) {
+      const int r = idx / OF, o = idx % OF;
+      const int row = row0 + r;
+      const float v = (row < N && o < O) ? __ldg(g_c + (size_t)row * O + o)
+                                         : 0.f;
+      Gs[o * TR + r] = v;
+#ifndef SH_SKIP_WORKSPACE
+      gcg[((size_t)tile * TR + r) * OF + o] = v;
+#endif
+    }
+
+    // ---- dh = g.W1^T: 16 rows x HF as 4x4 blocks -> DH -------------------
+    {
+      const bool act = tid < (TR / 4) * (HF / 4);
+      const int hy = tid / (HF / 4), hx = tid % (HF / 4);
+      float dh[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dh[i][j] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < nko; ++kc) {
+        const float* W = next_chunk();
+#ifndef SH_SKIP_LAYER1
+        if (act)
+          fma_4x4(dh, Gs + kc * KH * TR, TR, hy * 4, W, HF, hx * 4,
+                  min(KH, OK - kc * KH));
+#endif
+      }
+      if (act) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          st4(DH + (hy * 4 + i) * HF + hx * 4, dh[i][0], dh[i][1], dh[i][2],
+              dh[i][3]);
       }
     }
 
-    // ---- dX = dz . W0^T -> Xs: warp = row (its S points), lanes = X
-    // columns; W0^T staged in Wc ----------------------------------------
-    float dx[S][KMAX];
+    float dx[4][9];                          // dX = dz.W0^T, both halves
 #pragma unroll
-    for (int s = 0; s < S; ++s)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int kk = 0; kk < KMAX; ++kk) dx[s][kk] = 0.f;
-    for (int j0 = 0; j0 < H; j0 += JC) {
-      __syncthreads();
-      for (int idx = tid; idx < XW * JC; idx += NT) {
-        const int k = idx / JC, jc = idx % JC;
-        Wc[jc * XWP + k] = w0big[(size_t)k * H + j0 + jc];
+      for (int j = 0; j < 9; ++j) dx[i][j] = 0.f;
+#pragma unroll 1
+    for (int p = 0; p < 2; ++p) {
+      // ---- z = X.W0 + b0 over the half ------------------------------------
+      float acc[4][8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float bj =
+            __ldg(b0 + 128 * p + (j < 4 ? cx * 4 + j : 64 + cx * 4 + j - 4));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = bj;
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int jc = 0; jc < JC; ++jc) {
-        float d[S];
+#pragma unroll 1
+      for (int kc = 0; kc < nkc; ++kc) {
+        const float* W = next_chunk();
+#ifndef SH_SKIP_Z
+        fma_4x8(acc, XT + kc * BKC * MS, MS, ry * 4, W, 128, cx * 4,
+                64 + cx * 4, min(BKC, XK - kc * BKC));
+#endif
+      }
+      // ---- softplus' -> dz; workspace; dz^T into D -----------------------
+      // (D's last readers, the previous half's dX, passed a ring barrier)
+      float w1p[8];                          // this half's dw1row terms
 #pragma unroll
-        for (int s = 0; s < S; ++s)
-          d[s] = dzs[(size_t)(s * TN + warp) * H + j0 + jc];
+      for (int j = 0; j < 8; ++j) w1p[j] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < KMAX; ++kk) {
-          const int k = lane + 32 * kk;
-          if (k < XW) {
-            const float w = Wc[jc * XWP + k];
+      for (int i = 0; i < 4; ++i) {
+        const int m = ry * 4 + i;
+        const int s = m / TR, r = m % TR, row = row0 + r;
+        const float go = (s >= 1 && s < S && row < N)
+                             ? __ldg(g_off + (size_t)(s - 1) * N + row)
+                             : 0.f;
+        float hv[8];
 #pragma unroll
-            for (int s = 0; s < S; ++s) dx[s][kk] = fmaf(d[s], w, dx[s][kk]);
+        for (int j = 0; j < 8; ++j) {
+          const int n = 128 * p + (j < 4 ? cx * 4 + j : 64 + cx * 4 + j - 4);
+          float h = acc[i][j], sig = 1.f, dz = 0.f;
+#ifndef SH_SKIP_SOFTPLUS
+          softplus100(100.f * acc[i][j], &h, &sig);
+#endif
+          hv[j] = h;
+          if (s == 0) {
+            dz = DH[r * HF + n] * sig;
+          } else if (s < S) {
+            w1p[j] = fmaf(h, go, w1p[j]);
+            dz = go * __ldg(w1row + n) * sig;
           }
+          acc[i][j] = dz;
         }
+#ifndef SH_SKIP_WORKSPACE
+        if (s == 0) {
+          float* hr = hg + ((size_t)tile * TR + r) * HF + 128 * p;
+          st4(hr + cx * 4, hv[0], hv[1], hv[2], hv[3]);
+          st4(hr + 64 + cx * 4, hv[4], hv[5], hv[6], hv[7]);
+        }
+        if (s < S) {
+          float* dr = dzg + (xr0 + m) * HF + 128 * p;
+          st4(dr + cx * 4, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          st4(dr + 64 + cx * 4, acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+#endif
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int nl = j < 4 ? cx * 4 + j : 64 + cx * 4 + j - 4;
+        st4(D + nl * MS + ry * 4, acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+        W1A[(p * 8 + j) * BWD_NT + tid] += w1p[j];
+      }
+      // ---- dX += dz.W0^T over the half ------------------------------------
+#pragma unroll 1
+      for (int kc = 0; kc < 128 / BKC; ++kc) {
+        const float* W = next_chunk();
+#ifndef SH_SKIP_DX
+        fma_4x9<BKC>(dx, D + kc * BKC * MS, MS, ry * 4, W, XF, cx * 4,
+                     64 + cx * 4, 128 + cx);
+#endif
       }
     }
-    // Xs was last read before the chunk loop's barriers: overwrite it
+    // ---- dX^T into XT (its readers, the second half's z, passed a ring
+    // barrier) ------------------------------------------------------------
 #pragma unroll
-    for (int kk = 0; kk < KMAX; ++kk) {
-      const int k = lane + 32 * kk;
-      if (k < XW) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) Xs[(s * TN + warp) * XW + k] = dx[s][kk];
-      }
+    for (int j = 0; j < 9; ++j) {
+      const int k = j < 4 ? cx * 4 + j : (j < 8 ? 64 + cx * 4 + j - 4
+                                                : 128 + cx);
+      st4(XT + k * MS + ry * 4, dx[0][j], dx[1][j], dx[2][j], dx[3][j]);
     }
     __syncthreads();
-    // ---- product rule + hat-weight routing ---------------------------
-    for (int idx = tid; idx < TN * C; idx += NT) {
-      const int rr = idx / C, c = idx % C;
+#ifndef SH_SKIP_TAPS
+    // ---- product rule + hat-weight routing -----------------------------
+    for (int q = warp; q < tap_groups(C); q += NW) {
+      int rr, c;
+      tap_item(q, lane, &rr, &c);
       const int row = row0 + rr;
-      if (row >= N) continue;
-      const float* vr = Vs + rr * VW;
+      if (c >= C || row >= N) continue;
+      const float* vr = V + (size_t)row * VW + c;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         float pv[NPV], lv[NLV], dxs[S], dPV[NPV], dLV[NLV];
 #pragma unroll
-        for (int v = 0; v < NPV; ++v) pv[v] = vr[(i * NPV + v) * C + c];
+        for (int v = 0; v < NPV; ++v) pv[v] = __ldg(vr + (i * NPV + v) * C);
 #pragma unroll
         for (int v = 0; v < NLV; ++v)
-          lv[v] = vr[3 * NPV * C + (i * NLV + v) * C + c];
+          lv[v] = __ldg(vr + 3 * NPV * C + (i * NLV + v) * C);
 #pragma unroll
-        for (int s = 0; s < S; ++s) dxs[s] = Xs[(s * TN + rr) * XW + i * C + c];
+        for (int s = 0; s < S; ++s) dxs[s] = XT[(i * C + c) * MS + s * TR + rr];
         product_rule<F32, S>(i, dxs, pv, lv, dPV, dLV);
 #pragma unroll
         for (int b = 0; b < B; ++b) {
-          const Frac q = load_frac(fr + (size_t)row * 2 * FS + b * FS, i);
-          float g[16], dline[4];
-          route_plane<F32, S>(dPV, q, g);
-          route_line<F32, S>(dLV, q, dline);
+          const Frac q2 = load_frac(fr + (size_t)row * 2 * FS + b * FS, i);
+          float gg[16], dline[4];
+          route_plane<F32, S>(dPV, q2, gg);
+          route_line<F32, S>(dLV, q2, dline);
           T* dp = (T*)dP.p[b * 3 + i] + (size_t)row * 16 * C + c;
 #pragma unroll
-          for (int k = 0; k < 16; ++k) dp[(size_t)k * C] = g[k];
+          for (int k = 0; k < 16; ++k) dp[(size_t)k * C] = gg[k];
           T* dl = (T*)dL.p[b * 3 + i] + (size_t)row * 4 * C + c;
 #pragma unroll
           for (int k = 0; k < 4; ++k) dl[(size_t)k * C] = dline[k];
         }
       }
     }
-    // ---- dpe: adjoint of the trig-addition PE offsets ----------------
-    for (int idx = tid; idx < TN * E; idx += NT) {
+    // ---- dpe: adjoint of the trig-addition PE offsets ------------------
+    for (int idx = tid; idx < TR * E; idx += BWD_NT) {
       const int rr = idx / E, e = idx % E;
       const int row = row0 + rr;
       if (row >= N) continue;
-      float a = Xs[rr * XW + 3 * C + e];
+      const float* P = XT + (3 * C) * MS + rr;    // dX^T of the PE columns
+      float a = P[e * MS];
       for (int s = 1; s < S; ++s) {
         const float* R = rot + (size_t)s * 4 * E;
         const int em = (e + E - 3) % E, ep = (e + 3) % E;
-        const float t0 = __fmul_rn(Xs[(s * TN + rr) * XW + 3 * C + e], R[e]);
-        const float t1 =
-            __fmul_rn(Xs[(s * TN + rr) * XW + 3 * C + em], R[E + em]);
-        const float t2 =
-            __fmul_rn(Xs[(s * TN + rr) * XW + 3 * C + ep], R[2 * E + ep]);
+        const float t0 = __fmul_rn(P[e * MS + s * TR], R[e]);
+        const float t1 = __fmul_rn(P[em * MS + s * TR], R[E + em]);
+        const float t2 = __fmul_rn(P[ep * MS + s * TR], R[2 * E + ep]);
         a = __fadd_rn(__fadd_rn(__fadd_rn(a, t0), t1), t2);
       }
       dpe[(size_t)row * E + e] = a;
     }
+#endif  // SH_SKIP_TAPS
   }
-  // ---- this thread's db0 / dw1row sums over its tiles ----------------
-  const size_t w = (size_t)blockIdx.x * TN + zr;
-#pragma unroll
-  for (int c = 0; c < JMAX; ++c) {
-    if (c < JN) {
-      const int j = lane + 32 * c;
-      p_db0[w * H + j] = db_acc[c];
-      p_dw1row[w * H + j] = w1r_acc[c];
-    }
+  cp_wait<0>();                              // never leave a copy in flight
+  // ---- this block's dw1row: the 28 row groups summed in order -----------
+  __syncthreads();
+  for (int n = tid; n < HF; n += BWD_NT) {
+    const int p = n >> 7, nl = n & 127;
+    const int j = (nl < 64 ? 0 : 4) + (nl & 3), c = (nl & 63) >> 2;
+    float t = 0.f;
+    for (int y = 0; y < MT / 4; ++y)
+      t += W1A[(p * 8 + j) * BWD_NT + y * 16 + c];
+    p_dw1row[(size_t)blockIdx.x * HF + n] = t;
   }
 }
 
-// part[z] = A[k0:k1]^T . B[k0:k1] for K chunk z = blockIdx.z of kchunk
-// rows; A [K, M] and B [K, Nc] row-major float32.
-__global__ void __launch_bounds__(256)
-stencil_bwd_atb_f32(int K, int M, int Nc, int kchunk,
-                    const float* __restrict__ A, const float* __restrict__ Bm,
-                    float* __restrict__ part) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
+// part[z] = A[k0:k1]^T . B[k0:k1][128x:128x+128] for the K chunk z =
+// blockIdx.y of kchunk rows and the column half x = blockIdx.x: A [K, XF]
+// and B [K, HF] row-major float32, part [nsplit, XF, HF].  A 144 x 128
+// output tile, 8x8 a thread (rows ty*4.., 72+ty*4..; columns tx*4..,
+// 64+tx*4..), both operands staged 32 rows at a time through a two-slot
+// cp.async ring (rows past the chunk are zero filled).
+__global__ void __launch_bounds__(f32k::ATB_NT, 2)
+stencil_bwd_atb_f32(int K, int kchunk, const float* __restrict__ A,
+                    const float* __restrict__ Bm, float* __restrict__ part) {
+  using namespace f32k;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [ASTAGE][ATB_SLOT]
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;   // 4 columns x 4 rows each
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int k_begin = blockIdx.z * kchunk;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int c0 = 128 * blockIdx.x;
+  const int k_begin = blockIdx.y * kchunk;
   const int k_end = min(K, k_begin + kchunk);
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < BK * BM / 256; ++q) {
-      const int idx = tid + 256 * q;
-      const int kk = idx / BM, mm = idx % BM;
-      const int k = k0 + kk;
-      As[kk][mm] =
-          (k < k_end && m0 + mm < M) ? A[(size_t)k * M + m0 + mm] : 0.f;
-      Bs[kk][mm] =
-          (k < k_end && n0 + mm < Nc) ? Bm[(size_t)k * Nc + n0 + mm] : 0.f;
+  const int n_it = (k_end - k_begin + AKC - 1) / AKC;
+  auto fetch = [&](int it) {
+    float* As = ring + (it % ASTAGE) * ATB_SLOT;
+    float* Bs = As + AKC * XF;
+    const int k0 = k_begin + it * AKC;
+    if (it < n_it) {
+      for (int idx = tid; idx < AKC * (XF / 4); idx += ATB_NT) {
+        const int r = idx / (XF / 4), c4 = (idx % (XF / 4)) * 4;
+        const bool ok = k0 + r < k_end;
+        cp16(As + r * XF + c4, ok ? A + (size_t)(k0 + r) * XF + c4 : A, ok);
+      }
+      for (int idx = tid; idx < AKC * 32; idx += ATB_NT) {
+        const int r = idx >> 5, c4 = (idx & 31) * 4;
+        const bool ok = k0 + r < k_end;
+        cp16(Bs + r * 128 + c4,
+             ok ? Bm + (size_t)(k0 + r) * HF + c0 + c4 : Bm, ok);
+      }
     }
+    cp_commit();
+  };
+  for (int q = 0; q < ASTAGE - 1; ++q) fetch(q);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+  for (int it = 0; it < n_it; ++it) {
+    cp_wait<ASTAGE - 2>();
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    fetch(it + ASTAGE - 1);
+    const float* As = ring + (it % ASTAGE) * ATB_SLOT;
+    fma_8x8(acc, As, XF, ty * 4, 72 + ty * 4, As + AKC * XF, 128, tx * 4,
+            64 + tx * 4, AKC);
   }
+  cp_wait<0>();
+  float* out = part + (size_t)blockIdx.y * XF * HF + c0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (m < M && n < Nc)
-        part[((size_t)blockIdx.z * M + m) * Nc + n] = acc[i][j];
-    }
+  for (int i = 0; i < 8; ++i) {
+    const int m = i < 4 ? ty * 4 + i : 72 + ty * 4 + i - 4;
+    st4(out + (size_t)m * HF + tx * 4, acc[i][0], acc[i][1], acc[i][2],
+        acc[i][3]);
+    st4(out + (size_t)m * HF + 64 + tx * 4, acc[i][4], acc[i][5], acc[i][6],
+        acc[i][7]);
   }
 }
 
@@ -857,7 +992,7 @@ namespace {
 // Workspace carve-up (byte offsets, each 256-aligned).
 struct Layout {
   int nblk, n_tiles, nblk_dw0, nblk_dw1;
-  size_t xg, dzg, hg, gcg, p_db0, p_dw1row, p_dw0, p_dw1, total;
+  size_t xg, dzg, hg, gcg, p_dw1row, p_dw0, p_dw1, total;
 };
 
 size_t take(size_t* off, size_t bytes) {
@@ -866,19 +1001,35 @@ size_t take(size_t* off, size_t bytes) {
   return at;
 }
 
-Layout layout_f32(int S, int n_sm, int N, int H, int O, int XW) {
+// float32: per tile X [S*TR, XF], dz [S*TR, HF], the centre h [TR, HF]
+// and cotangent [TR, OF]; one dw1row partial per block; the split-K
+// partials of dW0 and dW1^T [nsplit, XF, HF] each.
+int atb_splits(int n_sm, int K, int* kchunk) {
+  int ns = (K + 255) / 256;
+  if (ns > n_sm) ns = n_sm;
+  int kc = (K + ns - 1) / ns;
+  kc = (kc + f32k::AKC - 1) / f32k::AKC * f32k::AKC;
+  *kchunk = kc;
+  return (K + kc - 1) / kc;
+}
+
+Layout layout_f32(int S, int n_sm, int per_sm, int N) {
+  using namespace f32k;
   Layout L = {};
-  L.n_tiles = (N + TN - 1) / TN;
-  L.nblk = L.n_tiles < 2 * n_sm ? L.n_tiles : 2 * n_sm;
-  const size_t rows = (size_t)L.n_tiles * TN;
+  L.n_tiles = (N + TR - 1) / TR;
+  L.nblk = L.n_tiles < per_sm * n_sm ? L.n_tiles : per_sm * n_sm;
+  int kc;
+  L.nblk_dw0 = atb_splits(n_sm, L.n_tiles * S * TR, &kc);
+  L.nblk_dw1 = atb_splits(n_sm, L.n_tiles * TR, &kc);
+  const size_t rows = (size_t)L.n_tiles * TR;
   size_t off = 0;
-  L.xg = take(&off, rows * S * XW * 4);
-  L.dzg = take(&off, rows * S * H * 4);
-  L.hg = take(&off, rows * H * 4);
-  L.p_db0 = take(&off, (size_t)L.nblk * TN * H * 4);
-  L.p_dw1row = take(&off, (size_t)L.nblk * TN * H * 4);
-  L.p_dw0 = take(&off, (size_t)NSPLIT * XW * H * 4);
-  L.p_dw1 = take(&off, (size_t)NSPLIT * H * O * 4);
+  L.xg = take(&off, rows * S * XF * 4);
+  L.dzg = take(&off, rows * S * HF * 4);
+  L.hg = take(&off, rows * HF * 4);
+  L.gcg = take(&off, rows * OF * 4);
+  L.p_dw1row = take(&off, (size_t)L.nblk * HF * 4);
+  L.p_dw0 = take(&off, (size_t)L.nblk_dw0 * XF * HF * 4);
+  L.p_dw1 = take(&off, (size_t)L.nblk_dw1 * XF * HF * 4);
   L.total = off;
   return L;
 }
@@ -910,17 +1061,25 @@ cudaError_t colsum(int R, int W, const float* in, float* out,
   return cudaGetLastError();
 }
 
-cudaError_t atb_f32(int K, int M, int Nc, const float* A, const float* Bm,
+// out [XF, HF] = A^T . B over K rows (A [K, XF], B [K, HF]): split-K
+// partials, then their fixed-order column sums.
+cudaError_t atb_f32(int n_sm, int K, const float* A, const float* Bm,
                     float* part, float* out, cudaStream_t stream) {
-  int kchunk = (K + NSPLIT - 1) / NSPLIT;
-  kchunk = (kchunk + BK - 1) / BK * BK;
-  const int nsplit = (K + kchunk - 1) / kchunk;
-  const dim3 grid((M + BM - 1) / BM, (Nc + BN - 1) / BN, nsplit);
-  stencil_bwd_atb_f32<<<grid, 256, 0, stream>>>(K, M, Nc, kchunk, A, Bm,
-                                                part);
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stencil_bwd_atb_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)f32k::SMEM_ATB);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  int kchunk;
+  const int ns = atb_splits(n_sm, K, &kchunk);
+  stencil_bwd_atb_f32<<<dim3(f32k::HF / 128, ns), f32k::ATB_NT,
+                        f32k::SMEM_ATB, stream>>>(K, kchunk, A, Bm, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return colsum(nsplit, M * Nc, part, out, stream);
+  return colsum(ns, f32k::XF * f32k::HF, part, out, stream);
 }
 
 struct Args {
@@ -928,7 +1087,7 @@ struct Args {
   const float* fr;
   const void *V, *pe;
   const float* rot;
-  const void* w0;
+  const void *w0, *w0t;
   const float* b0;
   const void *w1, *w1row;
   const float *g_c, *g_off;
@@ -940,35 +1099,44 @@ struct Args {
 };
 
 template <int S, int B>
+int rows_per_sm_f32() {
+  static int per_sm = 0;                     // blocks per SM, asked once
+  if (per_sm == 0) {
+    int info[4];
+    if (f32k::kernel_info(stencil_bwd_rows_f32<S, B>, f32k::BWD_NT,
+                          f32k::SMEM_BWD, info) != 0)
+      return 0;
+    per_sm = info[0];
+  }
+  return per_sm;
+}
+
+template <int S, int B>
 cudaError_t launch_f32(const Args& a) {
-  const Layout L = layout_f32(S, a.n_sm, a.N, a.H, a.O, a.XW);
+  using namespace f32k;
+  const int per_sm = rows_per_sm_f32<S, B>();
+  if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+  const Layout L = layout_f32(S, a.n_sm, per_sm, a.N);
   float* xg = reinterpret_cast<float*>(a.ws + L.xg);
   float* dzg = reinterpret_cast<float*>(a.ws + L.dzg);
   float* hg = reinterpret_cast<float*>(a.ws + L.hg);
-  float* p_db0 = reinterpret_cast<float*>(a.ws + L.p_db0);
+  float* gcg = reinterpret_cast<float*>(a.ws + L.gcg);
   float* p_dw1row = reinterpret_cast<float*>(a.ws + L.p_dw1row);
-  const size_t smem = rows_smem_f32<S>(a.C, a.H, a.O, a.XW);
-  auto kern = stencil_bwd_rows_f32<S, B>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<L.nblk, NT, smem, a.stream>>>(
-      a.N, a.C, a.E, a.H, a.O, a.XW, a.fr, (const float*)a.V,
-      (const float*)a.pe, a.rot, (const float*)a.w0, a.b0,
+  stencil_bwd_rows_f32<S, B><<<L.nblk, BWD_NT, SMEM_BWD, a.stream>>>(
+      a.N, a.C, a.E, a.O, a.fr, (const float*)a.V, (const float*)a.pe,
+      a.rot, (const float*)a.w0, (const float*)a.w0t, a.b0,
       (const float*)a.w1, (const float*)a.w1row, a.g_c, a.g_off, a.dP, a.dL,
-      a.dpe, xg, dzg, hg, p_db0, p_dw1row);
-  err = cudaGetLastError();
+      a.dpe, xg, dzg, hg, gcg, p_dw1row);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int wr = L.nblk * TN;       // partial rows: (block, z row)
-  err = colsum(wr, a.H, p_db0, a.db0, a.stream);
+  err = colsum(L.nblk, HF, p_dw1row, a.dw1row, a.stream);
   if (err != cudaSuccess) return err;
-  err = colsum(wr, a.H, p_dw1row, a.dw1row, a.stream);
-  if (err != cudaSuccess) return err;
-  // dW0 over all S * n_tiles * TN workspace rows (pad rows carry dz = 0)
-  err = atb_f32(L.n_tiles * TN * S, a.XW, a.H, xg, dzg,
+  // dW0 (its last row is db0) over all S * 16 rows of every tile, and
+  // dW1^T over the centre rows; padding rows carry dz = 0 and g = 0
+  err = atb_f32(a.n_sm, L.n_tiles * S * TR, xg, dzg,
                 reinterpret_cast<float*>(a.ws + L.p_dw0), a.dw0, a.stream);
   if (err != cudaSuccess) return err;
-  return atb_f32(a.N, a.H, a.O, hg, a.g_c,
+  return atb_f32(a.n_sm, L.n_tiles * TR, gcg, hg,
                  reinterpret_cast<float*>(a.ws + L.p_dw1), a.dw1, a.stream);
 }
 
@@ -1019,12 +1187,18 @@ bool bad_shape(int dtype, int S, int B, int n_sm, int N, int C, int E, int H,
   if ((S != 1 && S != 7) || (B != 1 && B != 2) || N <= 0 || n_sm <= 0)
     return true;
   if (dtype == 0)
-    return H % 32 != 0 || H > 32 * JMAX || H % JC != 0 || XW % KC != 0 ||
-           XW > 32 * KMAX || 3 * C + E > XW;
+    return C < 1 || E < 1 || 3 * C + E >= f32k::XF || H > f32k::HF ||
+           O > f32k::OF || XW != f32k::XF;
   if (dtype == 1)
     return C % 4 != 0 || 3 * C + E >= XP || E > PEW || H > HP || O > OP ||
            XW != XP;
   return true;
+}
+
+int per_sm_f32(int S, int B) {
+  if (S == 7)
+    return B == 1 ? rows_per_sm_f32<7, 1>() : rows_per_sm_f32<7, 2>();
+  return B == 1 ? rows_per_sm_f32<1, 1>() : rows_per_sm_f32<1, 2>();
 }
 
 }  // namespace
@@ -1036,33 +1210,36 @@ extern "C" long long stencil_head_bwd_workspace(int dtype, int S, int B,
                                                 int E, int H, int O,
                                                 int XW) {
   if (bad_shape(dtype, S, B, n_sm, N, C, E, H, O, XW)) return 0;
-  return (long long)(dtype == 1 ? layout_bf16(S, n_sm, N)
-                                : layout_f32(S, n_sm, N, H, O, XW))
-      .total;
+  if (dtype == 1) return (long long)layout_bf16(S, n_sm, N).total;
+  const int per_sm = per_sm_f32(S, B);
+  return per_sm > 0 ? (long long)layout_f32(S, n_sm, per_sm, N).total : 0;
 }
 
-// dtype 0 = float32: w0 [XW, H], b0 [H], w1 = W1 transposed [O, H], w1row
-// [H] in float32; outputs dw0 [XW, H], db0 [H], dw1 [H, O], dw1row [H].
+// dtype 0 = float32: the padded operands of ops/stencil.py
+// pack_weights_f32: w0 [XF, HF], w0t = W0^T [HF, XF], b0 [HF], w1 = W1^T
+// [OF, HF], w1row [HF]; outputs dw0 [XF, HF] whose last row is db0 (db0
+// itself is not written), dw1 = dW1^T [XF, HF], dw1row [HF].
 // dtype 1 = bfloat16: w0 and w1 are the padded, tiled operands of
-// ops/stencil.py pack_weights_bf16, b0 and w1row [HP] float32, zero
-// padded; outputs dw0 = dW0^T [HP, XP] whose last column is db0 (db0
+// ops/stencil.py pack_weights_bf16, w0t unused, b0 and w1row [HP] float32,
+// zero padded; outputs dw0 = dW0^T [HP, XP] whose last column is db0 (db0
 // itself is not written), dw1 [HP, OP], dw1row [HP].  All outputs f32.
 // Returns a cudaError_t (0 = success).
 extern "C" int stencil_head_bwd(int dtype, int S, int B, int n_sm, int N,
                                 int C, int E, int H, int O, int XW,
                                 const float* fr, const void* V,
                                 const void* pe, const float* rot,
-                                const void* w0, const float* b0,
-                                const void* w1, const void* w1row,
-                                const float* g_c, const float* g_off,
-                                void* const* dP, void* const* dL, float* dpe,
+                                const void* w0, const void* w0t,
+                                const float* b0, const void* w1,
+                                const void* w1row, const float* g_c,
+                                const float* g_off, void* const* dP,
+                                void* const* dL, float* dpe,
                                 void* workspace, float* dw0, float* db0,
                                 float* dw1, float* dw1row, void* stream) {
   if (bad_shape(dtype, S, B, n_sm, N, C, E, H, O, XW))
     return (int)cudaErrorInvalidValue;
-  Args a = {n_sm, N,  C,     E,   H,   O,   XW,  fr,  V,      pe,
-            rot,  w0, b0,    w1,  w1row, g_c, g_off, {}, {}, dpe,
-            static_cast<char*>(workspace), dw0, db0, dw1, dw1row,
+  Args a = {n_sm, N,  C,   E,     H,   O,     XW, fr, V,  pe,
+            rot,  w0, w0t, b0,    w1,  w1row, g_c, g_off, {}, {},
+            dpe,  static_cast<char*>(workspace), dw0, db0, dw1, dw1row,
             (cudaStream_t)stream};
   for (int k = 0; k < 6; ++k) {
     a.dP.p[k] = k < 3 * B ? dP[k] : nullptr;
@@ -1077,5 +1254,25 @@ extern "C" int stencil_head_bwd(int dtype, int S, int B, int n_sm, int N,
   SH_CASE(1, 1);
   SH_CASE(1, 2);
 #undef SH_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// A float32 backward kernel's blocks per SM, registers a thread, local
+// (spill) bytes a thread and shared memory a block, into out[0..3]:
+// which 0 = the row kernel (S in {1, 7}, B in {1, 2}), 1 = the weight-
+// gradient product.  Returns a cudaError_t (0 = success).
+extern "C" int stencil_head_bwd_f32_info(int which, int S, int B, int* out) {
+  if (which == 1)
+    return f32k::kernel_info(stencil_bwd_atb_f32, f32k::ATB_NT,
+                             f32k::SMEM_ATB, out);
+#define SH_INFO(SS, BB)                                                      \
+  if (which == 0 && S == SS && B == BB)                                      \
+    return f32k::kernel_info(stencil_bwd_rows_f32<SS, BB>, f32k::BWD_NT,     \
+                             f32k::SMEM_BWD, out)
+  SH_INFO(7, 1);
+  SH_INFO(7, 2);
+  SH_INFO(1, 1);
+  SH_INFO(1, 2);
+#undef SH_INFO
   return (int)cudaErrorInvalidValue;
 }

@@ -44,8 +44,9 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
-    h = hashlib.sha256(' '.join(DEFINES).encode())
+def _lib_path(name: str, defines: Sequence[str] | None = None) -> str:
+    h = hashlib.sha256(' '.join(DEFINES if defines is None
+                                else defines).encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn.endswith(('.cu', '.cuh')):
             with open(os.path.join(CSRC, fn), 'rb') as f:
@@ -53,20 +54,26 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f'lib{name}_{h.hexdigest()[:12]}.so')
 
 
-def build(names: Sequence[str]):
+def build(names: Sequence[str],
+          variants: Sequence[Sequence[str]] | None = None):
     """Compile csrc/<name>.cu for every name not yet built, one nvcc per
-    source, all started together; nvcc's output goes to
-    build/kernels/<name>.log.  Raises with that output on failure."""
+    source (and per set of -D flags in `variants`, default: DEFINES alone),
+    all started together; nvcc's output goes to build/kernels/<name>.log
+    (<name>.<flags>.log for a measurement build).  Raises with that output
+    on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if os.path.exists(out):
-            continue
-        cmd = [_nvcc(), *NVCC_FLAGS, *DEFINES, '-o', out + '.tmp',
-               os.path.join(CSRC, name + '.cu')]
-        procs[name] = (out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    for defines in (variants if variants is not None else [DEFINES]):
+        for name in names:
+            out = _lib_path(name, defines)
+            if os.path.exists(out):
+                continue
+            cmd = [_nvcc(), *NVCC_FLAGS, *defines, '-o', out + '.tmp',
+                   os.path.join(CSRC, name + '.cu')]
+            tag = '.'.join([name] + [d[2:] if d.startswith('-D') else d
+                                     for d in defines])
+            procs[tag] = (out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     errors = []
     for name, (out, p) in procs.items():
         log, _ = p.communicate()

@@ -18,7 +18,9 @@ sdf column only at the 6 offset points.
     backward launches csrc/stencil_head_bwd.cu.  CUDA tensors only.
     bf16 patches take the wgmma kernels, which read their weights in the
     tensor cores' shared-memory operand layout (``tile_matrix``,
-    ``pack_weights_bf16``); anything else the float32 FMA kernels.
+    ``pack_weights_bf16``); anything else the float32 kernels
+    (register-blocked FMAs over weights streamed through shared memory,
+    zero padded by ``pack_weights_f32``).
   * ``stencil_head`` / ``point_head`` — the public wrappers: the plain
     version for CPU tensors, the kernels for CUDA tensors (no fallback).
 
@@ -72,11 +74,6 @@ def _stencil_mapping():
 
 MAPPING7 = _stencil_mapping()
 MAPPING1 = (((0, 0), (0, 0), (0, 0)),)
-
-
-def xw(C: int, E: int) -> int:
-    """X row width: 3 plane products + PE, padded to a multiple of 16."""
-    return -(-(3 * C + E) // 16) * 16
 
 
 def vw(S: int, C: int) -> int:
@@ -146,6 +143,104 @@ def workspace_bytes_bf16(S: int, n_sm: int, n: int) -> int:
     pieces = [tiles * MR * XP * 2, tiles * MR * HP * 2, tiles * tn * HP * 2,
               tiles * tn * OP * 2, blocks * HP * 4, blocks * HP * XP * 4,
               blocks_dw1 * HP * OP * 4]
+    return sum(-(-p // 256) * 256 for p in pieces)
+
+
+# Widths the float32 kernels are built for (csrc/stencil_f32.cuh): hidden
+# width, X row width (3C+E < F32_XP: the backward's workspace X carries a
+# ones column last, whose dW0 row is db0), layer-1 width; rows of the
+# head's input per tile and X rows per tile (16 rows x 7 stencil points;
+# S=1 uses the first 16); threads and row pitch of the transposed X / dz /
+# dX tiles in shared memory; weight rows per ring chunk and ring slots.
+F32_HP, F32_XP, F32_OP = 256, 144, 144
+F32_TR, F32_MT, F32_MS = 16, 112, 116
+F32_FKC, F32_FSTAGE = 24, 2          # forward ring: rows a chunk, slots
+F32_BKC, F32_BSTAGE = 32, 2          # backward ring
+F32_AKC, F32_ASTAGE = 32, 2          # weight-gradient ring
+F32_THREADS = {'fwd': 448, 'bwd': 448, 'atb': 288}
+# blocks per SM the kernels are built for (__launch_bounds__); the card's
+# own count comes from stencil_head_{fwd,bwd}_f32_info
+F32_BLOCKS_PER_SM = {'fwd': 2, 'bwd': 1, 'atb': 2}
+SMEM_PER_SM = 233472         # bytes of shared memory an H100 SM holds
+SMEM_PER_BLOCK = 232448      # the most one block may ask for
+SMEM_RESERVED = 1024         # the runtime's own share of each block
+
+
+def pack_weights_f32(w0, b0, w1):
+    """The float32 kernels' weight operands from W0 [3C+E, H], b0 [H] and
+    W1 [H, O]: (W0 zero padded to [F32_XP, F32_HP], b0 [F32_HP], W1 zero
+    padded to [F32_HP, F32_OP], column 0 of W1 [F32_HP]), all float32.
+    Zero pads change nothing: a pad column of z meets a zero row of W1 and
+    a zero w1row entry, a pad column of X a zero row of W0."""
+    k0, h = w0.shape
+    o = w1.shape[1]
+    if k0 >= F32_XP or h > F32_HP or o > F32_OP:
+        raise ValueError(f'stencil head (float32 kernels): 3C+E={k0} must be '
+                         f'< {F32_XP}, H={h} <= {F32_HP}, O={o} <= {F32_OP}')
+    f = torch.float32
+    w0p = w0.new_zeros((F32_XP, F32_HP), dtype=f)
+    w0p[:k0, :h] = w0.to(f)
+    w1p = w1.new_zeros((F32_HP, F32_OP), dtype=f)
+    w1p[:h, :o] = w1.to(f)
+    b0p = b0.new_zeros((F32_HP,), dtype=f)
+    b0p[:h] = b0.to(f)
+    return w0p, b0p, w1p, w1p[:, 0].contiguous()
+
+
+def f32_tiles(n: int) -> int:
+    """Row tiles of the float32 kernels over n rows (the last one ragged)."""
+    return -(-n // F32_TR)
+
+
+def f32_grid(kernel: str, n_sm: int, n: int,
+             per_sm: int | None = None) -> int:
+    """Persistent blocks of a float32 row kernel ('fwd' or 'bwd'): one per
+    tile, at most per_sm (default: what the kernel is built for) a SM."""
+    per_sm = F32_BLOCKS_PER_SM[kernel] if per_sm is None else per_sm
+    return min(f32_tiles(n), per_sm * n_sm)
+
+
+def f32_splits(n_sm: int, k: int):
+    """(splits, rows per split) of a float32 weight-gradient product over
+    k rows: about 256 rows or more a split, at most one split per SM, each
+    a multiple of the ring's 32 rows."""
+    ns = min(-(-k // 256), n_sm)
+    chunk = -(-(-(-k // ns)) // F32_AKC) * F32_AKC
+    return -(-k // chunk), chunk
+
+
+def f32_smem_bytes(kernel: str) -> int:
+    """Dynamic shared memory of a float32 kernel, as stencil_f32.cuh sizes
+    it: fwd X^T [XP, MS], two W0/W1 chunks of [24, OP], the centre h^T
+    [HP, TR]; bwd X^T / dX^T [XP, MS], one half's dz^T [128, MS], two
+    chunks of [32, XP], the centre cotangent^T [OP, TR], dh [TR, HP] and
+    each thread's 16 dw1row sums; atb two A and B chunks
+    of [32, XP] and [32, 128]."""
+    bring = F32_BSTAGE * F32_BKC
+    floats = {
+        'fwd': F32_XP * F32_MS + F32_FSTAGE * F32_FKC * F32_OP
+        + F32_HP * F32_TR,
+        'bwd': (F32_XP + 128) * F32_MS + bring * F32_XP + F32_OP * F32_TR
+        + F32_TR * F32_HP + 16 * F32_THREADS['bwd'],
+        'atb': F32_ASTAGE * F32_AKC * (F32_XP + 128)}[kernel]
+    return 4 * floats
+
+
+def workspace_bytes_f32(S: int, n_sm: int, n: int,
+                        per_sm: int | None = None) -> int:
+    """Bytes of the float32 backward's workspace, as
+    csrc/stencil_head_bwd.cu lays it out: per tile X [S*TR, XP], dz
+    [S*TR, HP], the centre h [TR, HP] and cotangent [TR, OP], then one
+    dw1row partial [HP] per row block and the split-K partials of dW0 and
+    dW1^T [splits, XP, HP]; each piece padded to 256 bytes."""
+    tiles = f32_tiles(n)
+    rows = tiles * F32_TR
+    blocks = f32_grid('bwd', n_sm, n, per_sm)
+    part = F32_XP * F32_HP * 4
+    pieces = [rows * S * F32_XP * 4, rows * S * F32_HP * 4,
+              rows * F32_HP * 4, rows * F32_OP * 4, blocks * F32_HP * 4,
+              f32_splits(n_sm, rows * S)[0] * part,
+              f32_splits(n_sm, rows)[0] * part]
     return sum(-(-p // 256) * 256 for p in pieces)
 
 
@@ -290,7 +385,7 @@ def stencil_head_plain(pp, lp, fr, sigmas, pe_c, rot, w0_parts, b0, w1, b1,
 # ---------------------------------------------------------------------------
 
 _FWD_ARGS = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 13
-_BWD_ARGS = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 19
+_BWD_ARGS = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 20
 
 
 def _lib(name, argtypes):
@@ -372,7 +467,6 @@ class StencilHead(torch.autograd.Function):
         w0_parts = rest[6 * B:]
         n, E = pe.shape
         H, O = w1.shape
-        XW = xw(C, E)
         dev = fr.device
         _check_shapes(S, B, C, n, E, H, O, pp, lp, fr, rot, w0_parts, b0)
         pp = [p.to(cd).contiguous() for p in pp]
@@ -385,12 +479,8 @@ class StencilHead(torch.autograd.Function):
             xw_k = XP
             w0_op, b0f, w1_op, w1row = pack_weights_bf16(w0, b0, w1)
         else:
-            xw_k = XW
-            w0_op = torch.cat([w0, w0.new_zeros((XW - w0.shape[0], H))],
-                              dim=0).contiguous()
-            b0f = b0.float().contiguous()
-            w1_op = w1.to(cd).contiguous()
-            w1row = w1_op[:, 0].contiguous()
+            xw_k = F32_XP
+            w0_op, b0f, w1_op, w1row = pack_weights_f32(w0, b0, w1)
         out_c = torch.empty((n, O), dtype=torch.float32, device=dev)
         out_off = torch.empty((max(S - 1, 1), n), dtype=torch.float32,
                               device=dev)
@@ -434,8 +524,10 @@ class StencilHead(torch.autograd.Function):
         else:
             g_off = torch.zeros((max(S - 1, 1), n), dtype=torch.float32,
                                 device=dev)
+        w0t = None
         if not bf:
-            w1_op = w1_op.t().contiguous()          # [O, H]
+            w0t = w0_op.t().contiguous()            # [F32_HP, F32_XP]
+            w1_op = w1_op.t().contiguous()          # W1^T [F32_OP, F32_HP]
         dP = [torch.empty((n, 16 * C), dtype=cd, device=dev)
               for _ in range(3 * B)]
         dL = [torch.empty((n, 4 * C), dtype=cd, device=dev)
@@ -447,19 +539,22 @@ class StencilHead(torch.autograd.Function):
         if ws_bytes <= 0:
             raise ValueError(f'stencil_head_bwd: unsupported shape {shape}')
         workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
-        # bf16: dW0 comes transposed and padded, db0 as its last column
-        hk = HP if bf else H
-        dw0 = torch.empty((HP, XP) if bf else (xw_k, H), dtype=torch.float32,
+        # bf16: dW0 comes transposed and padded, db0 as its last column;
+        # float32: dW0 padded, db0 as its last row, and dW1 transposed
+        f32 = torch.float32
+        dw0 = torch.empty((HP, XP) if bf else (F32_XP, F32_HP), dtype=f32,
                           device=dev)
-        db0 = torch.empty((hk,), dtype=torch.float32, device=dev)
-        dw1 = torch.empty((hk, OP if bf else O), dtype=torch.float32,
+        db0 = torch.empty((HP if bf else F32_HP,), dtype=f32, device=dev)
+        dw1 = torch.empty((HP, OP) if bf else (F32_OP, F32_HP), dtype=f32,
                           device=dev)
-        dw1row = torch.empty((hk,), dtype=torch.float32, device=dev)
-        _check_cuda([g_c, g_off, w1_op], 'stencil_head_bwd')
+        dw1row = torch.empty((HP if bf else F32_HP,), dtype=f32, device=dev)
+        _check_cuda([g_c, g_off, w1_op] + ([w0t] if w0t is not None else []),
+                    'stencil_head_bwd')
         pa, la = _ptr_array(dP), _ptr_array(dL)
         err = lib.stencil_head_bwd(
             *shape, fr32.data_ptr(), v.data_ptr(), pe_cd.data_ptr(),
-            rot32.data_ptr(), w0_op.data_ptr(), b0f.data_ptr(),
+            rot32.data_ptr(), w0_op.data_ptr(),
+            w0t.data_ptr() if w0t is not None else None, b0f.data_ptr(),
             w1_op.data_ptr(), w1row.data_ptr(), g_c.data_ptr(),
             g_off.data_ptr(), ctypes.addressof(pa), ctypes.addressof(la),
             dpe.data_ptr(), workspace.data_ptr(), dw0.data_ptr(),
@@ -470,6 +565,10 @@ class StencilHead(torch.autograd.Function):
             db0 = dw0[:H, XP - 1]
             dw0 = dw0[:H].t()
             dw1, dw1row = dw1[:H, :O].contiguous(), dw1row[:H]
+        else:
+            db0 = dw0[F32_XP - 1, :H]
+            dw0 = dw0[:, :H]
+            dw1, dw1row = dw1[:O, :H].t().contiguous(), dw1row[:H]
         if S > 1:
             dw1[:, 0] += dw1row
         dw0_parts, off = [], 0

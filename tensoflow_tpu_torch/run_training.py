@@ -43,13 +43,16 @@ def main(argv=None):
     # source snapshot for reproducibility (ref: trainer_inv.py:385-395)
     rec_dir = os.path.join(model_dir, 'recording')
     os.makedirs(rec_dir, exist_ok=True)
-    shutil.copyfile(args.cfg, os.path.join(rec_dir, 'config.yaml'))
-    pkg = os.path.dirname(os.path.abspath(__file__))
-    dst = os.path.join(rec_dir, 'tensoflow_tpu_torch')
-    if os.path.isdir(dst):
-        shutil.rmtree(dst)
-    shutil.copytree(pkg, dst, ignore=shutil.ignore_patterns(
-        '__pycache__', 'assets'))
+    try:
+        shutil.copyfile(args.cfg, os.path.join(rec_dir, 'config.yaml'))
+        pkg = os.path.dirname(os.path.abspath(__file__))
+        dst = os.path.join(rec_dir, 'tensoflow_tpu_torch')
+        if os.path.isdir(dst):
+            shutil.rmtree(dst)
+        shutil.copytree(pkg, dst, ignore=shutil.ignore_patterns(
+            '__pycache__', 'assets'))
+    except OSError as e:
+        print(f'[recording] skipped: {e}')
 
     if cfg.get('network', 'shape') == 'material' or cfg.get('isMaterial'):
         from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer

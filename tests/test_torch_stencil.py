@@ -140,7 +140,7 @@ def test_pe_rot_layout_and_mapping():
     assert pst.MAPPING7 == ps.MAPPING7
     assert pst.MAPPING1 == ps.MAPPING1
     assert pst.vw(7, 36) == ps._vw(7, 36)
-    assert pst.xw(36, 21) == 144 and pst.xw(36, 21) % 16 == 0
+    assert 3 * 36 + 21 < pst.XP == pst.F32_XP == 144
 
 
 # ---------------------------------------------------------------------------
@@ -242,3 +242,148 @@ def test_bf16_tiles_and_workspace_sizing(S, n):
     # one more row never shrinks it; a full extra tile grows it
     assert pst.workspace_bytes_bf16(S, n_sm, n + 1) >= total
     assert pst.workspace_bytes_bf16(S, n_sm, n + tn) > total
+
+
+# ---------------------------------------------------------------------------
+# host-side layouts of the float32 kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('C,E,H,O', [(36, 21, 256, 129), (16, 21, 128, 65),
+                                     (4, 5, 8, 3), (2, 3, 16, 9)])
+def test_pack_weights_f32_round_trips(C, E, H, O):
+    """The padded float32 operands hold the weights at their plain
+    positions, zeros elsewhere; a padded X row (ones in the last column)
+    through them gives the plain z and head outputs, its ones column turns
+    the dW0 product into db0, and the transposed dW1 product is dW1."""
+    rng = np.random.RandomState(C + H)
+    k0 = 3 * C + E
+    w0 = torch.tensor(rng.randn(k0, H).astype(np.float32))
+    b0 = torch.tensor(rng.randn(H).astype(np.float32))
+    w1 = torch.tensor(rng.randn(H, O).astype(np.float32))
+    w0p, b0p, w1p, w1row = pst.pack_weights_f32(w0, b0, w1)
+    assert w0p.shape == (pst.F32_XP, pst.F32_HP) and w0p.dtype == torch.float32
+    assert w1p.shape == (pst.F32_HP, pst.F32_OP) and b0p.shape == (pst.F32_HP,)
+    assert torch.equal(w0p[:k0, :H], w0) and torch.equal(w1p[:H, :O], w1)
+    assert torch.equal(b0p[:H], b0) and torch.equal(w1row[:H], w1[:, 0])
+    assert float(w0p[k0:].abs().sum() + w0p[:, H:].abs().sum()) == 0
+    assert float(w1p[H:].abs().sum() + w1p[:, O:].abs().sum()) == 0
+    assert float(b0p[H:].abs().sum() + w1row[H:].abs().sum()) == 0
+    x = torch.tensor(rng.randn(6, k0).astype(np.float32))
+    xp = torch.zeros(6, pst.F32_XP)
+    xp[:, :k0] = x
+    xp[:, pst.F32_XP - 1] = 1.0
+    z = (xp.double() @ w0p.double() + b0p.double())
+    np.testing.assert_allclose(z[:, :H].numpy(),
+                               (x.double() @ w0.double() + b0.double()).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    h = torch.nn.functional.softplus(z, beta=100)
+    np.testing.assert_allclose((h @ w1p.double())[:, :O].numpy(),
+                               (h[:, :H] @ w1.double()).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose((h @ w1row.double()).numpy(),
+                               (h[:, :H] @ w1[:, 0].double()).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    dz = torch.tensor(rng.randn(6, pst.F32_HP)).double()
+    dw0 = xp.double().t() @ dz                      # [XP, HP]
+    np.testing.assert_allclose(dw0[pst.F32_XP - 1].numpy(),
+                               dz.sum(0).numpy(), rtol=1e-12)
+    g = torch.zeros(6, pst.F32_OP).double()
+    g[:, :O] = torch.tensor(rng.randn(6, O))
+    dw1t = g.t() @ h                                # dW1^T [OP, HP]
+    np.testing.assert_allclose(dw1t[:O, :H].t().numpy(),
+                               (h[:, :H].t() @ g[:, :O]).numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize('widths', [dict(k0=144, h=256, o=129),
+                                    dict(k0=129, h=264, o=129),
+                                    dict(k0=129, h=256, o=145)])
+def test_pack_weights_f32_refuses_what_the_kernels_do_not_take(widths):
+    with pytest.raises(ValueError):
+        pst.pack_weights_f32(torch.zeros(widths['k0'], widths['h']),
+                             torch.zeros(widths['h']),
+                             torch.zeros(widths['h'], widths['o']))
+
+
+@pytest.mark.parametrize('S', [1, 7])
+@pytest.mark.parametrize('n', [1, 520, 1003, 131072])
+def test_f32_tiles_and_workspace_sizing(S, n):
+    """Row tiles of 16 cover a ragged N; the persistent grids never exceed
+    the tiles; the workspace holds, per tile, X, dz, the centre h and
+    cotangent, one dw1row partial per row block and the split-K partials
+    of dW0 and dW1^T, whose splits cover every row once."""
+    tn = pst.F32_TR
+    assert tn * 7 == pst.F32_MT
+    tiles = pst.f32_tiles(n)
+    assert (tiles - 1) * tn < n <= tiles * tn
+    n_sm = 132
+    for kern, per_sm in (('fwd', 2), ('bwd', 1)):
+        grid = pst.f32_grid(kern, n_sm, n)
+        assert grid == min(tiles, per_sm * n_sm)
+        assert pst.f32_grid(kern, n_sm, n, per_sm=1) <= grid
+    for k in (tiles * tn, tiles * tn * S):
+        splits, chunk = pst.f32_splits(n_sm, k)
+        assert chunk % pst.F32_AKC == 0 and splits <= n_sm
+        assert (splits - 1) * chunk < k <= splits * chunk
+    total = pst.workspace_bytes_f32(S, n_sm, n)
+    assert total % 256 == 0
+    per_tile = 4 * tn * (S * pst.F32_XP + S * pst.F32_HP + pst.F32_HP
+                         + pst.F32_OP)
+    part = 4 * pst.F32_XP * pst.F32_HP
+    partials = (4 * pst.F32_HP * pst.f32_grid('bwd', n_sm, n)
+                + part * (pst.f32_splits(n_sm, tiles * tn * S)[0]
+                          + pst.f32_splits(n_sm, tiles * tn)[0]))
+    assert tiles * per_tile + partials <= total
+    assert total < tiles * per_tile + partials + 7 * 256
+    assert pst.workspace_bytes_f32(S, n_sm, n + 1) >= total
+    assert pst.workspace_bytes_f32(S, n_sm, n + tn) > total
+
+
+def test_f32_shared_memory_fits_the_blocks_per_sm():
+    """Each float32 kernel's shared memory fits one block's limit, and the
+    blocks per SM it is built for fit the SM (the runtime keeps 1 KB of
+    each block); the X tile takes the published widths (C=36, E=21,
+    3C+E=129) and the toy ones the tests use (C=16 / 4 / 2)."""
+    for kern in ('fwd', 'bwd', 'atb'):
+        smem = pst.f32_smem_bytes(kern)
+        assert smem <= pst.SMEM_PER_BLOCK
+        assert (pst.F32_BLOCKS_PER_SM[kern] * (smem + pst.SMEM_RESERVED)
+                <= pst.SMEM_PER_SM), kern
+    assert pst.f32_smem_bytes('fwd') == 110848
+    assert pst.f32_smem_bytes('bwd') == 217344
+    for C, E in ((36, 21), (16, 21), (4, 5), (2, 3)):
+        assert 3 * C + E < pst.F32_XP
+    # 16 rows x 7 points fill the tile: 28 row groups of 4 rows, 16 column
+    # groups, the threads the row kernels are built for
+    assert pst.F32_MT // 4 * 16 == pst.F32_THREADS['fwd']
+    assert pst.F32_MT // 4 * 16 == pst.F32_THREADS['bwd']
+    assert pst.F32_XP // 8 * 16 == pst.F32_THREADS['atb']
+    assert pst.F32_MS % 4 == 0 and pst.F32_MS >= pst.F32_MT
+
+
+@pytest.mark.cuda
+def test_f32_sizing_matches_the_library_on_the_card():
+    """The card runs the float32 kernels at the blocks per SM they are
+    built for, without spills, and the library allocates the workspace
+    workspace_bytes_f32 documents."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (run: python3 chip_smoke.py)')
+    import ctypes
+    lib = pst._lib('stencil_head_bwd', pst._BWD_ARGS)
+    fwd = pst._lib('stencil_head_fwd', pst._FWD_ARGS)
+    n_sm = pst._n_sm(torch.device('cuda'))
+    for S in (1, 7):
+        for B in (1, 2):
+            buf = (ctypes.c_int * 4)()
+            assert fwd.stencil_head_fwd_f32_info(S, B, buf) == 0
+            assert (buf[0], buf[2], buf[3]) == (
+                pst.F32_BLOCKS_PER_SM['fwd'], 0, pst.f32_smem_bytes('fwd'))
+            assert lib.stencil_head_bwd_f32_info(0, S, B, buf) == 0
+            assert (buf[0], buf[2], buf[3]) == (
+                pst.F32_BLOCKS_PER_SM['bwd'], 0, pst.f32_smem_bytes('bwd'))
+            for n in (1, 520, 1003, 131072):
+                assert lib.stencil_head_bwd_workspace(
+                    0, S, B, n_sm, n, 36, 21, 256, 129, pst.F32_XP) \
+                    == pst.workspace_bytes_f32(S, n_sm, n)
+    assert lib.stencil_head_bwd_f32_info(1, 0, 0, buf) == 0
+    assert (buf[0], buf[2], buf[3]) == (
+        pst.F32_BLOCKS_PER_SM['atb'], 0, pst.f32_smem_bytes('atb'))
