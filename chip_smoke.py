@@ -81,13 +81,29 @@ every later launch of the process):
                configs/mat/syn/compressor.yaml (512 + 256 analytic and
                64 + 32 flow samples, 512^3 field grids, 256^3 bake, 2048
                rays, bf16 estimator) runs init_dataset and 12 steps across
-               its three phases (no NIS, NIS loss, NIS sampling); then
-               one profiled step.  The cuts are the database and the NIS
-               schedule, both printed.
+               its three phases (no NIS, NIS loss, NIS sampling).  Then
+               its evaluation: render_image of the held-out view (the
+               toy split's, split_manul false) in chunks of 512 (s/view,
+               rays/s, PSNR of both variants, hit share, one stencil
+               forward a chunk) and validate(); the stencil forward on
+               the render's own N = 512 inputs (the first chunk and a
+               padded last one) against its plain version, timed beside
+               a chunk; env_light_image at 256x512;
+               predict_vertex_materials on the checkpoint's mesh at
+               128^3.  A 16x16 render of the small configuration on the
+               card against the CPU (both variants, hit pixels).  The
+               lights sub-phase: configs/mat/syn/lego.yaml ('direction')
+               and configs/mat/custom/shoe.yaml ('sphere_direction' +
+               human lights) at their widths on the same checkpoint, 12
+               steps across the NIS phases, the light MLPs moved by the
+               first step, one validated view.  Last, one profiled step
+               and one profiled render chunk.  The cuts are the database
+               and the NIS schedule, both printed.
 Then it prints the card's name and power limit, one JSON line listing
 every hand-written kernel (the stencil kernels with their float32 B=2
 figures, the shape of 80 % of a published run, and their launches in
-phase 3c, the other instantiations and phase 3b's launches beside them),
+phase 3c, the other instantiations and the launches of phase 3b and of
+phase 5's render beside them),
 and as the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
 exits nonzero and prints no result.
@@ -638,16 +654,20 @@ def check_slice_small(steps=2):
           f'{_losses(logs)}', flush=True)
 
 
-def profile_step(trainer, card, step_ms, top=12, tag='slice'):
-    """One more training step under torch.profiler: device time by
-    kernel, kernel launches, the host's busiest operators, and the
+def profile_step(trainer, card, step_ms, top=12, tag='slice', run=None,
+                 what='step'):
+    """One more training step (or ``run()``) under torch.profiler: device
+    time by kernel, kernel launches, the host's busiest operators, and the
     device's idle share of an unprofiled step (step_ms)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
-        trainer.train(n_steps=1, log_every=1)
+        if run is None:
+            trainer.train(n_steps=1, log_every=1)
+        else:
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, host = [], []
@@ -667,14 +687,18 @@ def profile_step(trainer, card, step_ms, top=12, tag='slice'):
     rows.sort(reverse=True)
     host.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f'[{tag}] profiled step on {card}: wall {wall_ms:.1f} ms '
+    print(f'[{tag}] profiled {what} on {card}: wall {wall_ms:.1f} ms '
           f'(unprofiled {step_ms:.1f} ms), device kernels {busy_ms:.1f} ms '
           f'in {sum(r[1] for r in rows)} launches, idle share of the '
-          f'unprofiled step {max(0.0, 1 - busy_ms / step_ms):.2f}',
+          f'unprofiled {what} {max(0.0, 1 - busy_ms / step_ms):.2f}',
           flush=True)
     for dev_us, count, key in rows[:top]:
         print(f'[{tag}]   device {dev_us / 1e3:8.3f} ms  x{count:<4d} '
               f'{key[:80]}')
+    for dev_us, count, key in rows[top:]:
+        if 'stencil_' in key:      # the hand-written kernels, wherever
+            print(f'[{tag}]   device {dev_us / 1e3:8.3f} ms  x{count:<4d} '
+                  f'{key[:80]}')
     for cpu_us, count, key in host[:top // 2]:
         print(f'[{tag}]   host   {cpu_us / 1e3:8.3f} ms  x{count:<4d} '
               f'{key[:80]}')
@@ -742,24 +766,26 @@ SCHEDULE_CUTS = ['database_name=toy/sphere_128_12', 'gather_dtype=bfloat16',
 
 class HeadSpy:
     """Records the mip-branch count B of every stencil-head kernel call
-    and, when ``capture_next`` is set, a copy of the next call's inputs; it
-    wraps StencilHead.apply and launches nothing itself."""
+    and, when ``capture_next`` is set (or at the call of index
+    ``capture_at``), a copy of that call's inputs; it wraps
+    StencilHead.apply and launches nothing itself."""
 
-    def __init__(self):
+    def __init__(self, capture_at=None):
         from tensoflow_tpu_torch.ops import stencil as st
         self.st = st
         self.bs, self.dtypes = [], []
         self.capture_next, self.captured = False, None
+        self.capture_at = capture_at
 
     def __enter__(self):
         orig = self.st.StencilHead.apply
 
         def apply(static, *args):
-            self.bs.append(static[1])
-            self.dtypes.append(static[3])
-            if self.capture_next:
+            if self.capture_next or self.capture_at == len(self.bs):
                 self.captured = (static, [t.detach().clone() for t in args])
                 self.capture_next = False
+            self.bs.append(static[1])
+            self.dtypes.append(static[3])
             return orig(static, *args)
         self.st.StencilHead.apply = apply
         return self
@@ -1317,6 +1343,58 @@ def check_stage2_small():
           f'on the card match the CPU (worst term rel err {worst:.2e}, tol '
           f'1e-4 then 2e-2); card {json.dumps({k: round(v, 6) for k, v in logs["cuda"][-1].items()})}',
           flush=True)
+    check_render_small(card, ref)
+
+
+# render_image, card against CPU: pixels whose primary hit may differ (a
+# depth at a threshold of the sphere trace), and on the pixels both sides
+# hit, the largest and the mean |card - CPU| of rgb_pr and rgb_pr_nis: one
+# secondary ray of a pixel's 48 + 24 that the budgeted trace classifies
+# the other way moves its colour by up to ~1/48 of a light's value
+RENDER_HIT_ALLOWANCE = 3
+RENDER_TOL = {'max': 5e-2, 'mean': 1e-3}
+
+
+def check_render_small(card, ref):
+    """render_image of a 16x16 view (the 32x32 toy view through a K scaled
+    by 1/2) on the card (the stencil forward kernel in the primary trace's
+    normal) and on the CPU (its plain version), with the same parameters
+    and frozen flow copies (the card trainer's, copied); both variants
+    compared on the pixels both sides hit.  Evaluation draws nothing."""
+    import numpy as np
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.train.checkpoints import tree_map
+    ref.set_params(tree_map(lambda t: t.detach().cpu().clone(), card.params))
+    ref.flow_copies = tree_map(lambda t: t.cpu().clone(), card.flow_copies)
+    db, vid = ref.database, ref.train_ids[0]
+    K = np.diag([0.5, 0.5, 1.0]).astype(np.float32) @ db.get_K(vid)
+    st.reset_launches()
+    out = card.render_image(db.get_pose(vid), K, 16, 16)
+    torch.cuda.synchronize()
+    launches = dict(st.LAUNCHES)
+    want = ref.render_image(db.get_pose(vid), K, 16, 16)
+    hc, hr = out['hit_mask'][..., 0] > 0.5, want['hit_mask'][..., 0] > 0.5
+    both = hc & hr
+    errs = {}
+    for k in ('rgb_pr', 'rgb_pr_nis'):
+        if not np.isfinite(out[k]).all():
+            raise AssertionError(f'render on the card: non-finite {k}')
+        e = np.abs(out[k] - want[k])[both]
+        errs[k] = (float(e.max()), float(e.mean()))
+    diff = int((hc != hr).sum())
+    print(f'[stage2] render_image 16x16 card vs CPU: {int(both.sum())} '
+          f'pixels hit on both sides, {diff} differ in hit (allowed '
+          f'{RENDER_HIT_ALLOWANCE}); max / mean |card - CPU| '
+          + ', '.join(f'{k} {a:.2e} / {m:.2e}' for k, (a, m) in errs.items())
+          + f' (tol {RENDER_TOL["max"]:g} / {RENDER_TOL["mean"]:g}); '
+          f'stencil launches on the card {launches}', flush=True)
+    if diff > RENDER_HIT_ALLOWANCE or both.sum() < 8 or any(
+            a > RENDER_TOL['max'] or m > RENDER_TOL['mean']
+            for a, m in errs.values()):
+        raise AssertionError(f'render_image: card disagrees with the CPU: '
+                             f'{diff} hit pixels differ, errors {errs}')
+    if launches['stencil_head_fwd'] != 1:
+        raise AssertionError(f'render_image: launches {launches}')
 
 
 def check_budget_trace(card, pn=2048, sn=864):
@@ -1439,7 +1517,7 @@ def phase_stage2(card, steps=12):
     # inside the aabb); then the checkpoint
     geo = os.path.join(_root(), 'build', 'smoke_geo.pt')
     cfg = _mat_cfg({'database_name': 'toy/blobs_128_12',
-                    'shader_cfg': dict(NIS_CUT)})
+                    'split_manul': False, 'shader_cfg': dict(NIS_CUT)})
     rays = cfg['train_ray_num']
     t0 = time.perf_counter()
     shape = ShapeTrainer(_load_cfg(['database_name=toy/blobs_128_12',
@@ -1461,7 +1539,8 @@ def phase_stage2(card, steps=12):
     print(f'[stage2] cuts: database toy/blobs_128_12 with a stage-1 '
           f'checkpoint of {geo_steps} steps (the published scene and its '
           f'checkpoint are not in the repository); NIS schedule {NIS_CUT} '
-          f'(published 500 / 1000 / 1000); stage-1 part '
+          f'(published 500 / 1000 / 1000); split_manul false (the toy '
+          f'split holds out one of its 12 views); stage-1 part '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
 
     st.reset_launches()
@@ -1525,7 +1604,242 @@ def phase_stage2(card, steps=12):
           f'{peak:.2f} GiB; stencil launches on this path '
           f'{dict(st.LAUNCHES)}', flush=True)
     last = ms['NIS sampling']
-    return trainer, sum(last) / len(last)
+    render_launches, chunk_ms = stage2_eval(trainer, card)
+    phase_lights(card, geo)
+    return trainer, sum(last) / len(last), render_launches, chunk_ms
+
+
+def stage2_eval(trainer, card, chunk=512):
+    """What a published material run does at its validations and in
+    eval_mat: render_image of the held-out view (both variants, s/view,
+    rays/s, PSNR, hit share, stencil launches: one forward a chunk, the
+    normal of the primary hits) and validate(); the stencil forward kernel
+    on the render's own inputs at N = 512 (its first chunk, and the padded
+    last chunk of a 24x24 view) against its plain version, and its time
+    beside a chunk's; env_light_image at 256x512; predict_vertex_materials
+    on the mesh of the stage-1 checkpoint extracted at 128^3."""
+    import numpy as np
+    from tensoflow_tpu_torch.eval import metrics
+    from tensoflow_tpu_torch.fields import mc_shading
+    from tensoflow_tpu_torch.models import material_renderer as mr
+    from tensoflow_tpu_torch.ops import mesh as mesh_mod
+    from tensoflow_tpu_torch.ops import stencil as st
+    (vid,) = trainer.test_ids
+    db = trainer.database
+    gt = db.get_image(vid).astype(np.float32) / 255.0
+    h, w = gt.shape[:2]
+    pose, K = db.get_pose(vid), np.asarray(db.get_K(vid), np.float32)
+    chunks = -(-h * w // chunk)
+    spy = HeadSpy(capture_at=chunks // 2)      # the view's middle rows
+    st.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with spy:
+        out = trainer.render_image(pose, K, h, w, chunk=chunk)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = dict(st.LAUNCHES)
+    bad = [k for k, v in out.items() if not np.isfinite(v).all()]
+    if bad or 'rgb_pr_nis' not in out:
+        raise AssertionError(f'render_image: non-finite {bad} or no _nis '
+                             f'variant ({sorted(out)})')
+    if launches != {'stencil_head_fwd': chunks, 'stencil_head_bwd': 0}:
+        raise AssertionError(f'render_image launches {launches} for '
+                             f'{chunks} chunks')
+    psnr = metrics.psnr(gt, out['rgb_pr'])
+    psnr_nis = metrics.psnr(gt, out['rgb_pr_nis'] + (1.0 - out['hit_mask']))
+    t0 = time.perf_counter()
+    val = trainer.validate(max_views=1)
+    val_s = time.perf_counter() - t0
+    if not (np.isfinite(val) and abs(val - psnr_nis) < 1e-2):
+        raise AssertionError(f'validate() {val} vs the render\'s '
+                             f'rgb_pr_nis PSNR {psnr_nis}')
+    rays_s = h * w / render_s
+    print(f'[stage2] render_image of held-out view {vid} at {h}x{w} in '
+          f'chunks of {chunk} on {card}: {render_s:.3f} s/view = '
+          f'{rays_s:.0f} rays/s ({render_s / chunks * 1e3:.1f} ms a chunk; '
+          f'an 800x800 view: {800 * 800 / rays_s:.0f} s), hit share '
+          f'{float(out["hit_mask"].mean()):.4f}; PSNR analytic {psnr:.3f} '
+          f'dB, _nis {psnr_nis:.3f} dB; every image finite; stencil '
+          f'launches {launches}; validate(max_views=1) {val:.3f} dB in '
+          f'{val_s:.3f} s', flush=True)
+
+    # the stencil forward kernel on the render's own N = 512 rows (a
+    # missed ray's row sits at its camera centre): the middle chunk of the
+    # view, and the padded last chunk of a 24x24 view whose principal
+    # point puts the object in its last rows
+    b1 = trainer.geo_params['sdf']['mlp'][1]['b']
+    mid = _captured_inputs(spy.captured, b1)
+    hits = int(out['hit_mask'].reshape(-1)[
+        chunks // 2 * chunk:(chunks // 2 + 1) * chunk].sum())
+    check_inputs(f'S=7 B=1 f32 N={chunk} (the render\'s middle chunk, '
+                 f'{hits} hits)', mid, 7, torch.float32)
+    tail_spy = HeadSpy(capture_at=1)
+    K24 = np.array([[K[0, 0] * 24 / w, 0, 12.0], [0, K[1, 1] * 24 / h, 22.5],
+                    [0, 0, 1]], np.float32)
+    with tail_spy:
+        small = trainer.render_image(pose, K24, 24, 24, chunk=chunk)
+    tail_hits = int(small['hit_mask'].reshape(-1)[chunk:].sum())
+    if tail_hits == 0 or not all(np.isfinite(v).all()
+                                 for v in small.values()):
+        raise AssertionError(f'render_image 24x24: {tail_hits} hits in its '
+                             'last chunk, or non-finite images')
+    check_inputs(f'S=7 B=1 f32 N={chunk} (a padded last chunk: '
+                 f'{24 * 24 - chunk} rays, {tail_hits} hits, + '
+                 f'{2 * chunk - 24 * 24} copies)',
+                 _captured_inputs(tail_spy.captured, b1), 7, torch.float32)
+    args = (mid['pp'], mid['lp'], mid['fr'], mid['sigmas'], mid['pe'],
+            mid['rot'], mid['w0p'], mid['b0'], mid['w1'], mid['b1'])
+    with torch.no_grad():
+        k_ms = cuda_ms(lambda: st.stencil_head(*args), iters=50, warmup=5)
+        p_ms = cuda_ms(lambda: st.stencil_head_plain(*args, S=7), iters=20,
+                       warmup=3)
+    (fb, fo), _ = head_bytes_ops(chunk, 7, 1, torch.float32)
+    b_ms, by = bound_ms(fb, fo, torch.float32)
+    print(f'[stage2] stencil forward at N={chunk} (the render\'s own '
+          f'inputs, float32, B=1): kernel {k_ms:.4f} ms/call (CUDA events, '
+          f'50 calls), plain {p_ms:.4f}, bound {b_ms:.5f} ({by}); a render '
+          f'chunk {render_s / chunks * 1e3:.1f} ms', flush=True)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env = mc_shading.env_light_image(trainer.params, trainer.rcfg.shader,
+                                         256, 512)
+        torch.cuda.synchronize()
+    env_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(env.shape) != (256, 512, 3) or not bool(
+            torch.isfinite(env).all()):
+        raise AssertionError(f'env_light_image: {tuple(env.shape)}')
+    light = trainer.rcfg.shader.outer_light_version
+    print(f'[stage2] env_light_image 256x512 ({light}) in {env_ms:.1f} ms: '
+          f'finite, values '
+          f'{float(env.min()):.4f}..{float(env.max()):.4f}', flush=True)
+
+    dev = trainer.device
+    sdf_fun = mr.sdf_fun_of(trainer.geo_params, trainer.rcfg, dev)
+
+    @torch.no_grad()
+    def query(pts):
+        return torch.cat([
+            sdf_fun(torch.as_tensor(pts[i:i + 262144], dtype=torch.float32,
+                                    device=dev))[:, 0].cpu()
+            for i in range(0, len(pts), 262144)]).numpy()
+    verts, _ = mesh_mod.extract_geometry(np.array([-1.0] * 3),
+                                         np.array([1.0] * 3), 128, 0.0, query)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mats = mr.predict_vertex_materials(trainer.params, trainer.rcfg,
+                                       verts.astype(np.float32))
+    mat_ms = (time.perf_counter() - t0) * 1e3
+    if len(verts) == 0 or any(
+            v.shape[0] != len(verts) or not np.isfinite(v).all()
+            for v in mats.values()):
+        raise AssertionError(f'predict_vertex_materials on {len(verts)} '
+                             'vertices')
+    print(f'[stage2] predict_vertex_materials on the 128^3 mesh of the '
+          f'stage-1 checkpoint: {len(verts)} vertices in {mat_ms:.1f} ms '
+          f'(chunks of 8192), albedo mean '
+          f'{mats["albedo"].mean(0).round(4).tolist()}', flush=True)
+    return launches, render_s / chunks * 1e3
+
+
+def profile_render(trainer, card, chunk_ms, chunk=512):
+    """profile_step over one render chunk of the held-out view (its middle
+    chunk of ``chunk`` rays, both eval passes)."""
+    import numpy as np
+    from tensoflow_tpu_torch.data import rays as rays_mod
+    (vid,) = trainer.test_ids
+    db = trainer.database
+    h, w = db.get_image(vid).shape[:2]
+    info = {'imgs': np.zeros((1, h, w, 3), np.float32),
+            'Ks': np.asarray(db.get_K(vid), np.float32)[None],
+            'poses': np.asarray(db.get_pose(vid), np.float32)[None]}
+    make = (rays_mod.construct_ray_batch_nerf if trainer.cfg['nerfDataType']
+            else rays_mod.construct_ray_batch_w2c)
+    batch = make(info)[0]
+    at = (h * w // chunk // 2) * chunk
+    o, d = (torch.as_tensor(batch[k][at:at + chunk], device='cuda')
+            for k in ('rays_o', 'dirs'))
+    profile_step(trainer, card, chunk_ms, tag='render',
+                 run=lambda: trainer.render_chunk(o, d, True),
+                 what=f'render chunk ({chunk} rays, both eval passes)')
+
+
+# the two other light setups of the published material configs, at their
+# own widths on the same toy checkpoint
+LIGHT_YAMLS = (('configs/mat/syn/lego.yaml', ('outer_light',)),
+               ('configs/mat/custom/shoe.yaml',
+                ('outer_light', 'human_light')))
+
+
+def phase_lights(card, geo, steps=12):
+    """MaterialTrainer at configs/mat/syn/lego.yaml ('direction') and
+    configs/mat/custom/shoe.yaml ('sphere_direction' + human lights): the
+    database cut to toy/blobs_128_12 (nerfDataType, one held-out view),
+    the NIS schedule to NIS_CUT; ``steps`` steps across the three phases,
+    every loss term finite, the light MLPs' leaves moved by the first
+    step, then one validated view."""
+    import numpy as np
+    from tensoflow_tpu_torch import config as config_mod
+    from tensoflow_tpu_torch.fields import mc_shading
+    from tensoflow_tpu_torch.train.trainer import named_leaves
+    from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
+    for yaml, lights in LIGHT_YAMLS:
+        cfg = config_mod.load_config(os.path.join(_root(), yaml))
+        cfg['shader_cfg'] = {**cfg['shader_cfg'], **NIS_CUT}
+        cfg.update({'database_name': 'toy/blobs_128_12',
+                    'split_manul': False, 'nerfDataType': True})
+        trainer = MaterialTrainer(cfg, geo)
+        trainer.init_dataset()
+        scfg = trainer.rcfg.shader
+        before = {n: [t.detach().clone()
+                      for _, t in named_leaves(trainer.params[n])]
+                  for n in lights}
+        t0 = time.perf_counter()
+        logs = trainer.train(n_steps=1, log_every=1)
+        still = [f'{n}{p}' for n in lights
+                 for (p, t), t0_ in zip(named_leaves(trainer.params[n]),
+                                        before[n])
+                 if torch.equal(t.detach(), t0_)]
+        if still:
+            raise AssertionError(f'{yaml}: leaves not moved by the first '
+                                 f'step: {still}')
+        names = []
+        for step in range(steps):
+            if step:
+                logs += trainer.train(n_steps=1, log_every=1)
+            ph = trainer.phase(step)      # the copies of this step on
+            names.append('NIS sampling' if ph.nis_sample_diffuse else
+                         'NIS loss' if ph.nis_loss_diffuse else 'no NIS')
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        _check_finite(logs)
+        if sorted(set(names)) != ['NIS loss', 'NIS sampling', 'no NIS']:
+            raise AssertionError(f'{yaml}: phases {names}')
+        t0 = time.perf_counter()
+        val = trainer.validate(max_views=1)
+        val_s = time.perf_counter() - t0
+        with torch.no_grad():
+            env = mc_shading.env_light_image(trainer.params, scfg, 256, 512)
+        if not (np.isfinite(val) and bool(torch.isfinite(env).all())):
+            raise AssertionError(f'{yaml}: validate() {val}, env_light_image '
+                                 f'finite {bool(torch.isfinite(env).all())}')
+        print(f'[lights] {yaml}: outer light {scfg.outer_light_version!r}, '
+              f'human_lights {scfg.human_lights}, {scfg.diffuse_sample_num} '
+              f'+ {scfg.specular_sample_num} samples, {trainer.tbn} hits, '
+              f'step batch {trainer.step_keys()}; {steps} steps across the '
+              f'three NIS phases in {step_s:.2f} s (cuts: database '
+              f'toy/blobs_128_12 with nerfDataType, split_manul false, NIS '
+              f'{NIS_CUT}), every loss term finite, all '
+              f'{sum(len(v) for v in before.values())} leaves of {lights} '
+              f'moved by the first step; losses '
+              f'{[round(r["loss"], 5) for r in logs]}; validate(max_views=1) '
+              f'{val:.3f} dB in {val_s:.2f} s; env_light_image 256x512 '
+              f'finite, {float(env.min()):.4f}..{float(env.max()):.4f}; on '
+              f'{card}', flush=True)
+        del trainer
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1554,13 +1868,14 @@ def main():
     # 112 / 168 / 168 ms after a session), which would inflate the step
     # times of these host-bound steps
     _, shape_trainer, shape_ms = phase_slice(card)
-    mat_trainer, mat_ms = phase_stage2(card)
+    mat_trainer, mat_ms, render_launches, chunk_ms = phase_stage2(card)
     launches, sched_trainer, sched_ms = phase_schedule(card)
     hier_launches, hier_trainer, hier_ms, hier_errs = phase_hierarchical(card)
     kinds = phase_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
     profile_step(mat_trainer, card, mat_ms, tag='stage2')
+    profile_render(mat_trainer, card, chunk_ms)
     profile_step(sched_trainer, card, sched_ms, tag='schedule')
     profile_step(hier_trainer, card, hier_ms, tag='hier')
     for k, n in gather_launches.items():
@@ -1582,7 +1897,8 @@ def main():
             'replaces': TPU_KERNELS[k], 'launches': hier_launches[k],
             'library_ms': None, **row, 'dtype': 'float32', 'B': 2,
             'launches_by_path': {'hierarchical_f32': hier_launches[k],
-                                 'occ_schedule_bf16': launches[k]},
+                                 'occ_schedule_bf16': launches[k],
+                                 'stage2_render_f32': render_launches[k]},
             'other_rows': {f'{t} B={b}': kinds[t, b][k]
                            for t, b in kinds if (t, b) != ('f32', 2)}})
     print(json.dumps({'kernels': stencil + [

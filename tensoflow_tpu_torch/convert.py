@@ -11,9 +11,11 @@ words are held in int64 with identical bits and the bfloat16 SDF bake
 stays bfloat16.
 
 The stage-2 parameter tree (``init_mc_shading``'s dict, with its
-``flow_*`` and ``outer_light`` entries) and the frozen flow copies are
-nested dicts and lists of float32 arrays and map through
-``params_from_jax`` as they are, and so does the NeRF++ background net
+``flow_*`` entries, ``outer_light`` as an envlight cubemap ``{'base'}`` or
+as a predictor ``{'layers': [{'v', 'g', 'b'}, ...]}`` ('direction',
+'sphere_direction') and, with human lights, the ``human_light``
+predictor) and the frozen flow copies are nested dicts and lists of
+float32 arrays and map through ``params_from_jax`` as they are, and so does the NeRF++ background net
 (the ``bg`` subtree of a ``predict_BG`` run).  An alpha mask, a packed
 trace grid and a stage-1 checkpoint payload have their own functions
 below.

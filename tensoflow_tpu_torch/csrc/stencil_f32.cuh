@@ -33,6 +33,10 @@ constexpr int MS = 116;    // row pitch of transposed X / dz / dX in smem
 // the weight-gradient product's ring: AKC rows of both operands a chunk,
 // ASTAGE slots
 constexpr int AKC = 32, ASTAGE = 2;
+// the most rows one split-K partial of a weight gradient sums: a float32
+// chain of ~7,000 products (one split per SM at N = 131,072, S = 7) put
+// the bias gradient, a column of ones in X, 1e-5 from float64
+constexpr int AKMAX = 1024;
 // the forward's ring: FKC rows of W0 a chunk (FKC / 2 of each half of W1),
 // FSTAGE slots
 constexpr int FKC = 24, FSTAGE = 2;

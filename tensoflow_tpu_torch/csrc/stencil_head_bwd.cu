@@ -1007,6 +1007,8 @@ size_t take(size_t* off, size_t bytes) {
 int atb_splits(int n_sm, int K, int* kchunk) {
   int ns = (K + 255) / 256;
   if (ns > n_sm) ns = n_sm;
+  if (ns < (K + f32k::AKMAX - 1) / f32k::AKMAX)
+    ns = (K + f32k::AKMAX - 1) / f32k::AKMAX;
   int kc = (K + ns - 1) / ns;
   kc = (kc + f32k::AKC - 1) / f32k::AKC * f32k::AKC;
   *kchunk = kc;

@@ -8,9 +8,11 @@ flows; secondary-ray radiance = sphere-traced visibility (baked SDF grid)
 selecting between an inner-light MLP (hit) and the trainable environment
 cubemap (miss).  Dense ``[points, samples]`` layout with an NoL>0 mask.
 
-Ported: ``shade_fn='shade_mixed'`` with the 'envlight' outer light.
-``shade_mixed_all``, the 'direction'/'sphere_direction' lights and
-``human_lights`` raise NotImplementedError (see ROADMAP.md).
+Ported: ``shade_fn='shade_mixed'`` with each of the three outer lights
+('envlight' cubemap, 'direction' and 'sphere_direction' MLPs) and the
+photographer ``human_lights`` blend.  ``shade_mixed_all`` / ``use_nis_all``
+and the flows other than pwquad raise NotImplementedError (see
+ROADMAP.md).
 
 Random draws: ``draw_shade_noise`` makes the step's four draws from a
 torch.Generator; ``shade_mixed``/``mc_forward`` take them ready-made as
@@ -32,9 +34,12 @@ from ..ops import sdf_trace, tensor_field as tfield
 from ..ops.brdf import (distribution_ggx, fresnel_schlick,
                         geometry as brdf_geometry)
 from ..ops.grid import compact_indices, compact_take, scatter_back
-from ..ops.math import (contraction, ide_dim, integrated_dir_encoding,
-                        linear_to_srgb, pe_dim, positional_encoding,
-                        safe_normalize, saturate_dot)
+from ..ops.math import (contraction, get_camera_plane_intersection,
+                        get_sphere_intersection, ide_dim,
+                        integrated_dir_encoding,
+                        integrated_positional_encoding, linear_to_srgb,
+                        pe_dim, positional_encoding, safe_normalize,
+                        saturate_dot, xla_linspace)
 from ..ops.samplers import (direction_table, direction_to_angle,
                             half_angles_to_directions,
                             sample_diffuse_directions,
@@ -44,6 +49,7 @@ from . import light as light_mod
 from . import mlp
 
 EPS = 1e-6
+OUTER_LIGHTS = ('envlight', 'direction', 'sphere_direction')
 
 
 class MCShadingConfig(NamedTuple):
@@ -116,12 +122,8 @@ def check_supported(cfg: MCShadingConfig):
     if cfg.shade_fn != 'shade_mixed' or cfg.use_nis_all:
         raise NotImplementedError(
             'shade_mixed_all / use_nis_all are not ported yet')
-    if cfg.outer_light_version != 'envlight':
-        raise NotImplementedError(
-            f'outer_light_version={cfg.outer_light_version!r} is not '
-            'ported yet (only envlight)')
-    if cfg.human_lights:
-        raise NotImplementedError('human_lights is not ported yet')
+    if cfg.outer_light_version not in OUTER_LIGHTS:
+        raise NotImplementedError(cfg.outer_light_version)
     if cfg.flow_type != 'pwquad':
         raise NotImplementedError(
             f'flow_type={cfg.flow_type!r} is not ported yet (only pwquad)')
@@ -147,9 +149,19 @@ def init_mc_shading(gen: torch.Generator, cfg: MCShadingConfig,
         'inner_light': mlp.init_predictor(
             gen, pos_dim + sph_dim, 3, 4, final_bias=float(np.log(0.5)),
             device=device),
-        'outer_light': light_mod.init_env_light(
-            light_mod.EnvLightConfig(max_res=cfg.light_reso), device),
     }
+    if cfg.outer_light_version == 'envlight':
+        params['outer_light'] = light_mod.init_env_light(
+            light_mod.EnvLightConfig(max_res=cfg.light_reso), device)
+    else:
+        d_in = sph_dim * (2 if cfg.outer_light_version == 'sphere_direction'
+                          else 1)
+        params['outer_light'] = mlp.init_predictor(
+            gen, d_in, 3, 4, final_bias=float(np.log(0.5)), device=device)
+    if cfg.human_lights:
+        params['human_light'] = mlp.init_predictor(
+            gen, 2 * 2 * 6, 4, 4, final_bias=float(np.log(0.02)),
+            device=device)
     if cfg.use_nis_diffuse:
         params['flow_diffuse'] = flow_mod.init_tenso_flow(gen, cfg.flow,
                                                           device)
@@ -200,11 +212,43 @@ def get_inner_lights(params, cfg: MCShadingConfig, points, view_out_dirs,
 
 
 def predict_outer_lights(params, cfg: MCShadingConfig, points, directions):
-    """(ref: fields.py:913-933), the envlight branch."""
+    """(ref: fields.py:913-933)"""
     if cfg.outer_light_version == 'envlight':
         return light_mod.direct_light(params['outer_light'], directions)
-    raise NotImplementedError(
-        f'outer_light_version={cfg.outer_light_version!r} is not ported yet')
+    enc = integrated_dir_encoding(directions, 0.0, 5)
+    if cfg.outer_light_version == 'sphere_direction':
+        # the point pulled inside the unit sphere, then where its ray
+        # leaves that sphere (a true division: a Python scalar over a
+        # tensor is a reciprocal and a product in PyTorch, one rounding
+        # more than the reference)
+        norm = torch.clamp(torch.linalg.norm(points, dim=-1, keepdim=True),
+                           min=1e-8)
+        pts = points * torch.clamp(torch.full_like(norm, 0.999) / norm,
+                                   max=1.0)
+        sphere_pts = pts + directions * get_sphere_intersection(
+            pts, directions)
+        enc = torch.cat([enc, integrated_dir_encoding(sphere_pts, 0.0, 5)],
+                        -1)
+    elif cfg.outer_light_version != 'direction':
+        raise NotImplementedError(cfg.outer_light_version)
+    return mlp.apply_predictor(params['outer_light'], enc, 'exp',
+                               cfg.light_exp_max)
+
+
+def get_human_light(params, points, directions, human_poses):
+    """Photographer reflection estimate on the camera plane
+    (ref: fields.py:935-949).  points, directions [..., 3]; human_poses as
+    get_camera_plane_intersection takes them.  Returns (light [..., 3],
+    blend weight [..., 1])."""
+    inter, dists, hits = get_camera_plane_intersection(points, directions,
+                                                       human_poses)
+    mean = inter[..., :2] * 0.3
+    hits = hits & (torch.linalg.norm(mean, dim=-1) < 1.5) & (dists > 0)
+    hits_f = hits.to(points.dtype)[..., None]
+    mean = mean * hits_f
+    enc = integrated_positional_encoding(mean, torch.zeros_like(mean), 0, 6)
+    hl = mlp.apply_predictor(params['human_light'], enc, 'exp', 5.0) * hits_f
+    return hl[..., :3], torch.clamp(hl[..., 3:], 0.0, 1.0)
 
 
 def _near_masked(lights, depth, eps):
@@ -225,8 +269,6 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
     from its own launch surface as an exact-mesh BVH does.  The normals
     also drive the analytic launch-corridor certification of the budgeted
     trace.  Returns (lights [pn,sn,3], hit_mask [pn,sn])."""
-    if cfg.human_lights and human_poses is not None:
-        raise NotImplementedError('human_lights is not ported yet')
     shape = points.shape[:-1]
     eps = 1e-5
     o = (points + directions * eps).reshape(-1, 3)
@@ -234,6 +276,13 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
     n_rays = o.shape[0]
 
     outer = predict_outer_lights(params, cfg, o, d)
+    if cfg.human_lights and human_poses is not None:
+        # one pose [3,4] per point serves its rays: [pn, sn, 3] rays
+        # against [pn, 3, 4] poses in a batched product, never a
+        # [pn * sn, 3, 4] copy
+        hl, hw = get_human_light(params, o.view(shape + (3,)),
+                                 d.view(shape + (3,)), human_poses)
+        outer = outer * (1.0 - hw.reshape(-1, 1)) + (hl * hw).reshape(-1, 3)
 
     if callable(grid):
         with torch.no_grad():
@@ -624,3 +673,26 @@ def material_regularization(params, cfg: MCShadingConfig, pts, normals,
                  + torch.sum(torch.relu(0.02 - metallic)))
         reg = reg + clamp * reg_minmax_on
     return reg
+
+
+def env_light_image(params, cfg: MCShadingConfig, h: int, w: int,
+                    gamma: bool = True):
+    """Rendered latlong map of the outer light [h, w, 3]
+    (ref: fields.py:1475-1510)."""
+    leaf = params['outer_light']
+    while not isinstance(leaf, torch.Tensor):
+        leaf = next(iter(leaf.values())) if isinstance(leaf, dict) \
+            else leaf[0]
+    dev = leaf.device
+    azs = device_constant(('env_az', w), lambda: xla_linspace(1.0, 0.0, w),
+                          dev) * (np.pi * 2) - np.pi / 2
+    els = device_constant(('env_el', h), lambda: xla_linspace(1.0, -1.0, h),
+                          dev) * (np.pi / 2)
+    els, azs = torch.meshgrid(els, azs, indexing='ij')
+    dirs = torch.stack([torch.cos(els) * torch.cos(azs),
+                        torch.cos(els) * torch.sin(azs), torch.sin(els)],
+                       -1).reshape(-1, 3)
+    light = predict_outer_lights(params, cfg, dirs, dirs)
+    if gamma:
+        light = linear_to_srgb(light)
+    return light.reshape(h, w, 3)

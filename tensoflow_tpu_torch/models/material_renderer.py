@@ -9,7 +9,9 @@ traced depth, and their normals come from the neural SDF's
 finite-difference gradient, flipped to face the ray
 (ref: materialRenderer.py:265-343).
 
-Not ported yet (see ROADMAP.md): eval_outputs, predict_vertex_materials.
+Evaluation draws nothing: ``eval_outputs`` shades with ``is_train=False``,
+so the analytic samplers take no azimuth roll and the flow priors no roll
+either, as in the reference.
 """
 from __future__ import annotations
 
@@ -175,7 +177,7 @@ def train_step_outputs(params, cfg: MaterialRendererConfig, grid, batch,
     outputs = mc_shading.mc_forward(
         params, cfg.shader, grid, unit_size(cfg), aabb, pts,
         -batch['rays_d'], normals, phase, noise, True, flow_diffuse_copy,
-        flow_specular_copy)
+        flow_specular_copy, human_poses=batch.get('human_poses'))
     outputs['rgb_gt'] = rgb_gt
     outputs['loss_rgb'] = compute_rgb_loss(cfg, outputs['rgb_pr'], rgb_gt)
     mse = torch.mean((outputs['rgb_pr'] - rgb_gt) ** 2)
@@ -190,3 +192,48 @@ def train_step_outputs(params, cfg: MaterialRendererConfig, grid, batch,
         outputs['loss_diffuse_light'] = diffuse_light_regularization(
             outputs['diffuse_light'], cfg.reg_diffuse_light_lambda)
     return outputs
+
+
+def eval_outputs(params, cfg: MaterialRendererConfig, grid, batch,
+                 flow_diffuse_copy=None, flow_specular_copy=None,
+                 with_nis: bool = True):
+    """Eval forward on traced hits: the analytic pass, then the ``_nis``
+    pass (both flow copies sampled) when the copies exist
+    (ref: materialRenderer.py:566-639; fields.py:1465-1473).  Like the
+    reference it passes no human poses: a human-light scene renders
+    without the photographer light."""
+    pts = batch['inters']
+    aabb = aabb_tensor(cfg, pts.device)
+    args = (params, cfg.shader, grid, unit_size(cfg), aabb, pts,
+            -batch['rays_d'], batch['normals'])
+    out = mc_shading.mc_forward(*args, mc_shading.ShadePhase(), None, False)
+    if with_nis and flow_diffuse_copy is not None:
+        out_nis = mc_shading.mc_forward(
+            *args, mc_shading.ShadePhase(nis_sample_diffuse=True,
+                                         nis_sample_specular=True),
+            None, False, flow_diffuse_copy, flow_specular_copy)
+        out.update({k + '_nis': v for k, v in out_nis.items()})
+    return out
+
+
+@torch.no_grad()
+def predict_vertex_materials(params, cfg: MaterialRendererConfig, verts,
+                             batch_size: int = 8192):
+    """Materials at mesh vertices [V, 3] (numpy) in chunks of
+    ``batch_size``, the last one zero-padded (ref: materialRenderer.py:
+    770-782).  Returns numpy arrays; roughness un-squared."""
+    dev = params['metallic']['layers'][0]['b'].device
+    aabb = aabb_tensor(cfg, dev)
+    n = verts.shape[0]
+    pad = (-n) % batch_size
+    verts_p = np.concatenate([verts, np.zeros((pad, 3), verts.dtype)], 0)
+    outs = []
+    for i in range(0, len(verts_p), batch_size):
+        v = torch.as_tensor(verts_p[i:i + batch_size], dtype=torch.float32,
+                            device=dev)
+        m, r, a = mc_shading.predict_materials(params, cfg.shader, v, aabb)
+        r = torch.sqrt(torch.clamp(r, min=1e-7))
+        outs.append(torch.cat([m, r, a], -1).cpu().numpy())
+    out = np.concatenate(outs, 0)[:n]
+    return {'metallic': out[:, 0:1], 'roughness': out[:, 1:2],
+            'albedo': out[:, 2:5]}

@@ -60,6 +60,30 @@ def get_sphere_intersection(pts, dirs, radius: float = 1.0):
     return -dtx + torch.sqrt(torch.clamp(disc, min=0.0) + 1e-6)
 
 
+def get_camera_plane_intersection(pts, dirs, poses):
+    """Ray / camera-XoY-plane intersection in "human" coordinates
+    (ref: utils/network_utils.py:69-88).
+
+    pts, dirs [..., 3]; poses [..., 3, 4] with the batch dims of pts, or
+    [P, 3, 4] for pts [P, S, 3] (one pose for all S rays of a point: a
+    batched product, no broadcast copy of the poses).
+    Returns (inter [..., 3], dist [...], hits [...])."""
+    R, t = poses[..., :3], poses[..., 3]
+    if poses.dim() == pts.dim():
+        rt = R.transpose(-1, -2)
+        pts_ = torch.matmul(pts, rt) + t[:, None, :]
+        dirs_ = torch.matmul(dirs, rt)
+    else:
+        pts_ = torch.matmul(R, pts[..., None])[..., 0] + t
+        dirs_ = torch.matmul(R, dirs[..., None])[..., 0]
+    hits = torch.abs(dirs_[..., 2]) > 1e-4
+    dz = torch.where(hits, dirs_[..., 2], torch.full_like(dirs_[..., 2],
+                                                          1e-4))
+    dist = -pts_[..., 2] / dz
+    inter = pts_ + dist[..., None] * dirs_
+    return inter, dist, hits
+
+
 def positional_encoding(x, n_freqs: int, include_input: bool = True):
     """NeRF-style PE: [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...]."""
     outs = [x] if include_input else []
@@ -72,6 +96,24 @@ def positional_encoding(x, n_freqs: int, include_input: bool = True):
 
 def pe_dim(input_dims: int, n_freqs: int, include_input: bool = True) -> int:
     return input_dims * ((1 if include_input else 0) + 2 * n_freqs)
+
+
+def expected_sin(mean, var):
+    """E[sin(x)], x ~ N(mean, var) (ref: network_utils.py:52-54)."""
+    return torch.exp(-0.5 * var) * torch.sin(mean)
+
+
+def integrated_positional_encoding(mean, var, min_deg: int, max_deg: int):
+    """mip-NeRF IPE (ref: network_utils.py:56-61).
+
+    mean, var: [..., d]. Returns [..., 2 * d * (max_deg - min_deg)]."""
+    scales = 2.0 ** torch.arange(min_deg, max_deg, dtype=mean.dtype,
+                                 device=mean.device)
+    shape = mean.shape[:-1] + (-1,)
+    sm = torch.reshape(mean[..., None, :] * scales[:, None], shape)
+    sv = torch.reshape(var[..., None, :] * (scales[:, None] ** 2), shape)
+    return expected_sin(torch.cat([sm, sm + 0.5 * math.pi], dim=-1),
+                        torch.cat([sv, sv], dim=-1))
 
 
 def _generalized_binomial_coeff(a, k):

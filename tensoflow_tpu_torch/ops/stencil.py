@@ -157,6 +157,7 @@ F32_TR, F32_MT, F32_MS = 16, 112, 116
 F32_FKC, F32_FSTAGE = 24, 2          # forward ring: rows a chunk, slots
 F32_BKC, F32_BSTAGE = 32, 2          # backward ring
 F32_AKC, F32_ASTAGE = 32, 2          # weight-gradient ring
+F32_AKMAX = 1024                     # rows a weight-gradient split at most
 F32_THREADS = {'fwd': 448, 'bwd': 448, 'atb': 288}
 # blocks per SM the kernels are built for (__launch_bounds__); the card's
 # own count comes from stencil_head_{fwd,bwd}_f32_info
@@ -202,9 +203,11 @@ def f32_grid(kernel: str, n_sm: int, n: int,
 
 def f32_splits(n_sm: int, k: int):
     """(splits, rows per split) of a float32 weight-gradient product over
-    k rows: about 256 rows or more a split, at most one split per SM, each
-    a multiple of the ring's 32 rows."""
-    ns = min(-(-k // 256), n_sm)
+    k rows: about 256 rows or more a split, one split per SM unless that
+    would put more than F32_AKMAX rows in a split (a longer float32 chain
+    puts the bias gradient 1e-5 from float64), each a multiple of the
+    ring's 32 rows."""
+    ns = max(min(-(-k // 256), n_sm), -(-k // F32_AKMAX))
     chunk = -(-(-(-k // ns)) // F32_AKC) * F32_AKC
     return -(-k // chunk), chunk
 

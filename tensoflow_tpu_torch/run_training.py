@@ -7,9 +7,7 @@ The stage is the config's ``network`` field ('shape' | 'material').  The
 run trains in rounds of ``save_interval`` steps, saves
 data/model/<name>/model.pkl (the port's own format) after each, validates every ``val_interval``
 steps and keeps the best validation PSNR's checkpoint as model_best.pkl.
-It runs on the card; ``--device cpu`` runs the plain PyTorch path.  Stage
-2's validation is not ported yet: a material run raises NotImplementedError
-at its first validation.
+It runs on the card; ``--device cpu`` runs the plain PyTorch path.
 """
 from __future__ import annotations
 

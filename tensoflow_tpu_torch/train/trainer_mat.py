@@ -11,13 +11,16 @@ tensoflow_tpu/train/trainer_mat.py).
     batch, and the trace statistics are read by the host only every
     SEC_BUDGET_INTERVAL steps and at ``log_every``;
   * frozen flow copies are refreshed on the reference schedule
-    (ref: fields.py:1050-1065): detached clones the optimizer never sees.
+    (ref: fields.py:1050-1065): detached clones the optimizer never sees;
+  * render_image / validate render held-out views in chunks of 512 rays:
+    primary trace, the analytic eval pass and, once the flow copies exist,
+    the ``_nis`` pass.
 
 Entry points run on the card: ``MaterialTrainer(cfg, path)`` means CUDA and
 raises when CUDA is absent; the CPU runs only with ``device='cpu'``.
 
-Not ported yet (see ROADMAP.md): render_image / validate, the combined
-flow (use_nis_all), the multi-device mesh.
+Not ported yet (see ROADMAP.md): the combined flow (use_nis_all), the
+multi-device mesh.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from ..data import database as db_mod
 from ..data import rays as rays_mod
 from ..fields import mc_shading, tenso_sdf
 from ..models import material_renderer as mr
-from . import checkpoints, losses
+from . import checkpoints, losses, metrics_vis
 from .trainer import ScheduledAdam, _batch_to_device, named_leaves
 
 # adaptive secondary-trace budget: the trainer re-buckets the slot budget
@@ -49,6 +52,10 @@ A1_BUDGET_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875)
 A1_BUDGET_MARGIN = 1.15
 
 STEP_BATCH_KEYS = ('inters', 'normals', 'rays_d', 'rgb')
+# what render_image returns for each pixel, before the '_nis' copies
+RENDER_KEYS = ('rgb_pr', 'normal', 'specular_light', 'specular_color',
+               'diffuse_light', 'diffuse_color', 'albedo', 'metallic',
+               'roughness', 'visibility', 'indirect_light')
 
 
 def mat_param_group_label(path) -> str:
@@ -111,6 +118,7 @@ class MaterialTrainer:
 
         self.flow_copies: Dict[str, Any] = {}
         self.start_step = 0
+        self.best_para = 0.0
         self.set_params(mc_shading.init_mc_shading(
             self.init_gen, self.rcfg.shader, self.device))
 
@@ -138,7 +146,7 @@ class MaterialTrainer:
         else:
             batch, rn, _, _ = rays_mod.construct_ray_batch_w2c(info)
         batch = {'rays_o': batch['rays_o'], 'rays_d': batch['dirs'],
-                 'rgb': batch['rgbs']}
+                 'rgb': batch['rgbs'], 'human_poses': batch['human_poses']}
         if max_train_rays is not None and rn > max_train_rays:
             idx = np.random.RandomState(0).choice(rn, max_train_rays, False)
             batch = {k: v[idx] for k, v in batch.items()}
@@ -197,6 +205,12 @@ class MaterialTrainer:
             nis_loss_specular=(scfg.use_nis_specular
                                and step >= scfg.nis_loss_iter))
 
+    def step_keys(self):
+        """The hit-batch columns a step takes to the device: the human
+        poses only where the shader blends in the human light."""
+        return STEP_BATCH_KEYS + (('human_poses',)
+                                  if self.rcfg.shader.human_lights else ())
+
     def step_noise(self, step: int, phase) -> Dict[str, torch.Tensor]:
         """The training step's draws (the flow priors' and the analytic
         samplers' azimuth rolls); the only place the loop draws."""
@@ -240,7 +254,7 @@ class MaterialTrainer:
             phase = self.phase(step)
             host_batch = self.batcher.next_batch()
             batch = _batch_to_device(
-                {k: host_batch[k] for k in STEP_BATCH_KEYS}, self.device)
+                {k: host_batch[k] for k in self.step_keys()}, self.device)
             weights = losses.schedule_weights(self.cfg, step)
             aux = self.train_step(step, batch, weights,
                                   self.step_noise(step, phase), phase)
@@ -292,16 +306,98 @@ class MaterialTrainer:
         if repl:
             self.rcfg = self.rcfg._replace(shader=scfg._replace(**repl))
 
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def render_chunk(self, o, d, with_nis: bool) -> Dict[str, torch.Tensor]:
+        """One chunk of the view: trace, eval_outputs; returns the
+        RENDER_KEYS (then their '_nis' copies, then 'hit') as [n, k]
+        float32 tensors on the device."""
+        inters, normals, _, hit = mr.trace_surface(
+            self.geo_params, self.rcfg, self.grid, o, d)
+        out = mr.eval_outputs(
+            self.params, self.rcfg, self.grid,
+            {'inters': inters, 'normals': normals, 'rays_d': d},
+            self.flow_copies.get('diffuse'), self.flow_copies.get('specular'),
+            with_nis)
+        keys = list(RENDER_KEYS) + ([k + '_nis' for k in RENDER_KEYS]
+                                    if with_nis else [])
+        res = {k: out[k].float().reshape(o.shape[0], -1) for k in keys}
+        res['hit'] = hit.float()[:, None]
+        return res
+
+    def render_image(self, pose, K, h: int, w: int, chunk: int = 512
+                     ) -> Dict[str, np.ndarray]:
+        """Novel-view render (ref: materialRenderer.py:641-752) in chunks
+        of ``chunk`` rays, the last one padded with copies of its last ray.
+        Every image is zeroed where the primary ray misses; ``rgb_pr``
+        (not ``rgb_pr_nis``) gets the white background there.  Returns
+        [h, w, k] images on the host and ``hit_mask`` [h, w, 1]."""
+        info = {'imgs': np.zeros((1, h, w, 3), np.float32),
+                'Ks': np.asarray(K, np.float32)[None],
+                'poses': np.asarray(pose, np.float32)[None]}
+        if self.cfg['nerfDataType']:
+            batch, rn, _, _ = rays_mod.construct_ray_batch_nerf(info)
+        else:
+            batch, rn, _, _ = rays_mod.construct_ray_batch_w2c(info)
+        rays = {'o': batch['rays_o'], 'd': batch['dirs']}
+        with_nis = 'diffuse' in self.flow_copies
+        cols, widths = [], {}
+        for ri in range(0, rn, chunk):
+            sub = {k: v[ri:ri + chunk] for k, v in rays.items()}
+            n_real = len(sub['o'])
+            if n_real < chunk:
+                sub = {k: np.concatenate(
+                    [v, np.repeat(v[-1:], chunk - n_real, 0)], 0)
+                    for k, v in sub.items()}
+            sub = _batch_to_device(sub, self.device)
+            res = self.render_chunk(sub['o'], sub['d'], with_nis)
+            widths = {k: v.shape[1] for k, v in res.items()}
+            # one device-to-host copy a chunk
+            cols.append(torch.cat(list(res.values()), -1)[:n_real].cpu())
+        flat = torch.cat(cols, 0).numpy()
+        hit = flat[:, -1:]
+        img, at = {}, 0
+        for k, wd in widths.items():
+            if k != 'hit':
+                img[k] = (flat[:, at:at + wd] * hit).reshape(h, w, wd)
+            at += wd
+        img['rgb_pr'] = img['rgb_pr'] + (1.0 - hit.reshape(h, w, 1))
+        img['hit_mask'] = hit.reshape(h, w, 1)
+        return img
+
     def validate(self, max_views: Optional[int] = None,
                  downsample: float = 1.0) -> float:
-        """Stage-2 validation renders views through eval_outputs, which is
-        not ported yet (ROADMAP.md)."""
-        raise NotImplementedError('stage-2 validation is not ported yet')
+        """Mean PSNR over the held-out split at full resolution by default
+        (ref: trainer_mat.py validate), of ``rgb_pr_nis`` with the white
+        background added once the flow copies exist, else of ``rgb_pr``;
+        max_views / downsample subsample it."""
+        psnrs = []
+        vids = self.test_ids if max_views is None else \
+            self.test_ids[:max_views]
+        for vid in vids:
+            gt = self.database.get_image(vid).astype(np.float32) / 255.0
+            K = np.asarray(self.database.get_K(vid), np.float32).copy()
+            pose = self.database.get_pose(vid)
+            h, w = gt.shape[:2]
+            if downsample != 1.0:
+                h, w = int(h * downsample), int(w * downsample)
+                gt = metrics_vis.resize_linear(gt, h, w)
+                K = np.diag([downsample, downsample, 1.0]).astype(
+                    np.float32) @ K
+            out = self.render_image(pose, K, h, w)
+            key = 'rgb_pr_nis' if 'rgb_pr_nis' in out else 'rgb_pr'
+            pr = out[key]
+            if key == 'rgb_pr_nis':
+                pr = pr + (1.0 - out['hit_mask'])
+            mse = float(np.mean((pr - gt) ** 2))
+            psnrs.append(-10.0 * np.log10(max(mse, 1e-10)))
+        return float(np.mean(psnrs))
 
     # ------------------------------------------------------------------
     def save(self, path: str):
         checkpoints.save_checkpoint(path, {
             'step': self.start_step,
+            'best_para': self.best_para,
             'params': self.params,
             'opt_state': self.opt.state(),
             'flow_copies': self.flow_copies,
@@ -331,6 +427,7 @@ class MaterialTrainer:
             self.flow_copies = checkpoints.tree_map(
                 to_dev, ckpt.get('flow_copies', {}))
         self.start_step = ckpt['step']
+        self.best_para = ckpt.get('best_para', 0.0)
         # stage 2 never reshapes params: restore the Adam moments +
         # schedule count against reset_step=0 (ref: trainer_inv.py:108-113)
         self.set_params(restored, 0)

@@ -347,8 +347,7 @@ def test_eval_shade_uses_no_noise_and_unported_options_raise(scene):
         b = pmc.mc_forward(*args, None, False)
     assert torch.equal(a['rgb_pr'], b['rgb_pr'])
     for over in (dict(shade_fn='shade_mixed_all'), dict(use_nis_all=True),
-                 dict(outer_light_version='direction'),
-                 dict(human_lights=True), dict(flow_type='realnvp')):
+                 dict(flow_type='realnvp')):
         with pytest.raises(NotImplementedError):
             pmc.init_mc_shading(torch.Generator().manual_seed(0),
                                 PCFG._replace(**over))

@@ -4,8 +4,8 @@
     package: checked by AST over every module, and by importing every
     port module in a fresh interpreter where ``import jax`` fails.
   * No silent CPU: an entry point without an explicit device (both
-    trainers, the microbench, the training and mesh CLIs) means the card
-    and raises where CUDA is absent.
+    trainers, the microbench, the training, mesh and material-evaluation
+    CLIs) means the card and raises where CUDA is absent.
   * The marching-tetrahedra library is built from the port's own copy of
     its source (csrc/), never from the JAX package's native/.
   * The kernel wrappers take the plain version only for CPU tensors, and
@@ -127,13 +127,16 @@ def test_material_trainer_and_microbench_without_device_need_cuda(tmp_path):
 def test_clis_without_device_need_cuda(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip('a card is present: device=None means the card')
-    from tensoflow_tpu_torch import extract_mesh, run_training
+    from tensoflow_tpu_torch import eval_mat, extract_mesh, run_training
     monkeypatch.chdir(tmp_path)
     cfg = os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         run_training.main(['--cfg', cfg, '--steps', '1', *SMALL_SHAPE])
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         extract_mesh.main(['--cfg', cfg, '--resolution', '8', *SMALL_SHAPE])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        eval_mat.main(['--cfg', os.path.join(
+            ROOT, 'configs/mat/syn/compressor.yaml'), '--run_nvs'])
 
 
 def test_marching_tets_builds_the_ports_own_source(tmp_path, monkeypatch):

@@ -322,7 +322,8 @@ def test_f32_tiles_and_workspace_sizing(S, n):
         assert pst.f32_grid(kern, n_sm, n, per_sm=1) <= grid
     for k in (tiles * tn, tiles * tn * S):
         splits, chunk = pst.f32_splits(n_sm, k)
-        assert chunk % pst.F32_AKC == 0 and splits <= n_sm
+        assert chunk % pst.F32_AKC == 0 and chunk <= pst.F32_AKMAX
+        assert splits <= max(n_sm, -(-k // pst.F32_AKMAX))
         assert (splits - 1) * chunk < k <= splits * chunk
     total = pst.workspace_bytes_f32(S, n_sm, n)
     assert total % 256 == 0
