@@ -3,9 +3,9 @@
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases (any failure exits nonzero; no phase's failure is caught; the
-four training phases (3, 5, 3b, 3c, in this order) run before the kernel
-phases, and their profiled steps last, because a profiler session slows
-every later launch of the process):
+five training phases (3, 5, 3b, 3c, 3d, in this order) run before the
+kernel phases, and their profiled steps last, because running the
+profiler slows every later launch of the process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
                (one nvcc per source, started together) and print the seconds.
   2. kernels — hold the stencil-head fwd and bwd kernels to their plain
@@ -62,6 +62,30 @@ every later launch of the process):
                configs/shape/custom/shoe.yaml (predict_BG, the sample
                variance clipped) with the background net moved by the
                first step.
+  3d. datasets — toy/blobs_128_12 written under build/smoke_datasets/ by
+               the port's own writers (imwrite_png, colmap_model, write_ply
+               and a ZIP / HALF EXR writer here) in every layout: tensoSDF
+               (with a test split: _normal.png, _diffColor.exr), nerf,
+               tensoIR, orb, syn, custom/<obj>/raw, raw_64 (resize),
+               custom/<obj>/96 and real/<obj>/96 (crops), a JPEG capture
+               (custom/<obj>/raw_64 with a JPEG cache), and read back
+               through parse_database_name, equal to what was written;
+               a tensoSDF layout of 50 views of 800x800 RGBA loaded (host
+               s/view), the C++ PNG defilter against its numpy version on
+               one view, a 1600x1200 JPEG read and written, the ray
+               batch's host bytes at the published 100 views;
+               compressor.yaml trained 4 steps from the
+               tensoSDF layout (the ray batch and the first step's loss
+               terms equal to the same trainer's through ToyDatabase), one
+               fwd + one bwd launch a step; shoe.yaml from the JPEG
+               capture's raw_64: the rays of its published nerfDataType
+               (true) that meet the aabb counted, then 4 steps with
+               nerfDataType false (the w2c ray function); stage
+               2 (mat compressor.yaml widths) 4 steps from the tensoSDF
+               layout on phase 5's checkpoint; python -m
+               tensoflow_tpu_torch.eval_geo on the test split and
+               eval_orb_shape between that checkpoint's mesh and the
+               analytic blobs mesh.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions at every shape of the gather probes
                (exact equality), timed beside the byte bound and
@@ -102,8 +126,8 @@ every later launch of the process):
 Then it prints the card's name and power limit, one JSON line listing
 every hand-written kernel (the stencil kernels with their float32 B=2
 figures, the shape of 80 % of a published run, and their launches in
-phase 3c, the other instantiations and the launches of phase 3b and of
-phase 5's render beside them),
+phase 3c, the other instantiations and the launches of phase 3b, of
+phase 5's render and of phase 3d's from-disk training beside them),
 and as the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
 exits nonzero and prints no result.
@@ -112,10 +136,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet HBM3 rate
@@ -1176,6 +1202,606 @@ def phase_background(card, steps=5):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: every dataset layout, written from the toy scenes and read back
+# ---------------------------------------------------------------------------
+
+DATASET_TOY = 'toy/blobs_128_12'
+TEST_IDS = (0, 6)                   # the toy views written as test splits
+RESIZE_LEN, CROP_SIZE = 64, 96      # custom/<obj>/raw_64, <obj>/96
+LOAD_TOY, LOAD_VIEWS = 'toy/sphere_800_50', 50
+# the published tensoSDF scenes: 100 training views of 800x800 RGBA
+PUBLISHED_VIEWS, PUBLISHED_SIZE = 100, 800
+
+
+def gl_c2w_to_w2c(c2w):
+    """A c2w pose in the blender (OpenGL) convention as a COLMAP w2c [3, 4]
+    (x right, y down, z forward)."""
+    cv = np.asarray(c2w, np.float64) @ np.diag([1.0, -1.0, -1.0, 1.0])
+    return np.linalg.inv(cv)[:3]
+
+
+def write_exr_zip_half(path, planes):
+    """A scanline OpenEXR file of {name: [h, w]} in HALF with ZIP
+    compression (16 lines a block), channels in EXR's alphabetical order."""
+    import struct
+    import zlib
+    from tensoflow_tpu_torch.data.image_io import EXR_MAGIC
+    names = sorted(planes)
+    h, w = planes[names[0]].shape
+
+    def attr(name, kind, body):
+        return (name.encode() + b'\0' + kind.encode() + b'\0'
+                + struct.pack('<i', len(body)) + body)
+    box = struct.pack('<iiii', 0, 0, w - 1, h - 1)
+    head = (struct.pack('<ii', EXR_MAGIC, 2)
+            + attr('channels', 'chlist', b''.join(
+                n.encode() + b'\0' + struct.pack('<iB3xii', 1, 0, 1, 1)
+                for n in names) + b'\0')
+            + attr('compression', 'compression', b'\3')
+            + attr('dataWindow', 'box2i', box)
+            + attr('displayWindow', 'box2i', box)
+            + attr('lineOrder', 'lineOrder', b'\0')
+            + attr('pixelAspectRatio', 'float', struct.pack('<f', 1.0))
+            + attr('screenWindowCenter', 'v2f', struct.pack('<ff', 0, 0))
+            + attr('screenWindowWidth', 'float', struct.pack('<f', 1.0))
+            + b'\0')
+    blocks = []
+    for y0 in range(0, h, 16):
+        raw = np.frombuffer(b''.join(
+            planes[n][y].astype('<f2').tobytes()
+            for y in range(y0, min(y0 + 16, h)) for n in names), np.uint8)
+        t = np.concatenate([raw[0::2], raw[1::2]]).astype(np.int64)
+        t[1:] = (t[1:] - t[:-1].copy() + 128) & 255
+        data = zlib.compress(t.astype(np.uint8).tobytes())
+        if len(data) >= len(raw):
+            data = raw.tobytes()
+        blocks.append(struct.pack('<ii', y0, len(data)) + data)
+    offsets = np.cumsum([len(head) + 8 * len(blocks)]
+                        + [len(b) for b in blocks[:-1]])
+    with open(path, 'wb') as f:
+        f.write(head + offsets.astype('<u8').tobytes() + b''.join(blocks))
+
+
+def _rgba(db, i):
+    return np.concatenate([db.get_image(i), (db.get_mask(i) * 255).astype(
+        np.uint8)[..., None]], -1)
+
+
+def _normal_png(db, i):
+    n = db.get_normal(i)
+    return np.round(np.concatenate([(n * 0.5 + 0.5) * 255,
+                                    db.get_mask(i)[..., None] * 255],
+                                   -1)).astype(np.uint8)
+
+
+def write_blender_layout(db, root, test_ids=(), extras=True):
+    """The views of a toy database in the blender layout of tensoSDF/ and
+    nerf/: transforms_{train,val,test}.json (the translations doubled: the
+    adapters halve them), RGBA pngs with the mask as alpha; views 0..n-2
+    train, n-1 val; ``test_ids`` also as the test split with _normal.png
+    and a ZIP / HALF _diffColor.exr (albedo, mask as A)."""
+    from tensoflow_tpu_torch.data.image_io import imwrite_png
+    ids = list(db.get_img_ids())
+    cax = 2 * np.arctan(0.5 * db.W / float(db.K[0, 0]))
+    for split, sids in (('train', ids[:-1]), ('val', ids[-1:]),
+                        ('test', list(test_ids))):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i in sids:
+            fp = f'./{split}/r_{i}'
+            imwrite_png(os.path.join(root, fp + '.png'), _rgba(db, i))
+            pose = np.array(db.get_pose(i), np.float64)
+            pose[:, 3:] *= 2.0
+            frames.append({'file_path': fp,
+                           'transform_matrix': pose.tolist()})
+            if split == 'test' and extras:
+                imwrite_png(os.path.join(root, fp + '_normal.png'),
+                            _normal_png(db, i))
+                planes = dict(zip('RGB', np.moveaxis(db.get_albedo(i), -1,
+                                                     0)))
+                planes['A'] = db.get_mask(i)
+                write_exr_zip_half(os.path.join(root, fp + '_diffColor.exr'),
+                                   planes)
+        with open(os.path.join(root, f'transforms_{split}.json'), 'w') as f:
+            json.dump({'camera_angle_x': cax, 'frames': frames}, f)
+
+
+def write_tensoir_layout(db, root, test_ids=()):
+    """TensoIR: <split>_NNN/ with metadata.json and rgba_sunset_000.png;
+    the test views also normal.png and albedo.png."""
+    from tensoflow_tpu_torch.data.image_io import imwrite_png
+    ids = list(db.get_img_ids())
+    cax = 2 * np.arctan(0.5 * db.W / float(db.K[0, 0]))
+    for split, sids in (('train', ids[:-1]), ('val', ids[-1:]),
+                        ('test', list(test_ids))):
+        for k, i in enumerate(sids):
+            d = os.path.join(root, f'{split}_{k:03d}')
+            os.makedirs(d, exist_ok=True)
+            pose = np.array(db.get_pose(i), np.float64)
+            pose[:, 3:] *= 2.0
+            with open(os.path.join(d, 'metadata.json'), 'w') as f:
+                json.dump({'cam_transform_mat': ','.join(
+                    repr(float(v)) for v in pose.reshape(-1)),
+                    'imh': db.H, 'imw': db.W, 'cam_angle_x': cax}, f)
+            imwrite_png(os.path.join(d, 'rgba_sunset_000.png'), _rgba(db, i))
+            if split == 'test':
+                imwrite_png(os.path.join(d, 'normal.png'), _normal_png(db, i))
+                alb = np.round(db.get_albedo(i) * 255).astype(np.uint8)
+                imwrite_png(os.path.join(d, 'albedo.png'), np.concatenate(
+                    [alb, (db.get_mask(i) * 255).astype(np.uint8)[..., None]],
+                    -1))
+
+
+def write_orb_layout(db, root, test_ids=()):
+    """ORB: blender_format_LDR/transforms_{train,test}.json + RGBA pngs."""
+    from tensoflow_tpu_torch.data.image_io import imwrite_png
+    d = os.path.join(root, 'blender_format_LDR')
+    cax = 2 * np.arctan(0.5 * db.W / float(db.K[0, 0]))
+    for split, sids in (('train', list(db.get_img_ids())),
+                        ('test', list(test_ids))):
+        os.makedirs(os.path.join(d, split), exist_ok=True)
+        frames = []
+        for i in sids:
+            fp = f'{split}/{i:04d}'
+            imwrite_png(os.path.join(d, fp + '.png'), _rgba(db, i))
+            frames.append({'file_path': fp, 'transform_matrix':
+                           np.asarray(db.get_pose(i), np.float64).tolist()})
+        with open(os.path.join(d, f'transforms_{split}.json'), 'w') as f:
+            json.dump({'camera_angle_x': cax, 'frames': frames}, f)
+
+
+SYN_DEPTH = 2.0       # metres stored for the object; the background 15
+PC_RADIUS = 0.5       # of the object point cloud of the COLMAP layouts
+
+
+def write_glossy_syn_layout(db, root):
+    """GlossySynthetic: <k>.png, 16-bit <k>-depth.png (the background at
+    its far value), <k>-camera.pkl = (w2c [3, 4], K)."""
+    import pickle
+    from tensoflow_tpu_torch.data.image_io import imwrite_png
+    os.makedirs(root, exist_ok=True)
+    for k, i in enumerate(db.get_img_ids()):
+        imwrite_png(os.path.join(root, f'{k}.png'), db.get_image(i))
+        depth = np.where(db.get_mask(i) > 0.5,
+                         round(SYN_DEPTH / 15 * 65535), 65535)
+        imwrite_png(os.path.join(root, f'{k}-depth.png'),
+                    depth.astype(np.uint16))
+        with open(os.path.join(root, f'{k}-camera.pkl'), 'wb') as f:
+            pickle.dump((gl_c2w_to_w2c(db.get_pose(i)),
+                         np.asarray(db.get_K(i), np.float64)), f)
+
+
+def write_colmap_layout(db, root, masks=True, ext='.png'):
+    """A COLMAP capture of the toy views: images/*<ext> (PNG, or JPEG at
+    cv2's default quality), masks/*.png, a binary sparse model (one
+    PINHOLE camera) and object_point_cloud.ply of the six axis points at
+    PC_RADIUS, which the adapters normalize to the unit sphere: the poses'
+    translations grow by 1 / PC_RADIUS."""
+    from tensoflow_tpu_torch.data import colmap_model as cm
+    from tensoflow_tpu_torch.data.image_io import imwrite_jpeg, imwrite_png
+    from tensoflow_tpu_torch.ops.mesh import write_ply
+    for sub in ('images', 'masks') if masks else ('images',):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    K = np.asarray(db.get_K(0), np.float64)
+    cams = {1: cm.Camera(1, 'PINHOLE', db.W, db.H,
+                         np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
+    images = {}
+    for k, i in enumerate(db.get_img_ids()):
+        w2c = gl_c2w_to_w2c(db.get_pose(i))
+        name = f'view{k:03d}{ext}'
+        images[k + 1] = cm.Image(k + 1, cm.rotmat2qvec(w2c[:, :3]),
+                                 w2c[:, 3], 1, name, np.zeros((0, 2)),
+                                 np.zeros(0, np.int64))
+        write = imwrite_png if ext == '.png' else imwrite_jpeg
+        write(os.path.join(root, 'images', name), db.get_image(i))
+        if masks:
+            imwrite_png(os.path.join(root, 'masks', name),
+                        (db.get_mask(i) * 255).astype(np.uint8))
+    cm.write_model(cams, images, {}, os.path.join(root, 'colmap', 'sparse',
+                                                  '0'))
+    write_ply(os.path.join(root, 'object_point_cloud.ply'),
+              PC_RADIUS * np.concatenate([np.eye(3), -np.eye(3)]).astype(
+                  np.float32),
+              np.zeros((0, 3), np.int32))
+
+
+def write_layouts(db, root):
+    """Every layout of the toy scene under root/<layout>/; returns the
+    (database name, dataset dir) of each."""
+    obj = db.database_name.split('/')[1].split('_')[0]
+    write_blender_layout(db, os.path.join(root, 'tensoSDF', obj), TEST_IDS)
+    write_blender_layout(db, os.path.join(root, 'nerf', obj), extras=False)
+    write_tensoir_layout(db, os.path.join(root, 'tensoIR', obj), TEST_IDS)
+    write_orb_layout(db, os.path.join(root, 'orb', obj), TEST_IDS)
+    write_glossy_syn_layout(db, os.path.join(root, 'syn', obj))
+    write_colmap_layout(db, os.path.join(root, 'custom', obj))
+    write_colmap_layout(db, os.path.join(root, 'custom_jpeg', obj),
+                        masks=False, ext='.jpg')
+    write_colmap_layout(db, os.path.join(root, 'real', obj), masks=False)
+    dirs = {'custom_jpeg': 'custom_jpeg'}
+    return {kind: (name.format(obj=obj),
+                   os.path.join(root, dirs.get(kind, name.split('/')[0])))
+            for kind, name in (
+                ('tensoSDF', 'tensoSDF/{obj}'), ('nerf', 'nerf/{obj}'),
+                ('tensoIR', 'tensoIR/{obj}'), ('orb', 'orb/{obj}'),
+                ('syn', 'syn/{obj}'), ('custom', 'custom/{obj}/raw'),
+                ('custom_resize', f'custom/{{obj}}/raw_{RESIZE_LEN}'),
+                ('custom_jpeg', f'custom/{{obj}}/raw_{RESIZE_LEN}'),
+                ('custom_crop', f'custom/{{obj}}/{CROP_SIZE}'),
+                ('real', f'real/{{obj}}/{CROP_SIZE}'))}
+
+
+def _same(what, got, want, exact=True):
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f'{what}: shape {got.shape} vs {want.shape}')
+    if exact and not np.array_equal(got, want):
+        raise AssertionError(f'{what}: differs in {(got != want).sum()} of '
+                             f'{got.size} values')
+    if not exact and not np.allclose(got, want, rtol=1e-6, atol=1e-6):
+        raise AssertionError(f'{what}: max |diff| '
+                             f'{np.abs(got - want.astype(got.dtype)).max()}')
+
+
+def _expected_normal(png):
+    mask = png[..., 3:].astype(np.float32) / 255.0
+    nrm = (png[..., :3] / 255.0 - 0.5) * 2.0
+    return nrm * mask + (1 - mask) * np.array([0, 0, 1.0])
+
+
+def check_layouts(db, layouts):
+    """Each layout read back through parse_database_name: images, masks,
+    normals, albedo and depth equal to what was written, poses and K to
+    1e-6.  Returns the number of views compared per layout."""
+    from tensoflow_tpu_torch.data import database as db_mod
+    from tensoflow_tpu_torch.data.colmap_db import project_points
+    from tensoflow_tpu_torch.data.image_ops import resize_area
+    ids = list(db.get_img_ids())
+    counts, jpeg_err = {}, 0.0
+    for kind, (name, ddir) in layouts.items():
+        split_ids = {False: ids, True: list(TEST_IDS)}
+        tests = (False, True) if kind in ('tensoSDF', 'tensoIR', 'orb') \
+            else (False,)
+        n = 0
+        for is_test in tests:
+            rd = db_mod.parse_database_name(name, ddir, isTest=is_test,
+                                            isWhiteBG=True)
+            src = split_ids[is_test]
+            if len(rd.get_img_ids()) != len(src):
+                raise AssertionError(f'{name}: {len(rd.get_img_ids())} '
+                                     f'views, {len(src)} written')
+            for rid, i in zip(rd.get_img_ids(), src):
+                what = f'{name} view {rid}' + (' (test)' if is_test else '')
+                img, mask = db.get_image(i), db.get_mask(i)
+                w2c = gl_c2w_to_w2c(db.get_pose(i))
+                if kind in ('tensoSDF', 'nerf', 'tensoIR', 'orb'):
+                    _same(what + ' image', rd.get_image(rid), img)
+                    _same(what + ' mask', rd.get_mask(rid), mask)
+                    _same(what + ' pose', rd.get_pose(rid)[:3],
+                          np.asarray(db.get_pose(i))[:3], exact=False)
+                    _same(what + ' K', rd.get_K(rid), db.get_K(i),
+                          exact=False)
+                    if is_test and kind != 'orb':
+                        _same(what + ' normal', rd.get_normal(rid),
+                              _expected_normal(_normal_png(db, i)))
+                    if is_test and kind == 'tensoIR':
+                        alb = np.round(db.get_albedo(i) * 255).astype(
+                            np.uint8)
+                        _same(what + ' albedo', rd.get_albedo(rid),
+                              alb / 255.0 * (_rgba(db, i)[..., 3:] / 255.0))
+                    if is_test and kind == 'tensoSDF':
+                        h16 = lambda a: a.astype(np.float16).astype(  # noqa
+                            np.float32)
+                        _same(what + ' diffColor', rd.get_albedo(rid),
+                              h16(db.get_albedo(i)) * h16(mask)[..., None])
+                elif kind == 'syn':
+                    _same(what + ' image', rd.get_image(rid),
+                          img * (mask > 0.5)[..., None])
+                    _same(what + ' mask', rd.get_mask(rid), mask > 0.5)
+                    _same(what + ' pose', rd.get_pose(rid), w2c, exact=False)
+                    _same(what + ' K', rd.get_K(rid), db.get_K(i),
+                          exact=False)
+                elif kind == 'custom':
+                    _same(what + ' image', rd.get_image(rid), img)
+                    _same(what + ' mask', rd.get_mask(rid), mask > 0.5)
+                    w2c[:, 3] /= PC_RADIUS
+                    _same(what + ' pose', rd.get_pose(rid), w2c, exact=False)
+                    _same(what + ' K', rd.get_K(rid), db.get_K(i),
+                          exact=False)
+                elif kind == 'custom_jpeg':
+                    # JPEG captures, resized into a JPEG cache (quality
+                    # 95 twice): within a few levels of the toy's view
+                    want = resize_area(img, (RESIZE_LEN, RESIZE_LEN))
+                    got = rd.get_image(rid)
+                    err = np.abs(got.astype(np.int64) - want).mean()
+                    jpeg_err = max(jpeg_err, err)
+                    if got.shape != want.shape or err > 6:
+                        raise AssertionError(f'{what}: mean |JPEG - toy| '
+                                             f'{err:.3f} levels')
+                    w2c[:, 3] /= PC_RADIUS
+                    _same(what + ' pose', rd.get_pose(rid), w2c, exact=False)
+                elif kind == 'custom_resize':
+                    s = RESIZE_LEN / db.W
+                    _same(what + ' image', rd.get_image(rid), resize_area(
+                        img[..., ::-1], (RESIZE_LEN, RESIZE_LEN))[..., ::-1])
+                    _same(what + ' K', rd.get_K(rid), np.diag(
+                        [s, s, 1.0]) @ db.get_K(i), exact=False)
+                else:                            # the object-centred crops
+                    got = rd.get_image(rid)
+                    if got.shape != (CROP_SIZE, CROP_SIZE, 3):
+                        raise AssertionError(f'{what}: crop {got.shape}')
+                    uv, depth = project_points(rd.ref_points,
+                                               rd.get_pose(rid),
+                                               rd.get_K(rid))
+                    if (depth <= 0).any() or uv.min() < -2 \
+                            or uv.max() > CROP_SIZE + 2:
+                        raise AssertionError(f'{what}: the object does not '
+                                             'project inside the crop')
+                n += 1
+        counts[f'{name} ({kind})'] = n
+    print(f'[datasets] the JPEG capture\'s resized views: mean |JPEG - '
+          f'toy view| at most {jpeg_err:.3f} levels (cv2\'s quality 95, '
+          'twice)', flush=True)
+    return counts
+
+
+def published_load(card, root):
+    """A tensoSDF layout at the published size (800x800 RGBA, 50 views,
+    written here) loaded through parse_database_name: host seconds a view;
+    the C++ defilter against its numpy plain version on one view (bytes
+    and times); the ray batch's host bytes a ray, scaled to the published
+    100 training views."""
+    import zlib
+    from tensoflow_tpu_torch.data import database as db_mod
+    from tensoflow_tpu_torch.data import image_io, rays as rays_mod
+    from tensoflow_tpu_torch.data.toy import ToyDatabase
+    t0 = time.perf_counter()
+    toy = ToyDatabase(LOAD_TOY)
+    render_s = time.perf_counter() - t0
+    ddir = os.path.join(root, 'published')
+    t0 = time.perf_counter()
+    write_blender_layout(toy, os.path.join(ddir, 'sphere'), extras=False)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rd = db_mod.parse_database_name('tensoSDF/sphere', ddir, isWhiteBG=True)
+    load_s = time.perf_counter() - t0
+    n = len(rd.get_img_ids())
+    if n != LOAD_VIEWS:
+        raise AssertionError(f'{n} views loaded, {LOAD_VIEWS} written')
+    for i in (0, n - 1):
+        _same(f'published view {i}', rd.get_image(i), toy.get_image(i))
+    print(f'[datasets] published-size load: {n} views of {toy.W}x{toy.H} '
+          f'RGBA (tensoSDF layout, written by the phase in {write_s:.1f} s '
+          f'after {render_s:.1f} s of rendering) read by parse_database_name '
+          f'in {load_s:.2f} s = {load_s / n * 1e3:.1f} ms/view (host time '
+          f'on the card\'s machine; {card})', flush=True)
+
+    path = os.path.join(ddir, 'sphere', 'train', 'r_0.png')
+    with open(path, 'rb') as f:
+        data = f.read()
+    idat = b''.join(b for k, b in image_io._png_chunks(data, path)
+                    if k == b'IDAT')
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    h, stride = toy.H, toy.W * 4
+    kinds = np.bincount(raw.reshape(h, stride + 1)[:, 0], minlength=5)
+    t0 = time.perf_counter()
+    fast = image_io.unfilter(raw, h, stride, 4)
+    cpp_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = image_io.unfilter_plain(raw, h, stride, 4)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(fast, plain):
+        raise AssertionError('the C++ defilter differs from the plain '
+                             'version')
+    print(f'[datasets] PNG defilter of one {toy.W}x{toy.H} RGBA view (row '
+          f'filters None/Sub/Up/Average/Paeth: {kinds.tolist()}): C++ '
+          f'{cpp_ms:.2f} ms, numpy plain version {plain_ms:.1f} ms, bytes '
+          f'identical (host times; {card})', flush=True)
+
+    # a JPEG capture's frame at custom/*/raw_1600's size: 1600x1200
+    big = np.repeat(np.repeat(toy.get_image(0), 2, 0), 2, 1)[:1200]
+    jpg = os.path.join(ddir, 'frame.jpg')
+    t0 = time.perf_counter()
+    image_io.imwrite_jpeg(jpg, big)
+    jw_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = image_io.imread(jpg)
+    jr_ms = (time.perf_counter() - t0) * 1e3
+    err = np.abs(back.astype(np.int64) - big).mean()
+    if back.shape != big.shape or err > 3:
+        raise AssertionError(f'JPEG round trip: {back.shape}, mean |diff| '
+                             f'{err:.3f}')
+    print(f'[datasets] JPEG at {big.shape[1]}x{big.shape[0]} (4:2:0, '
+          f'quality 95): read {jr_ms:.1f} ms, write {jw_ms:.1f} ms, mean '
+          f'|round trip - source| {err:.3f} levels (host times; {card})',
+          flush=True)
+
+    info = rays_mod.build_imgs_info(rd, [0, 1], apply_mask=True)
+    batch, rn, _, _ = rays_mod.construct_ray_batch_nerf(info, True)
+    per_ray = sum(v.nbytes for v in batch.values()) / rn
+    total = per_ray * PUBLISHED_VIEWS * PUBLISHED_SIZE ** 2
+    print(f'[datasets] ray batch on the host: {per_ray:.0f} bytes a ray '
+          f'({", ".join(sorted(batch))}); at {PUBLISHED_VIEWS} views of '
+          f'{PUBLISHED_SIZE}x{PUBLISHED_SIZE}, before the aabb filter: '
+          f'{total / 2 ** 30:.2f} GiB', flush=True)
+    shutil.rmtree(ddir)
+    return load_s / n
+
+
+def _train_timed(trainer, steps=4):
+    """``steps`` logged steps; returns (logs, mean ms of steps 2..steps)."""
+    logs = trainer.train(n_steps=1, log_every=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs += trainer.train(n_steps=steps - 1, log_every=1)
+    torch.cuda.synchronize()
+    return logs, (time.perf_counter() - t0) / (steps - 1) * 1e3
+
+
+def _cli(args, cwd):
+    """``python -m <args>`` run from ``cwd`` with the repository on the
+    path; its standard output, stripped.  Raises with its errors."""
+    res = subprocess.run([sys.executable, '-m', *args], cwd=cwd,
+                         env=dict(os.environ, PYTHONPATH=_root()),
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f'python -m {args[0]} exit {res.returncode}:\n'
+                             + res.stderr[-3000:])
+    return res.stdout.strip()
+
+
+def phase_datasets(card, geo):
+    """Every layout of the toy scene written with the port's own writers
+    and read back; the published-size load; stage 1 from disk
+    (compressor.yaml on the tensoSDF layout against the same trainer fed
+    through ToyDatabase; shoe.yaml on custom/<obj>/raw_64), stage 2 from
+    disk on the phase-5 checkpoint
+    ``geo``; the eval_geo and eval_orb_shape CLIs.  Returns the stencil
+    launches of the from-disk training runs."""
+    from tensoflow_tpu_torch import extract_mesh
+    from tensoflow_tpu_torch.data.toy import ToyDatabase, blob_sdf
+    from tensoflow_tpu_torch.ops import mesh
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
+    root = os.path.join(_root(), 'build', 'smoke_datasets')
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = t0 = time.perf_counter()
+    toy = ToyDatabase(DATASET_TOY)
+    layouts = write_layouts(toy, root)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = check_layouts(toy, layouts)
+    print(f'[datasets] {DATASET_TOY} written in every layout in '
+          f'{write_s:.1f} s and read back in {time.perf_counter() - t0:.1f} '
+          f's through parse_database_name, equal to what was written '
+          f'(images, masks, normals, diffColor, depth exactly; poses and K '
+          f'to 1e-6; resize against image_ops, crops by reprojection): '
+          f'views compared {counts}', flush=True)
+    published_load(card, root)
+
+    # stage 1 from disk against the same trainer fed through ToyDatabase
+    name, ddir = layouts['tensoSDF']
+    disk_cuts = ['split_manul=false', f'database_name={name}',
+                 f'dataset_dir={ddir}']
+    ref = ShapeTrainer(_load_cfg(['split_manul=false',
+                                  f'database_name={DATASET_TOY}'],
+                                 HIER_YAML))
+    ref.init_dataset()
+    ref_log = ref.train(n_steps=1, log_every=1)
+    ref_batch = ref.batcher.batch
+    del ref
+    cfg = _load_cfg(disk_cuts, HIER_YAML)
+    trainer = ShapeTrainer(cfg)
+    t0 = time.perf_counter()
+    trainer.init_dataset()
+    init_s = time.perf_counter() - t0
+    for k, v in ref_batch.items():
+        _same(f'ray batch {k} (tensoSDF layout vs ToyDatabase)',
+              trainer.batcher.batch[k], v)
+    st.reset_launches()
+    logs, shape_ms = _train_timed(trainer)
+    _check_finite(logs)
+    if logs[0] != ref_log[0]:
+        raise AssertionError(f'first step from disk {logs[0]} vs through '
+                             f'ToyDatabase {ref_log[0]}')
+    shape_launches = dict(st.LAUNCHES)
+    if shape_launches != {'stencil_head_fwd': 4, 'stencil_head_bwd': 4}:
+        raise AssertionError(f'{HIER_YAML} from disk: launches '
+                             f'{shape_launches} in 4 steps')
+    print(f'[datasets] {HIER_YAML} from {name} (as published: '
+          f'{cfg["gather_dtype"]} gathers, nerfDataType '
+          f'{cfg["nerfDataType"]}; cut: split_manul false): init_dataset '
+          f'{init_s:.2f} s, {trainer.batcher.n} rays after the aabb filter '
+          f'(the same batch as through ToyDatabase); loss per step '
+          + ', '.join(f'{r["loss"]:.6f}' for r in logs)
+          + '; step 1 terms equal to the ToyDatabase-fed trainer\'s; '
+          f'launches {shape_launches}; {shape_ms:.1f} ms/step over steps '
+          f'2-4 on {card}', flush=True)
+    del trainer
+
+    # shoe.yaml publishes nerfDataType true, but CustomDatabase gives w2c
+    # COLMAP poses (both packages): the nerf ray function then starts every
+    # ray at a w2c translation, and the rays that meet the aabb are
+    # counted; the 4 steps take the w2c ray function (the cut)
+    name, ddir = layouts['custom_jpeg']
+    over = ['split_manul=false', f'database_name={name}',
+            f'dataset_dir={ddir}']
+    published = ShapeTrainer(_load_cfg(over, BG_YAML))
+    published.init_dataset()
+    n_pub, nerf_type = published.batcher.n, published.cfg['nerfDataType']
+    del published
+    cfg = _load_cfg(over + ['nerfDataType=false'], BG_YAML)
+    trainer = ShapeTrainer(cfg)
+    trainer.init_dataset()
+    logs, bg_ms = _train_timed(trainer)
+    _check_finite(logs)
+    if dict(st.LAUNCHES) != {'stencil_head_fwd': 8, 'stencil_head_bwd': 8}:
+        raise AssertionError(f'{BG_YAML} from disk: launches '
+                             f'{dict(st.LAUNCHES)} after 4 + 4 steps')
+    n_rays = len(trainer.train_ids) * RESIZE_LEN ** 2
+    print(f'[datasets] {BG_YAML} from {name} (a JPEG capture, JPEG '
+          f'cache): with its published '
+          f'nerfDataType {nerf_type}, {n_pub} of {n_rays} rays meet the '
+          f'aabb; cut nerfDataType false (the w2c ray function on the COLMAP '
+          f'poses): {trainer.batcher.n} of {n_rays} rays, predict_BG '
+          f'{cfg["predict_BG"]}; loss per step '
+          + ', '.join(f'{r["loss"]:.6f}' for r in logs)
+          + f'; {bg_ms:.1f} ms/step over steps 2-4 on {card}', flush=True)
+    del trainer
+
+    name, ddir = layouts['tensoSDF']
+    mcfg = _mat_cfg({'database_name': name, 'dataset_dir': ddir,
+                     'split_manul': False, 'shader_cfg': dict(NIS_CUT)})
+    mat = MaterialTrainer(mcfg, geo)
+    mat.init_dataset()
+    logs, mat_ms = _train_timed(mat)
+    _check_finite(logs)
+    launches = dict(st.LAUNCHES)
+    print(f'[datasets] {MAT_YAML} from {name} on the phase-5 checkpoint: '
+          f'{mat.tbn} surface hits kept; loss per step '
+          + ', '.join(f'{r["loss"]:.6f}' for r in logs)
+          + f' (no NIS); {mat_ms:.1f} ms/step over steps 2-4 on {card}; '
+          f'stencil launches of the three from-disk runs {launches}',
+          flush=True)
+    del mat
+    torch.cuda.empty_cache()
+
+    # the evaluation CLIs, as a user runs them, on the phase-5 checkpoint
+    occ = os.path.join(_root(), 'configs/shape/syn/compressor_occ.yaml')
+    name, ddir = layouts['tensoSDF']
+    out = _cli(['tensoflow_tpu_torch.eval_geo', '--cfg', occ, '--ckpt', geo,
+                '--save_dir', os.path.join(root, 'nvs'),
+                'gather_dtype=bfloat16', f'database_name={name}',
+                f'dataset_dir={ddir}'], root).splitlines()
+    line = out[-1]
+    vals = [float(v) for v in line.split()[-5::2]]
+    if 'NormalMAE' not in line or not np.isfinite(vals).all():
+        raise AssertionError(f'eval_geo: {out}')
+    print(f'[datasets] python -m tensoflow_tpu_torch.eval_geo on the '
+          f'{len(TEST_IDS)}-view test split of {name}: ' + ' | '.join(out),
+          flush=True)
+    pred = os.path.join(root, 'pred.ply')
+    _, verts, _ = extract_mesh.main([
+        '--cfg', occ, '--ckpt', geo, '--resolution', '128', '--output',
+        pred, 'gather_dtype=bfloat16', f'database_name={DATASET_TOY}'])
+    lin = np.linspace(-1, 1, 128)
+    gverts, gtris = mesh.marching_tets(blob_sdf(np.stack(np.meshgrid(
+        lin, lin, lin, indexing='ij'), -1)))
+    mesh.write_ply(os.path.join(root, 'gt.ply'), gverts / 127 * 2 - 1, gtris)
+    out = _cli(['tensoflow_tpu_torch.eval_orb_shape', '--mesh', pred,
+                '--gt_mesh', os.path.join(root, 'gt.ply')], root)
+    cd = float(out.split()[-1])
+    if not np.isfinite(cd):
+        raise AssertionError(f'eval_orb_shape: {out}')
+    print(f'[datasets] python -m tensoflow_tpu_torch.eval_orb_shape between '
+          f'the phase-5 checkpoint\'s mesh at 128^3 ({len(verts)} vertices) '
+          f'and the analytic blobs mesh ({len(gverts)} vertices): {out}; '
+          f'phase {time.perf_counter() - t_phase:.1f} s', flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the tile-gather probes
 # ---------------------------------------------------------------------------
 
@@ -1871,6 +2497,8 @@ def main():
     mat_trainer, mat_ms, render_launches, chunk_ms = phase_stage2(card)
     launches, sched_trainer, sched_ms = phase_schedule(card)
     hier_launches, hier_trainer, hier_ms, hier_errs = phase_hierarchical(card)
+    disk_launches = phase_datasets(
+        card, os.path.join(_root(), 'build', 'smoke_geo.pt'))
     kinds = phase_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
@@ -1898,7 +2526,8 @@ def main():
             'library_ms': None, **row, 'dtype': 'float32', 'B': 2,
             'launches_by_path': {'hierarchical_f32': hier_launches[k],
                                  'occ_schedule_bf16': launches[k],
-                                 'stage2_render_f32': render_launches[k]},
+                                 'stage2_render_f32': render_launches[k],
+                                 'from_disk': disk_launches[k]},
             'other_rows': {f'{t} B={b}': kinds[t, b][k]
                            for t, b in kinds if (t, b) != ('f32', 2)}})
     print(json.dumps({'kernels': stencil + [

@@ -1,7 +1,10 @@
-"""Image metrics of the port (counterpart of tensoflow_tpu/eval/metrics.py:
-psnr and ssim, self-contained numpy; the JAX package's LPIPS, Chamfer and
-HDR metrics are not ported yet)."""
+"""Metrics of the port (counterpart of tensoflow_tpu/eval/metrics.py):
+psnr, ssim, normal_mae, chamfer_distance and scale_invariant_psnr_hdr,
+self-contained numpy (scipy's cKDTree for Chamfer); LPIPS is not ported
+yet."""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -49,3 +52,50 @@ def ssim(gt: np.ndarray, pred: np.ndarray, data_range: float = 1.0) -> float:
         pad = 5
         vals.append(s[pad:-pad, pad:-pad].mean())
     return float(np.mean(vals))
+
+
+def normal_mae(gt_normals: np.ndarray, pred_normals: np.ndarray,
+               mask: Optional[np.ndarray] = None) -> float:
+    """Mean angular error in degrees (ref: trainer_inv.py:327-330)."""
+    def norm(v):
+        return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True),
+                              1e-8)
+    cos = np.clip(np.sum(norm(gt_normals) * norm(pred_normals), -1), -1, 1)
+    ang = np.arccos(cos) * 180.0 / np.pi
+    if mask is not None:
+        return float(ang[mask > 0.5].mean())
+    return float(ang.mean())
+
+
+def chamfer_distance(pts_a: np.ndarray, pts_b: np.ndarray,
+                     bidirectional: bool = True) -> float:
+    """Bidirectional mean Chamfer via KD-trees (ref: eval_orb_shape.py:42-96)."""
+    from scipy.spatial import cKDTree
+    d_ab = cKDTree(pts_b).query(pts_a, k=1)[0]
+    if not bidirectional:
+        return float(d_ab.mean())
+    d_ba = cKDTree(pts_a).query(pts_b, k=1)[0]
+    return float(0.5 * (d_ab.mean() + d_ba.mean()))
+
+
+def scale_invariant_psnr_hdr(gt: np.ndarray, pred: np.ndarray,
+                             mask: Optional[np.ndarray] = None) -> float:
+    """ORB relight protocol: per-channel least-squares scale before PSNR
+    (ref: eval_orb_relight.py:64-80)."""
+    gt = gt.astype(np.float64)
+    pred = pred.astype(np.float64)
+    if mask is not None:
+        m = mask > 0.5
+        gt_m = gt[m]
+        pr_m = pred[m]
+    else:
+        gt_m = gt.reshape(-1, gt.shape[-1])
+        pr_m = pred.reshape(-1, pred.shape[-1])
+    scales = []
+    for c in range(gt_m.shape[-1]):
+        denom = float(np.sum(pr_m[:, c] ** 2))
+        scales.append(float(np.sum(pr_m[:, c] * gt_m[:, c]))
+                      / max(denom, 1e-12))
+    pred_s = pred * np.asarray(scales)[None, None, :]
+    mse = float(np.mean((gt - pred_s) ** 2))
+    return float(-10.0 * np.log10(max(mse, 1e-12)))

@@ -18,34 +18,15 @@ The checkpoint is opened with MaterialTrainer.load's default, which (as in
 the reference) restarts the flows and clears their frozen copies, so the
 views render through the analytic pass only.  It runs on the card;
 ``--device cpu`` runs the plain PyTorch path.  PNGs are written by
-``write_png`` (zlib + struct), which needs no imaging package.
+``data/image_io.imwrite_png``, which needs no imaging package.
 """
 from __future__ import annotations
 
 import argparse
 import os
-import struct
-import zlib
 
 import numpy as np
 import torch
-
-
-def write_png(path: str, rgb: np.ndarray):
-    """An 8-bit RGB PNG of ``rgb`` [h, w, 3] uint8 (no filter, one IDAT)."""
-    rgb = np.ascontiguousarray(rgb, np.uint8)
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          rgb.reshape(h, w * 3)], 1).tobytes()
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack('>I', len(data)) + tag + data
-                + struct.pack('>I', zlib.crc32(tag + data) & 0xFFFFFFFF))
-    with open(path, 'wb') as f:
-        f.write(b'\x89PNG\r\n\x1a\n'
-                + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
-                + chunk(b'IDAT', zlib.compress(raw, 6))
-                + chunk(b'IEND', b''))
 
 
 def _srgb(x: np.ndarray) -> np.ndarray:
@@ -118,6 +99,7 @@ def main(argv=None):
 
     from tensoflow_tpu_torch.config import load_config
     from tensoflow_tpu_torch.data import database as db_mod
+    from tensoflow_tpu_torch.data.image_io import imwrite_png
     from tensoflow_tpu_torch.eval import metrics
     from tensoflow_tpu_torch.models import material_renderer as mr
     from tensoflow_tpu_torch.ops import mesh as mesh_mod
@@ -149,8 +131,8 @@ def main(argv=None):
                 pred = pred + (1.0 - out['hit_mask'])
             psnrs.append(metrics.psnr(gt, pred))
             ssims.append(metrics.ssim(gt, pred))
-            write_png(os.path.join(save_dir, f'{vid}_mat.png'),
-                      (np.clip(pred, 0, 1) * 255).astype(np.uint8))
+            imwrite_png(os.path.join(save_dir, f'{vid}_mat.png'),
+                        (np.clip(pred, 0, 1) * 255).astype(np.uint8))
             print(f'view {vid}: psnr={psnrs[-1]:.3f}', flush=True)
         msg = (f"{cfg['name']} mat: PSNR {np.mean(psnrs):.4f} "
                f"SSIM {np.mean(ssims):.4f}")

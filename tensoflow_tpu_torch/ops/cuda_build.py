@@ -88,6 +88,22 @@ def build(names: Sequence[str],
         raise RuntimeError('kernel build failed:\n' + '\n'.join(errors))
 
 
+def build_host(src: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile the host C++ source ``src`` (a plain C interface) with g++
+    into ``build_dir`` unless a library of the same source is already
+    there; returns its path.  A failed build raises."""
+    with open(src, 'rb') as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:12]
+    name = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(build_dir, f'lib{name}_{tag}.so')
+    if not os.path.exists(out):
+        os.makedirs(build_dir, exist_ok=True)
+        subprocess.check_call(['g++', '-O3', '-shared', '-fPIC',
+                               '-std=c++17', src, '-o', out + '.tmp'])
+        os.replace(out + '.tmp', out)
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, building it if needed."""
     lib = _LIBS.get((name, DEFINES))

@@ -10,13 +10,12 @@ the source) at first use, and binds it with ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 from typing import Callable, Tuple
 
 import numpy as np
 
+from . import cuda_build
 from .cuda_build import BUILD_DIR, CSRC
 
 _SRC = os.path.join(CSRC, 'marching_tets.cpp')
@@ -26,15 +25,7 @@ _LIB = None
 def _build_library() -> str:
     """Compile csrc/marching_tets.cpp with g++ unless a library of the
     same source is already built; returns its path."""
-    with open(_SRC, 'rb') as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f'libmarching_tets_{tag}.so')
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        subprocess.check_call(['g++', '-O3', '-shared', '-fPIC',
-                               '-std=c++17', _SRC, '-o', out + '.tmp'])
-        os.replace(out + '.tmp', out)
-    return out
+    return cuda_build.build_host(_SRC, BUILD_DIR)
 
 
 def _lib():

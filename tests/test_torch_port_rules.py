@@ -3,9 +3,15 @@
   * The port and chip_smoke.py import nothing of JAX, optax or the JAX
     package: checked by AST over every module, and by importing every
     port module in a fresh interpreter where ``import jax`` fails.
+  * Nor imageio, cv2, PIL or torchvision, which the card's machine lacks
+    (one exception: the optional validation-image dump of
+    train/metrics_vis.py, skipped without cv2).
+  * Every dataset-backed database name dispatches: parse_database_name
+    raises NotImplementedError for none of them.
   * No silent CPU: an entry point without an explicit device (both
-    trainers, the microbench, the training, mesh and material-evaluation
-    CLIs) means the card and raises where CUDA is absent.
+    trainers, the microbench, the training, mesh, material- and
+    geometry-evaluation CLIs) means the card and raises where CUDA is
+    absent; eval_orb_shape runs on the host only and takes no device.
   * The marching-tetrahedra library is built from the port's own copy of
     its source (csrc/), never from the JAX package's native/.
   * The kernel wrappers take the plain version only for CPU tensors, and
@@ -51,6 +57,36 @@ def test_port_module_imports_no_jax(path):
     bad = [m for m in _imports(path)
            if m.split('.')[0] in BANNED]
     assert not bad, f'{os.path.relpath(path, ROOT)} imports {bad}'
+
+
+IMAGING = ('imageio', 'cv2', 'PIL', 'torchvision')
+OPTIONAL_DUMP = os.path.join(PKG, 'train', 'metrics_vis.py')
+
+
+@pytest.mark.parametrize('path', _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_module_imports_no_imaging_package(path):
+    bad = [m for m in _imports(path) if m.split('.')[0] in IMAGING]
+    if path == OPTIONAL_DUMP:
+        assert bad == ['cv2'], bad
+        return
+    assert not bad, f'{os.path.relpath(path, ROOT)} imports {bad}'
+
+
+def test_every_dataset_layout_dispatches(tmp_path):
+    """No name of a dataset-backed layout raises NotImplementedError; on an
+    empty directory each adapter fails reading its files instead."""
+    from tensoflow_tpu_torch.data import database as db_mod
+    for name in ('tensoSDF/x', 'nerf/x', 'nerf/x/0.8', 'tensoIR/x', 'orb/x',
+                 'syn/x', 'real/x/256', 'custom/x/raw_1600', 'custom/x/512'):
+        try:
+            db_mod.parse_database_name(name, str(tmp_path))
+        except NotImplementedError as e:
+            raise AssertionError(f'{name}: {e}') from e
+        except OSError:
+            pass
+    with pytest.raises(NotImplementedError):
+        db_mod.parse_database_name('unknown/x', str(tmp_path))
 
 
 def test_port_imports_with_jax_unavailable():
@@ -127,7 +163,8 @@ def test_material_trainer_and_microbench_without_device_need_cuda(tmp_path):
 def test_clis_without_device_need_cuda(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip('a card is present: device=None means the card')
-    from tensoflow_tpu_torch import eval_mat, extract_mesh, run_training
+    from tensoflow_tpu_torch import (eval_geo, eval_mat, extract_mesh,
+                                     run_training)
     monkeypatch.chdir(tmp_path)
     cfg = os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
@@ -137,6 +174,12 @@ def test_clis_without_device_need_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         eval_mat.main(['--cfg', os.path.join(
             ROOT, 'configs/mat/syn/compressor.yaml'), '--run_nvs'])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        eval_geo.main(['--cfg', cfg, *SMALL_SHAPE])
+    # the Chamfer CLI is host numpy / scipy: no device to fall back from
+    src = os.path.join(PKG, 'eval_orb_shape.py')
+    assert not [m for m in _imports(src) if m.split('.')[0] == 'torch']
+    assert '--device' not in open(src).read()
 
 
 def test_marching_tets_builds_the_ports_own_source(tmp_path, monkeypatch):
@@ -148,7 +191,7 @@ def test_marching_tets_builds_the_ports_own_source(tmp_path, monkeypatch):
     assert mesh._SRC == os.path.join(PKG, 'csrc', 'marching_tets.cpp')
     calls = []
     monkeypatch.setattr(mesh, 'BUILD_DIR', str(tmp_path))
-    monkeypatch.setattr(mesh.subprocess, 'check_call',
+    monkeypatch.setattr(mesh.cuda_build.subprocess, 'check_call',
                         lambda cmd: calls.append(cmd) or open(
                             cmd[-1], 'wb').close())
     out = mesh._build_library()
