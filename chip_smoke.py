@@ -3,9 +3,9 @@
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases (any failure exits nonzero; no phase's failure is caught; the
-five training phases (3, 5, 3b, 3c, 3d, in this order) run before the
-kernel phases, and their profiled steps last, because running the
-profiler slows every later launch of the process):
+training phases (3, 5, 3b, 3c, 3d, in this order) and the relight phase
+3e run before the kernel phases, and their profiled steps last, because
+running the profiler slows every later launch of the process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
                (one nvcc per source, started together) and print the seconds.
   2. kernels — hold the stencil-head fwd and bwd kernels to their plain
@@ -86,6 +86,23 @@ profiler slows every later launch of the process):
                tensoflow_tpu_torch.eval_geo on the test split and
                eval_orb_shape between that checkpoint's mesh and the
                analytic blobs mesh.
+  3e. relight — on phase 5's material model (saved where the CLI looks
+               for it) and phase 3d's orb/ layout: a 64x128 sky written as
+               a ZIP / HALF .exr and as a Radiance .hdr, read back; python
+               -m tensoflow_tpu_torch.relight_orb once per env file (the
+               test views relit, shaded pixels counted, the two renders
+               within 8 / 255); on syn/ (GlossySynthetic, w2c poses) the
+               CLI's rays that hit the surface counted (none: a quirk of
+               the reference); eval_mat --extract_mats --relight (no
+               blender: the bundle is left); eval_orb_relight on the relit
+               views with the toy views as "gt" (only shows that the path
+               runs); one 4096-ray chunk of relight_view with fixed rolls
+               on the card against the CPU plain path (colours, light rays
+               classified differently); an 800x800 view (a toy view's K
+               scaled) at phase 5's widths: s/view, ms a chunk, one stencil
+               forward a chunk; the stencil forward on its middle chunk's
+               own inputs against its plain version, timed beside the
+               bound.  Its profiled chunk runs with the others at the end.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions at every shape of the gather probes
                (exact equality), timed beside the byte bound and
@@ -127,7 +144,8 @@ Then it prints the card's name and power limit, one JSON line listing
 every hand-written kernel (the stencil kernels with their float32 B=2
 figures, the shape of 80 % of a published run, and their launches in
 phase 3c, the other instantiations and the launches of phase 3b, of
-phase 5's render and of phase 3d's from-disk training beside them),
+phase 5's render, of phase 3d's from-disk training and of phase 3e's
+800x800 relit view beside them),
 and as the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
 exits nonzero and prints no result.
@@ -1802,6 +1820,298 @@ def phase_datasets(card, geo):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: relighting and its evaluation
+# ---------------------------------------------------------------------------
+
+RELIGHT_VIEW = 800          # the published views' size
+RELIGHT_CHUNK = 4096        # relight_orb's chunk of primary rays
+RELIGHT_ENV_HW = (64, 128)
+
+
+def write_hdr(path, rgb):
+    """float [H, W, 3] as a Radiance RGBE file, flat scanlines, -Y H +X W:
+    each pixel m * 256 / 2^e of its largest channel's exponent e."""
+    h, w, _ = rgb.shape
+    top = rgb.max(-1)
+    mant, ex = np.frexp(top)
+    scale = np.where(top > 1e-32, mant * 256.0 / np.maximum(top, 1e-32), 0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.floor(rgb * scale[..., None]).clip(0, 255)
+    rgbe[..., 3] = np.where(top > 1e-32, ex + 128, 0)
+    with open(path, 'wb') as f:
+        f.write(b'#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n'
+                + f'-Y {h} +X {w}\n'.encode() + rgbe.tobytes())
+    e = rgbe[..., 3:].astype(np.int32)
+    return (rgbe[..., :3] * np.where(e > 0, np.ldexp(np.float32(1), e - 136),
+                                     0)).astype(np.float32)
+
+
+def relight_env():
+    """A 64x128 latlong sky: a blue-white gradient, a warm sun and a dim
+    ground, linear values up to 1.9 (relight_orb divides images brighter
+    than 2 by 255)."""
+    h, w = RELIGHT_ENV_HW
+    th = (np.arange(h) + 0.5) / h * np.pi
+    ph = (np.arange(w) + 0.5) / w * 2 * np.pi
+    th, ph = np.meshgrid(th, ph, indexing='ij')
+    up = np.cos(th)[..., None]
+    sky = np.where(up > 0, 0.3 + 0.5 * up * np.array([0.6, 0.8, 1.0]),
+                   0.08 * np.array([1.0, 0.9, 0.8]))
+    sun = np.exp(-((th - 0.8) ** 2 + (ph - 2.0) ** 2) / 0.02)[..., None]
+    return (sky + 1.2 * sun * np.array([1.0, 0.85, 0.6])).astype(np.float32)
+
+
+def _cpu_trainer(trainer):
+    """The trainer's parameters, stage-1 field and baked grid on the CPU:
+    what relight_view reads, for its plain PyTorch path."""
+    from types import SimpleNamespace
+    from tensoflow_tpu_torch.ops import sdf_trace
+    from tensoflow_tpu_torch.train.checkpoints import tree_map
+    g = trainer.grid
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t   # noqa: E731
+    grid = sdf_trace.PackedSDFGrid(
+        cpu(g.mid_rows), cpu(g.blocks), cpu(g.coarse_rows), cpu(g.aabb),
+        g.reso, cpu(g.vis_rows), g.vis_pad)
+    return SimpleNamespace(params=tree_map(cpu, trainer.params),
+                           geo_params=tree_map(cpu, trainer.geo_params),
+                           grid=grid, rcfg=trainer.rcfg,
+                           device=torch.device('cpu'), gen=None)
+
+
+def phase_relight(card, trainer, geo):
+    """Relighting as a user runs it, on the phase-5 material model and the
+    phase-3d layouts: the env maps (.exr, .hdr) read back; relight_orb
+    once per env file, eval_mat --extract_mats --relight (the Blender
+    bundle), eval_orb_relight on the relit views; one relight chunk on the
+    card against the CPU plain path; an 800x800 view at the widths of
+    phase 5 (s/view, ms a chunk, launches), the stencil forward on a relight
+    chunk's own inputs against its plain version.  Returns (the stencil
+    launches of the 800x800 view, a callable that runs one relight chunk
+    for the profiler, its unprofiled ms)."""
+    from tensoflow_tpu_torch import relight_orb
+    from tensoflow_tpu_torch.data import database as db_mod
+    from tensoflow_tpu_torch.data import rays as rays_mod
+    from tensoflow_tpu_torch.data.image_io import (imread, imwrite_png,
+                                                   read_env_map)
+    from tensoflow_tpu_torch.eval.relight import relight_direct
+    from tensoflow_tpu_torch.models import material_renderer as mr
+    from tensoflow_tpu_torch.ops import stencil as st
+    t_phase = time.perf_counter()
+    layouts = os.path.join(_root(), 'build', 'smoke_datasets')
+    run = os.path.join(layouts, 'relight')
+    shutil.rmtree(run, ignore_errors=True)
+    os.makedirs(run)
+
+    env = relight_env()
+    write_exr_zip_half(os.path.join(run, 'sky.exr'),
+                       {c: env[..., i] for i, c in enumerate('RGB')})
+    want_hdr = write_hdr(os.path.join(run, 'sky.hdr'), env)
+    _same('sky.exr read back', read_env_map(os.path.join(run, 'sky.exr')),
+          env.astype(np.float16).astype(np.float32))
+    _same('sky.hdr read back', read_env_map(os.path.join(run, 'sky.hdr')),
+          want_hdr)
+    name = trainer.cfg['name']
+    trainer.save(os.path.join(run, 'data', 'model', name, 'model.pkl'))
+    orb = ['database_name=orb/blobs',
+           f'dataset_dir={os.path.join(layouts, "orb")}',
+           f'geo_model_path={geo}', 'split_manul=false']
+    lines = []
+    for env_file in ('sky.exr', 'sky.hdr'):
+        t0 = time.perf_counter()
+        out = _cli(['tensoflow_tpu_torch.relight_orb', '--cfg',
+                    os.path.join(_root(), MAT_YAML), '--hdr', env_file,
+                    '--out', f'relit_{env_file[4:]}', *orb], run)
+        lines.append(f'{env_file}: {out.splitlines()} in '
+                     f'{time.perf_counter() - t0:.1f} s')
+    db = db_mod.parse_database_name('orb/blobs', os.path.join(layouts, 'orb'),
+                                    isTest=True)
+    ids = db.get_img_ids()[:relight_orb.N_VIEWS]
+    shares = []
+    for vid in ids:
+        a, b = (imread(os.path.join(run, f'relit_{e}', f'relit_{vid}.png'))
+                for e in ('exr', 'hdr'))
+        lit = (a < 255).any(-1)
+        if a.shape != db.get_image(vid).shape[:2] + (3,) or not lit.any() \
+                or np.abs(a.astype(int) - b).max() > 8:
+            raise AssertionError(f'relit view {vid}: shape {a.shape}, '
+                                 f'{int(lit.sum())} shaded pixels, .exr vs '
+                                 f'.hdr up to {np.abs(a.astype(int) - b).max()}')
+        shares.append(float(lit.mean()))
+    print(f'[relight] python -m tensoflow_tpu_torch.relight_orb --cfg '
+          f'{MAT_YAML} on orb/blobs (phase 3d), the phase-5 checkpoint: '
+          + '; '.join(lines) + f'; {2 * len(ids)} relit PNGs, shaded share '
+          f'{np.round(shares, 4).tolist()}, .exr and .hdr renders within 8 '
+          '/ 255 (the .hdr is 8-bit RGBE, the .exr half)', flush=True)
+
+    # relight_orb builds nerf (c2w) rays for every layout; GlossySynthetic
+    # returns w2c poses, so on syn/ no ray hits the object (both packages)
+    syn = db_mod.parse_database_name('syn/blobs', os.path.join(layouts, 'syn'),
+                                     isTest=True)
+    met, n_rays = 0, 0
+    for vid in syn.get_img_ids()[:relight_orb.N_VIEWS]:
+        h, w = syn.get_image(vid).shape[:2]
+        batch = rays_mod.construct_ray_batch_nerf({
+            'imgs': np.zeros((1, h, w, 3), np.float32),
+            'Ks': syn.get_K(vid)[None], 'poses': syn.get_pose(vid)[None]})[0]
+        for ri in range(0, h * w, RELIGHT_CHUNK):
+            o, d = (torch.as_tensor(batch[k][ri:ri + RELIGHT_CHUNK],
+                                    device=trainer.device)
+                    for k in ('rays_o', 'dirs'))
+            met += int(mr.trace_surface(trainer.geo_params, trainer.rcfg,
+                                        trainer.grid, o, d)[3].sum())
+        n_rays += h * w
+    print(f'[relight] on syn/blobs (GlossySynthetic, w2c poses) '
+          f'relight_orb\'s nerf rays of its 8 views: {met} of {n_rays} hit '
+          'the surface (the reference builds the same rays: ROADMAP.md '
+          'quirks)', flush=True)
+
+    out = _cli(['tensoflow_tpu_torch.eval_mat', '--cfg',
+                os.path.join(_root(), MAT_YAML), '--extract_mats',
+                '--relight', '--hdr', 'sky.hdr',
+                f'mesh={os.path.join(layouts, "pred.ply")}', *orb], run)
+    bundle = json.load(open(os.path.join(run, 'data', 'relight', name,
+                                         'relight_cfg.json')))
+    if 'blender not found' not in out or bundle['hdr'] != 'sky.hdr':
+        raise AssertionError(f'eval_mat --relight: {out}')
+    n_mat = len(np.load(os.path.join(run, bundle['albedo'])))
+    print(f'[relight] python -m tensoflow_tpu_torch.eval_mat --extract_mats '
+          f'--relight --hdr sky.hdr: {out.splitlines()}; bundle '
+          f'{sorted(bundle)}, {n_mat} vertex materials', flush=True)
+
+    for d in ('gt', 'mask'):
+        os.makedirs(os.path.join(run, d), exist_ok=True)
+    for vid in ids:
+        imwrite_png(os.path.join(run, 'gt', f'relit_{vid}.png'),
+                    db.get_image(vid)[..., :3])
+        imwrite_png(os.path.join(run, 'mask', f'relit_{vid}.png'),
+                    (np.asarray(db.get_mask(vid)) > 0.5).astype(np.uint8)
+                    * 255)
+    out = _cli(['tensoflow_tpu_torch.eval_orb_relight', '--pred_dir',
+                'relit_hdr', '--gt_dir', 'gt', '--mask_dir', 'mask'], run)
+    last = out.splitlines()[-1]
+    if not last.startswith('relight: SI-PSNR') or not np.isfinite(
+            float(last.split()[2])):
+        raise AssertionError(f'eval_orb_relight: {out}')
+    print(f'[relight] python -m tensoflow_tpu_torch.eval_orb_relight on the '
+          f'.hdr relit views against the toy views\' own images as "gt" '
+          f'(this only shows that the path runs: the toy images were not '
+          f'lit by this sky): {out.splitlines()}', flush=True)
+
+    # one chunk of relight_view on the card against the CPU plain path,
+    # the same fixed rolls: the middle 4096 rays of the first test view
+    vid = ids[0]
+    pose, K = db.get_pose(vid), np.asarray(db.get_K(vid), np.float32)
+    h, w = db.get_image(vid).shape[:2]
+    rows = min(h, RELIGHT_CHUNK // w)
+    band = (h // 2 - rows // 2, h // 2 - rows // 2 + rows)
+    rolls = [torch.rand(((band[1] - band[0]) * w, 1, 1),
+                        generator=torch.Generator().manual_seed(5))]
+    env_cube = relight_orb.load_env_cube(os.path.join(run, 'sky.hdr'),
+                                         trainer.device)
+    t0 = time.perf_counter()
+    gpu = relight_orb.relight_view(trainer, env_cube, pose, K, h, w,
+                                   rolls=rolls, rows=band, secondary=True)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = relight_orb.relight_view(_cpu_trainer(trainer), env_cube.cpu(),
+                                   pose, K, h, w, rolls=rolls, rows=band,
+                                   secondary=True)
+    cpu_s = time.perf_counter() - t0
+    both = gpu['hit'] & ref['hit']
+    flips = int((gpu['secondary_hits'] != ref['secondary_hits']).sum())
+    n_sec = gpu['secondary_hits'].size
+    err = float(np.abs(gpu['rgb'][both] - ref['rgb'][both]).max())
+    print(f'[relight] one relight_view chunk ({len(rolls[0])} rays, rows '
+          f'{band}, fixed rolls) card vs CPU plain path: primary hits '
+          f'{int(gpu["hit"].sum())} / {int(ref["hit"].sum())}, differing '
+          f'{int((gpu["hit"] != ref["hit"]).sum())}; light rays classified '
+          f'differently {flips} of {n_sec}; max |colour diff| on shared '
+          f'hits {err:.3e}; card {gpu_s:.2f} s, CPU {cpu_s:.1f} s',
+          flush=True)
+    if int(both.sum()) == 0 or not np.isfinite(err) or \
+            flips > 1e-3 * n_sec or err > 2e-2:
+        raise AssertionError('relight chunk: card and CPU disagree')
+
+    # an 800x800 view at the widths of phase 5: a toy view's K scaled
+    scale = RELIGHT_VIEW / w
+    K800 = np.array([[K[0, 0] * scale, 0, K[0, 2] * scale],
+                     [0, K[1, 1] * scale, K[1, 2] * scale], [0, 0, 1]],
+                    np.float32)
+    chunks = -(-RELIGHT_VIEW * RELIGHT_VIEW // RELIGHT_CHUNK)
+    spy = HeadSpy(capture_at=chunks // 2)
+    st.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with spy:
+        view = relight_orb.relight_view(trainer, env_cube, pose, K800,
+                                        RELIGHT_VIEW, RELIGHT_VIEW)
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
+    launches = dict(st.LAUNCHES)
+    if launches != {'stencil_head_fwd': chunks, 'stencil_head_bwd': 0} or \
+            not np.isfinite(view['rgb']).all():
+        raise AssertionError(f'800x800 relight: launches {launches} for '
+                             f'{chunks} chunks')
+    chunk_ms = view_s / chunks * 1e3
+    print(f'[relight] an {RELIGHT_VIEW}x{RELIGHT_VIEW} view relit (view '
+          f'{vid}\'s K scaled by {scale:g}; phase 5\'s widths, '
+          f'{relight_orb.CHUNK}-ray chunks, 128 light rays a hit) on {card}: '
+          f'{view_s:.3f} s/view, {chunk_ms:.1f} ms a chunk over {chunks} '
+          f'chunks, {RELIGHT_VIEW ** 2 * 128 / view_s:.0f} light rays/s; hit '
+          f'share {float(view["hit"].mean()):.4f}; stencil launches '
+          f'{launches}', flush=True)
+
+    b1 = trainer.geo_params['sdf']['mlp'][1]['b']
+    mid = _captured_inputs(spy.captured, b1)
+    n = mid['fr'].shape[0]
+    hits = int(view['hit'].reshape(-1)[chunks // 2 * RELIGHT_CHUNK:
+                                       (chunks // 2 + 1) * RELIGHT_CHUNK].sum())
+    # the path runs the forward only: it is held to the plain version in
+    # float64 on these inputs
+    keys = ('pp', 'lp', 'fr', 'sigmas', 'pe', 'rot', 'w0p', 'b0', 'w1', 'b1')
+    args = tuple(mid[k] for k in keys)
+    with torch.no_grad():
+        f64 = _as_f64(mid)
+        fa, fr_ = rel_err(st.stencil_head(*args),
+                          st.stencil_head_plain(*(f64[k] for k in keys),
+                                                S=7))
+    print(f'[relight] stencil forward at N={n} (the 800x800 view\'s middle '
+          f'chunk, {hits} hits) vs plain f64: max_abs_err={fa:.3e} '
+          f'rel={fr_:.3e} (tol rel {TOL[torch.float32][0]:g})', flush=True)
+    if not fr_ <= TOL[torch.float32][0]:
+        raise AssertionError(f'relight chunk: stencil forward rel err {fr_}')
+    with torch.no_grad():
+        k_ms = cuda_ms(lambda: st.stencil_head(*args), iters=50, warmup=5)
+        p_ms = cuda_ms(lambda: st.stencil_head_plain(*args, S=7), iters=20,
+                       warmup=3)
+    (fb, fo), _ = head_bytes_ops(n, 7, 1, torch.float32)
+    b_ms, by = bound_ms(fb, fo, torch.float32)
+    print(f'[relight] stencil forward at N={n} (a relight chunk\'s own '
+          f'inputs, float32, B=1): kernel {k_ms:.4f} ms/call (CUDA events, '
+          f'50 calls), plain {p_ms:.4f}, bound {b_ms:.5f} ({by}); a relight '
+          f'chunk {chunk_ms:.1f} ms; phase {time.perf_counter() - t_phase:.1f}'
+          f' s', flush=True)
+
+    info = {'imgs': np.zeros((1, RELIGHT_VIEW, RELIGHT_VIEW, 3), np.float32),
+            'Ks': K800[None], 'poses': np.asarray(pose, np.float32)[None]}
+    batch = rays_mod.construct_ray_batch_nerf(info)[0]
+    at = chunks // 2 * RELIGHT_CHUNK
+    o, d = (torch.as_tensor(batch[k][at:at + RELIGHT_CHUNK],
+                            device=trainer.device) for k in ('rays_o', 'dirs'))
+    aabb = mr.aabb_tensor(trainer.rcfg, trainer.device)
+    roll = torch.rand((o.shape[0], 1, 1), generator=trainer.gen,
+                      device=trainer.device)
+
+    def chunk():
+        inters, normals, _, _ = mr.trace_surface(
+            trainer.geo_params, trainer.rcfg, trainer.grid, o, d)
+        relight_direct(trainer.params, trainer.rcfg.shader, trainer.grid,
+                       mr.unit_size(trainer.rcfg), aabb, inters, normals,
+                       env_cube, -d, roll=roll)
+    return launches, chunk, chunk_ms
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the tile-gather probes
 # ---------------------------------------------------------------------------
 
@@ -2475,7 +2785,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tensoflow_tpu_torch.ops import cuda_build
     card = card_line()
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     cuda_build.build(SOURCES)
     print(f'[build] kernels built in {time.perf_counter() - t0:.1f} s',
           flush=True)
@@ -2497,18 +2807,26 @@ def main():
     mat_trainer, mat_ms, render_launches, chunk_ms = phase_stage2(card)
     launches, sched_trainer, sched_ms = phase_schedule(card)
     hier_launches, hier_trainer, hier_ms, hier_errs = phase_hierarchical(card)
-    disk_launches = phase_datasets(
-        card, os.path.join(_root(), 'build', 'smoke_geo.pt'))
+    geo = os.path.join(_root(), 'build', 'smoke_geo.pt')
+    disk_launches = phase_datasets(card, geo)
+    relight_launches, relight_chunk, relight_ms = phase_relight(
+        card, mat_trainer, geo)
     kinds = phase_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
     profile_step(mat_trainer, card, mat_ms, tag='stage2')
     profile_render(mat_trainer, card, chunk_ms)
+    with torch.no_grad():
+        profile_step(mat_trainer, card, relight_ms, tag='relight',
+                     run=relight_chunk,
+                     what=f'relight chunk ({RELIGHT_CHUNK} rays)')
     profile_step(sched_trainer, card, sched_ms, tag='schedule')
     profile_step(hier_trainer, card, hier_ms, tag='hier')
     for k, n in gather_launches.items():
         if n <= 0:
             raise AssertionError(f'{k} was not launched by microbench_r3')
+    print(f'[smoke] every phase passed in {time.perf_counter() - t_script:.1f}'
+          ' s (build included)', flush=True)
     print(card)
     # the stencil rows: the float32 B=2 figures of this slice's main path
     # (every published stage-1 config after its first upsample), its
@@ -2527,7 +2845,8 @@ def main():
             'launches_by_path': {'hierarchical_f32': hier_launches[k],
                                  'occ_schedule_bf16': launches[k],
                                  'stage2_render_f32': render_launches[k],
-                                 'from_disk': disk_launches[k]},
+                                 'from_disk': disk_launches[k],
+                                 'stage2_relight_f32': relight_launches[k]},
             'other_rows': {f'{t} B={b}': kinds[t, b][k]
                            for t, b in kinds if (t, b) != ('f32', 2)}})
     print(json.dumps({'kernels': stencil + [

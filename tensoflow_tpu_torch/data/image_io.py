@@ -28,6 +28,12 @@ cv2 or PIL (the card's machine has none of them).
     ZIPS or ZIP; HALF or FLOAT channels) as float32 [H, W, C] over its
     data window, the channels in the order R, G, B, A, which is what
     ``cv2.imread(..., IMREAD_UNCHANGED)`` followed by ``BGRA2RGBA`` gives.
+  * ``read_hdr(path)``: a Radiance RGBE file (``-Y H +X W``, run-length
+    encoded or flat scanlines) as float32 RGB [H, W, 3], each channel
+    m * 2^(e - 136) (0 where e is 0), which is what
+    ``cv2.imread(..., IMREAD_UNCHANGED)[..., ::-1]`` gives.
+  * ``read_env_map(path)``: an environment image by its magic bytes (PNG /
+    JPEG, OpenEXR, Radiance) as float32 RGB(A).
 
 The PNG filters Average and Paeth depend on the byte to the left in the
 same row, and JPEG's Huffman decoding is sequential: both are host C++
@@ -49,6 +55,7 @@ from ..ops import cuda_build
 PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
 JPEG_SIGNATURE = b'\xff\xd8\xff'
 EXR_MAGIC = 20000630
+RADIANCE_SIGNATURES = (b'#?RADIANCE', b'#?RGBE')
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}        # PNG colour type -> samples
 _LIBS = {}
 _ARGTYPES = {         # csrc/<name>.cpp: [(function, argtypes)]
@@ -191,54 +198,128 @@ def _unpack_bits(idx: np.ndarray, bits: int, w: int) -> np.ndarray:
     return vals.reshape(idx.shape[0], idx.shape[1] * per)[:, :w]
 
 
-def read_png(path: str) -> np.ndarray:
-    with open(path, 'rb') as f:
-        data = f.read()
-    if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f'{path}: not a PNG file')
-    header, palette, idat = None, None, []
-    for kind, body in _png_chunks(data, path):
-        if kind == b'IHDR':
-            header = struct.unpack('>IIBBBBB', body)
-        elif kind == b'PLTE':
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b'IDAT':
-            idat.append(body)
-    if header is None:
-        raise ValueError(f'{path}: no IHDR chunk')
-    w, h, bits, ctype, _, _, interlace = header
-    if interlace:
-        raise NotImplementedError(
-            f'{path}: interlaced (Adam7) PNG is not supported')
-    if ctype not in _CHANNELS:
-        raise ValueError(f'{path}: PNG colour type {ctype}')
-    ch = _CHANNELS[ctype]
-    stride = (w * ch * bits + 7) // 8
-    bpp = max(1, ch * bits // 8)
-    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
-    img = unfilter(raw, h, stride, bpp)
+class _Png:
+    """A decoded PNG: the defiltered rows [h, stride] and its header,
+    palette and gamma (gAMA, or 45455 for an sRGB chunk; None without)."""
 
-    if ctype == 3:
-        if palette is None:
+    def __init__(self, path: str):
+        with open(path, 'rb') as f:
+            data = f.read()
+        if not data.startswith(PNG_SIGNATURE):
+            raise ValueError(f'{path}: not a PNG file')
+        header, self.palette, self.gamma, idat = None, None, None, []
+        for kind, body in _png_chunks(data, path):
+            if kind == b'IHDR':
+                header = struct.unpack('>IIBBBBB', body)
+            elif kind == b'PLTE':
+                self.palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            elif kind == b'IDAT':
+                idat.append(body)
+            elif self.palette is not None or idat:
+                pass       # libpng ignores a gAMA / sRGB after PLTE or IDAT
+            elif kind == b'gAMA' and self.gamma is None:
+                (self.gamma,) = struct.unpack('>I', body)
+            elif kind == b'sRGB':
+                self.gamma = 45455
+        if header is None:
+            raise ValueError(f'{path}: no IHDR chunk')
+        self.w, self.h, self.bits, self.ctype, _, _, interlace = header
+        if interlace:
+            raise NotImplementedError(
+                f'{path}: interlaced (Adam7) PNG is not supported')
+        if self.ctype not in _CHANNELS:
+            raise ValueError(f'{path}: PNG colour type {self.ctype}')
+        if self.ctype == 3 and self.palette is None:
             raise ValueError(f'{path}: palette PNG without PLTE')
+        self.ch = _CHANNELS[self.ctype]
+        stride = (self.w * self.ch * self.bits + 7) // 8
+        bpp = max(1, self.ch * self.bits // 8)
+        raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
+        self.rows = unfilter(raw, self.h, stride, bpp)
+
+    def samples(self) -> np.ndarray:
+        """[h, w, ch] samples at the file's depth (uint8 or uint16;
+        1, 2, 4 bits unpacked, unscaled)."""
+        if self.bits == 16:
+            return self.rows.view('>u2').reshape(self.h, self.w, self.ch
+                                                 ).astype(np.uint16)
+        if self.bits < 8:
+            return _unpack_bits(self.rows, self.bits, self.w)[..., None]
+        return self.rows.reshape(self.h, self.w, self.ch)
+
+    def palette_rgb(self) -> np.ndarray:
         lut = np.zeros((256, 3), np.uint8)
-        lut[:len(palette)] = palette
-        return lut[_unpack_bits(img, bits, w)]
-    if bits == 16:
-        v = img.view('>u2').reshape(h, w, ch)
-        if ctype == 0:
-            return v[..., 0].astype(np.uint16)
+        lut[:len(self.palette)] = self.palette
+        return lut[self.samples()[..., 0]]
+
+
+def read_png(path: str) -> np.ndarray:
+    png = _Png(path)
+    if png.ctype == 3:
+        return png.palette_rgb()
+    v = png.samples()
+    if png.bits == 16:
+        if png.ctype == 0:
+            return v[..., 0]
         hi = (v >> 8).astype(np.uint8)
-        if ctype == 4:
+        if png.ctype == 4:
             return hi[..., [0, 0, 0, 1]]
         return hi
-    if bits < 8:                                   # gray 1, 2, 4
-        v = _unpack_bits(img, bits, w)
-        if bits == 1:
-            return v.astype(bool)
-        return (v * (255 // ((1 << bits) - 1))).astype(np.uint8)
-    v = img.reshape(h, w, ch)
-    return v[..., 0].copy() if ch == 1 else v.copy()
+    if png.bits < 8:                               # gray 1, 2, 4
+        if png.bits == 1:
+            return v[..., 0].astype(bool)
+        return (v[..., 0] * (255 // ((1 << png.bits) - 1))).astype(np.uint8)
+    return v[..., 0].copy() if png.ch == 1 else v.copy()
+
+
+def _gamma_table(gamma: int) -> np.ndarray:
+    """libpng's 8-bit gamma table: floor(255 (i/255)^(gamma/1e5) + 0.5)."""
+    i = np.arange(256, dtype=np.float64)
+    t = np.floor(255 * (i / 255) ** (gamma * 1e-5) + 0.5).astype(np.int64)
+    t[[0, 255]] = [0, 255]
+    return t
+
+
+def imread_cv2(path: str, grey: bool = False) -> np.ndarray:
+    """A PNG as ``cv2.imread(path)[..., ::-1]`` gives it (uint8 RGB
+    [H, W, 3]: alpha dropped without compositing, grey replicated, 16-bit
+    samples reduced to their high byte, palettes expanded, 1 / 2 / 4-bit
+    grey scaled to 0-255), or with ``grey`` as ``cv2.imread(path, 0)``
+    (uint8 [H, W]): colour through libpng's rgb_to_gray with cv2's
+    coefficients 0.299 / 0.587 (fixed point 9797 / 19234 / 3737 over
+    2^15; 8-bit sums truncated, 16-bit ones rounded, then the high byte),
+    in linear light when the file's gamma (gAMA, sRGB) is significant."""
+    png = _Png(path)
+    if png.ctype == 3:
+        v, bits = png.palette_rgb(), 8
+    else:
+        v, bits = png.samples().astype(np.int64), png.bits
+        if bits < 8:
+            v = v * (255 // ((1 << bits) - 1))
+    if png.ctype in (0, 4):                          # grey (+ alpha)
+        g = v[..., 0] >> 8 if bits == 16 else v[..., 0]
+        g = g.astype(np.uint8)
+        return g if grey else np.repeat(g[..., None], 3, -1)
+    rgb = v[..., :3].astype(np.int64)
+    if not grey:
+        return (rgb >> 8 if bits == 16 else rgb).astype(np.uint8)
+    coef = np.array([9797, 19234, 3737], np.int64)
+    if png.gamma is not None and not 95000 <= png.gamma <= 105000:
+        if bits == 16:
+            raise NotImplementedError(
+                f'{path}: grey of a 16-bit colour PNG with gamma '
+                f'{png.gamma / 1e5}')
+        # libpng's reciprocals: to linear with 1/gamma, back with the
+        # reciprocal of its screen gamma, itself 1/gamma
+        screen = int(np.floor(1e10 / png.gamma + 0.5))
+        to_1 = _gamma_table(screen)
+        from_1 = _gamma_table(int(np.floor(1e10 / screen + 0.5)))
+        g = from_1[(to_1[rgb] @ coef + 16384) >> 15]
+        flat = (rgb[..., 0] == rgb[..., 1]) & (rgb[..., 1] == rgb[..., 2])
+        return np.where(flat, rgb[..., 0], g).astype(np.uint8)
+    if bits == 16:
+        return (((rgb @ coef + 16384) >> 15) >> 8).astype(np.uint8)
+    return ((rgb @ coef) >> 15).astype(np.uint8)
 
 
 def imread(path: str) -> np.ndarray:
@@ -821,3 +902,87 @@ def read_exr(path: str) -> np.ndarray:
                 p += n
     names = [c for c in _EXR_ORDER if c in planes]
     return np.stack([planes[c] for c in names], -1)
+
+
+# ---------------------------------------------------------------------------
+# Radiance RGBE (.hdr) and environment maps
+# ---------------------------------------------------------------------------
+
+def _rgbe_scanline(data: bytes, pos: int, w: int, path: str):
+    """One scanline as uint8 [w, 4] (R, G, B, E) and the position after it:
+    run-length encoded (2, 2, w >> 8, w & 255, then each of the four
+    components as runs) or flat (4 bytes a pixel)."""
+    head = data[pos:pos + 4]
+    if not (8 <= w < 32768 and len(head) == 4 and head[0] == 2
+            and head[1] == 2 and not head[2] & 0x80):
+        row = np.frombuffer(data, np.uint8, 4 * w, pos).reshape(w, 4)
+        if ((row[:, :3] == 1).all(-1)).any():
+            raise NotImplementedError(
+                f'{path}: old-style run-length RGBE is not supported')
+        return row, pos + 4 * w
+    if (head[2] << 8 | head[3]) != w:
+        raise ValueError(f'{path}: scanline width {head[2] << 8 | head[3]}'
+                         f', not {w}')
+    pos += 4
+    row = np.empty((4, w), np.uint8)
+    for c in range(4):
+        x = 0
+        while x < w:
+            n = data[pos]
+            if n > 128:                            # a run of n - 128
+                n -= 128
+                row[c, x:x + n] = data[pos + 1]
+                pos += 2
+            else:                                  # n literal bytes
+                row[c, x:x + n] = np.frombuffer(data, np.uint8, n, pos + 1)
+                pos += 1 + n
+            if n == 0 or x + n > w:
+                raise ValueError(f'{path}: bad RGBE run')
+            x += n
+    return row.T, pos
+
+
+def read_hdr(path: str) -> np.ndarray:
+    """A Radiance RGBE file as float32 RGB [H, W, 3] (module docstring)."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if not data.startswith(RADIANCE_SIGNATURES):
+        raise ValueError(f'{path}: not a Radiance file')
+    pos = data.index(b'\n') + 1
+    while True:                                    # header lines, then ''
+        end = data.index(b'\n', pos)
+        line = data[pos:end].strip()
+        pos = end + 1
+        if not line:
+            break
+        if line.startswith(b'FORMAT=') and line != b'FORMAT=32-bit_rle_rgbe':
+            raise NotImplementedError(f'{path}: {line.decode()}')
+    end = data.index(b'\n', pos)
+    res = data[pos:end].split()
+    pos = end + 1
+    if len(res) != 4 or res[0] != b'-Y' or res[2] != b'+X':
+        raise NotImplementedError(
+            f'{path}: orientation {b" ".join(res).decode()} (-Y H +X W '
+            'is read)')
+    h, w = int(res[1]), int(res[3])
+    rgbe = np.empty((h, w, 4), np.uint8)
+    for y in range(h):
+        rgbe[y], pos = _rgbe_scanline(data, pos, w, path)
+    e = rgbe[..., 3:].astype(np.int32)
+    scale = np.where(e > 0, np.ldexp(np.float32(1), e - 136), 0.0)
+    return (rgbe[..., :3] * scale).astype(np.float32)
+
+
+def read_env_map(path: str) -> np.ndarray:
+    """An environment image as float32 RGB(A): PNG or JPEG (the values of
+    ``imread``, 0-255), OpenEXR (``read_exr``) or Radiance (``read_hdr``),
+    told apart by the file's first bytes."""
+    with open(path, 'rb') as f:
+        head = f.read(16)
+    if head.startswith((PNG_SIGNATURE, JPEG_SIGNATURE)):
+        return imread(path).astype(np.float32)
+    if head[:4] == struct.pack('<i', EXR_MAGIC):
+        return read_exr(path)
+    if head.startswith(RADIANCE_SIGNATURES):
+        return read_hdr(path)
+    raise ValueError(f'{path}: neither PNG, JPEG, OpenEXR nor Radiance')

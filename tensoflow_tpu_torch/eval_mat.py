@@ -1,8 +1,8 @@
 """Material-stage evaluation CLI of the port (counterpart of eval_mat.py).
 
     python -m tensoflow_tpu_torch.eval_mat --cfg configs/mat/syn/compressor.yaml \\
-        [--ckpt PATH] [--run_nvs] [--extract_mats] [--max_views N] \\
-        [--device cpu] [key=value ...]
+        [--ckpt PATH] [--run_nvs] [--extract_mats] [--relight --hdr ENV] \\
+        [--max_views N] [--device cpu] [key=value ...]
 
 Modes:
   --run_nvs:       render the test views (data/nvs/<name>/<id>_mat.png),
@@ -11,8 +11,11 @@ Modes:
                    config's ``mesh``) into data/materials/<name>/*.npy,
                    gamma-corrected, the albedo rescaled as ``albedoRescale``
                    asks (ref: eval_mat.py:114-134)
-  --relight:       not ported yet (ROADMAP.md, queue 1, item 4: eval and
-                   relighting)
+  --relight:       bake the vertex materials as --extract_mats does, then
+                   write the Blender relight bundle for the environment
+                   ``--hdr`` (eval/relight.run_blender_relight:
+                   data/relight/<name>/) and run blender when one is on
+                   PATH (ref: eval_mat.py:136-148)
 
 The checkpoint is opened with MaterialTrainer.load's default, which (as in
 the reference) restarts the flows and clears their frozen copies, so the
@@ -92,15 +95,11 @@ def main(argv=None):
                         help="'cpu' for the plain path (default: the card)")
     parser.add_argument('overrides', nargs='*')
     args = parser.parse_args(argv)
-    if args.relight:
-        raise NotImplementedError(
-            '--relight needs eval/relight.py, which is not ported yet '
-            '(ROADMAP.md, queue 1, item 4: eval and relighting)')
 
     from tensoflow_tpu_torch.config import load_config
     from tensoflow_tpu_torch.data import database as db_mod
     from tensoflow_tpu_torch.data.image_io import imwrite_png
-    from tensoflow_tpu_torch.eval import metrics
+    from tensoflow_tpu_torch.eval import metrics, relight
     from tensoflow_tpu_torch.models import material_renderer as mr
     from tensoflow_tpu_torch.ops import mesh as mesh_mod
     from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
@@ -142,7 +141,7 @@ def main(argv=None):
             f.write(msg + '\n')
         result['psnr'], result['ssim'] = psnrs, ssims
 
-    if args.extract_mats:
+    if args.extract_mats or args.relight:
         verts, _ = mesh_mod.read_ply(cfg['mesh'])
         mats = mr.predict_vertex_materials(trainer.params, trainer.rcfg,
                                            verts.astype(np.float32))
@@ -161,6 +160,9 @@ def main(argv=None):
             np.save(os.path.join(out_dir, f'{name}.npy'), _srgb(v))
         print(f'materials saved to {out_dir}')
         result['materials'] = out_dir
+
+    if args.relight:
+        result['relight'] = relight.run_blender_relight(cfg, args.hdr)
     return result
 
 

@@ -1,10 +1,15 @@
-"""Cubemap sampling and pre-integration (counterpart of
-tensoflow_tpu/ops/cubemap.py): the pieces fields/light.build_mips and
-light.shade reach.  Layout [6, R, R, C], face convention and packed
-patch rows are the JAX package's.
+"""Cubemap sampling, converters and pre-integration (counterpart of
+tensoflow_tpu/ops/cubemap.py): the packed lookups fields/light reaches,
+the unpacked ``sample_cubemap`` / ``sample_cubemap_mip`` and the
+latlong <-> cubemap converters that relighting reaches.  Layout
+[6, R, R, C], face convention and packed patch rows are the JAX
+package's; indices are clamped where the JAX package's
+``jnp.take(mode='clip')`` clamps them.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import functools
 
 import numpy as np
@@ -12,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import device_constant
-from .tensor_field import sample_bilinear_packed
+from .tensor_field import sample_bilinear_2d, sample_bilinear_packed
 
 
 def _cube_to_dir_np(s, x, y):
@@ -76,6 +81,72 @@ def dir_to_cube_uv(d):
     u = 0.5 * (sc / ma + 1.0)
     v = 0.5 * (tc / ma + 1.0)
     return face, u, v
+
+
+def _bilinear_taps(buf, base, u, v, r):
+    """Clamped bilinear lookup of the [r, r] face at row ``base`` of the
+    flat [T, C] texel buffer; u indexes x within the face, v its rows.
+    ``r`` is an int or a per-point int64 tensor."""
+    rf = r.to(u.dtype) if torch.is_tensor(r) else float(r)
+    uf = u * rf - 0.5
+    vf = v * rf - 0.5
+    u0 = torch.floor(uf)
+    v0 = torch.floor(vf)
+    fu = (uf - u0)[:, None]
+    fv = (vf - v0)[:, None]
+    hi = r - 1
+
+    def clip(i):
+        if torch.is_tensor(hi):
+            return torch.minimum(torch.clamp(i, min=0), hi)
+        return torch.clamp(i, 0, hi)
+    u0i, u1i = clip(u0.long()), clip(u0.long() + 1)
+    v0i, v1i = clip(v0.long()), clip(v0.long() + 1)
+    n = buf.shape[0] - 1
+
+    def g(vi, ui):
+        return buf[torch.clamp(base + vi * r + ui, 0, n)]
+
+    return ((1 - fv) * ((1 - fu) * g(v0i, u0i) + fu * g(v0i, u1i))
+            + fv * ((1 - fu) * g(v1i, u0i) + fu * g(v1i, u1i)))
+
+
+def sample_cubemap(cubemap, dirs):
+    """Bilinear cubemap lookup, clamped per face.  cubemap [6,R,R,C];
+    dirs [N,3] -> [N,C]."""
+    _, r, _, c = cubemap.shape
+    face, u, v = dir_to_cube_uv(dirs)
+    return _bilinear_taps(cubemap.reshape(-1, c), face * r * r, u, v, r)
+
+
+def sample_cubemap_mip(pyramid, dirs, level):
+    """Trilinear (bilinear + mip lerp) cubemap lookup.  pyramid: list of
+    [6,R/2^l,R/2^l,C]; level [N] fractional.  Only the two levels adjacent
+    to each point's level are gathered (the others weigh zero)."""
+    n_levels = len(pyramid)
+    if n_levels == 1:
+        return sample_cubemap(pyramid[0], dirs)
+    c = pyramid[0].shape[-1]
+    offs, ress, off = [], [], 0
+    for tex in pyramid:
+        f, r, _, _ = tex.shape
+        offs.append(off)
+        ress.append(r)
+        off += f * r * r
+    buf = torch.cat([tex.reshape(-1, c) for tex in pyramid], dim=0)
+    offs_t, ress_t = device_constant(('mip_flat', tuple(offs), tuple(ress)),
+                                     lambda: [offs, ress], dirs.device,
+                                     torch.int64)
+    face, u, v = dir_to_cube_uv(dirs)
+    lv = torch.clamp(level, 0.0, n_levels - 1.0)
+    l0 = torch.clamp(torch.floor(lv).long(), 0, n_levels - 2)
+    frac = (lv - l0.to(lv.dtype))[:, None]
+
+    def level_lookup(li):
+        r = ress_t[li]
+        return _bilinear_taps(buf, offs_t[li] + face * r * r, u, v, r)
+
+    return (1 - frac) * level_lookup(l0) + frac * level_lookup(l0 + 1)
 
 
 def pack_cubemap_patches(cubemap):
@@ -163,6 +234,87 @@ def build_cubemap_pyramid(base, min_res: int = 16):
     while pyr[-1].shape[1] > min_res:
         pyr.append(cubemap_mip(pyr[-1]))
     return pyr
+
+
+# ---------------------------------------------------------------------------
+# latlong <-> cubemap.  The coordinates of both converters are constants of
+# the resolution, built once on the host in float32 with the C library's
+# atan2f / sinf / cosf: the functions the JAX package's CPU backend calls,
+# where torch's vectorised float32 kernels differ in the last place (a
+# 1e-6 step of a lookup into a 64-texel map).
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library('m'))
+    for name, n in (('atan2f', 2), ('sinf', 1), ('cosf', 1), ('sqrtf', 1)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_float
+        fn.argtypes = [ctypes.c_float] * n
+    return lib
+
+
+def _f32(name, *args):
+    """Elementwise float32 C-library function over host arrays."""
+    fn = getattr(_libm(), name)
+    flat = [np.asarray(a, np.float32).reshape(-1) for a in args]
+    return np.array([fn(*v) for v in zip(*(a.tolist() for a in flat))],
+                    np.float32).reshape(np.shape(args[0]))
+
+
+def _linspace_f32(start: float, stop: float, n: int) -> np.ndarray:
+    """jnp.linspace in float32: start * (1 - i c) + i (stop c), c = 1/(n-1),
+    the last sum fused, the last value exactly stop."""
+    f = np.float32
+    if n == 1:
+        return np.full((1,), start, f)
+    c = f(1.0 / (n - 1))
+    i = np.arange(n - 1, dtype=f)
+    head = f(start) * (f(1.0) - i * c)
+    out = (i.astype(np.float64) * float(f(stop) * c) + head).astype(f)
+    return np.concatenate([out, [f(stop)]])
+
+
+@functools.lru_cache(maxsize=8)
+def _texel_latlong_uv(res: int) -> np.ndarray:
+    """[6 res^2, 2] (row, col) = (tv, tu) latlong coordinates of the texel
+    directions; arccos(y) = atan2(sqrt((1 - y)(1 + y)), y)."""
+    f = np.float32
+    d = cubemap_dirs(res).reshape(-1, 3)
+    tu = _f32('atan2f', d[:, 0], -d[:, 2]) / f(2 * np.pi) + f(0.5)
+    y = np.clip(d[:, 1], -1, 1)
+    tv = _f32('atan2f', _f32('sqrtf', (f(1) - y) * (f(1) + y)), y) / f(np.pi)
+    return np.stack([tv, tu], -1).astype(f)
+
+
+@functools.lru_cache(maxsize=8)
+def _latlong_dirs(h: int, w: int) -> np.ndarray:
+    """[h w, 3] directions of the latlong pixel centres."""
+    f = np.float32
+    gy, gx = np.meshgrid(_linspace_f32(1.0 / h, 1.0 - 1.0 / h, h),
+                         _linspace_f32(-1.0 + 1.0 / w, 1.0 - 1.0 / w, w),
+                         indexing='ij')
+    ay, ax = gy * f(np.pi), gx * f(np.pi)
+    st, ct = _f32('sinf', ay), _f32('cosf', ay)
+    sp, cp = _f32('sinf', ax), _f32('cosf', ax)
+    return np.stack([st * sp, ct, -st * cp], -1).reshape(-1, 3)
+
+
+def latlong_to_cubemap(latlong, res: int):
+    """[H,W,C] equirectangular -> [6,res,res,C] (ref: light_utils.py:34-47);
+    the latlong is sampled at uv = (row, col) = (tv, tu)."""
+    uv = device_constant(('texel_latlong_uv', res),
+                         lambda: _texel_latlong_uv(res), latlong.device)
+    vals = sample_bilinear_2d(latlong, uv)
+    return vals.reshape(6, res, res, latlong.shape[-1])
+
+
+def cubemap_to_latlong(cubemap, res_hw):
+    """[6,R,R,C] -> [H,W,C] equirectangular (ref: light_utils.py:50-63)."""
+    h, w = res_hw
+    refl = device_constant(('latlong_dirs', h, w),
+                           lambda: _latlong_dirs(h, w), cubemap.device)
+    return sample_cubemap(cubemap, refl).reshape(h, w, cubemap.shape[-1])
 
 
 def _dirs_and_solid_angles(r: int, device):

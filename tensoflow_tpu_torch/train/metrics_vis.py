@@ -1,9 +1,10 @@
 """Validation metrics and tiled diagnostic dumps of the port (counterpart
 of tensoflow_tpu/train/metrics_vis.py): PSNR / SSIM of a held-out render,
-and a tiled JPEG (gt | pred | normal | materials | lights) written to
-data/train_vis/<name>-val/ where cv2 imports, as the JAX package does.
-``resize_linear`` is the validation downsample (cv2.resize with
-INTER_LINEAR in the JAX package) computed without cv2.
+a tiled JPEG (gt | pred | normal | materials | lights) written to
+data/train_vis/<name>-val/ where cv2 imports, as the JAX package does,
+and ``ValidationEvaluator`` over a split.  ``resize_linear`` is the
+validation downsample (cv2.resize with INTER_LINEAR in the JAX package)
+computed without cv2.
 """
 from __future__ import annotations
 
@@ -44,6 +45,9 @@ def _tile(images: List[np.ndarray], cols: int = 4) -> np.ndarray:
 SHAPE_KEYS = ['ray_rgb', 'normal_vis', 'albedo', 'roughness', 'metallic',
               'occ_prob', 'occ_prob_gt', 'diffuse_color', 'specular_color',
               'diffuse_light', 'specular_light', 'indirect_light']
+MAT_KEYS = ['rgb_pr', 'normal', 'albedo', 'roughness', 'metallic',
+            'diffuse_color', 'specular_color', 'diffuse_light',
+            'specular_light', 'visibility', 'indirect_light']
 
 
 def _linear_taps(n_in: int, n_out: int):
@@ -94,3 +98,33 @@ def eval_and_dump(gt: np.ndarray, outputs: Dict[str, np.ndarray],
     cv2.imwrite(os.path.join(out_dir, f'step{step}-{index}.jpg'),
                 tiled[..., ::-1])
     return results
+
+
+class ValidationEvaluator:
+    """Accumulate metric dicts over a val split, pick the key metric
+    (ref: train/train_valid.py:18-51)."""
+
+    def __init__(self, key_metric_name: str = 'psnr'):
+        self.key_metric_name = key_metric_name
+
+    def __call__(self, render_fn, val_ids, database, model_name: str,
+                 step: int, downsample: float = 1.0):
+        agg: Dict[str, List[float]] = {}
+        for i, vid in enumerate(val_ids):
+            gt = database.get_image(vid).astype(np.float32) / 255.0
+            K = database.get_K(vid).copy()
+            pose = database.get_pose(vid)
+            h, w = gt.shape[:2]
+            if downsample != 1.0:
+                h, w = int(h * downsample), int(w * downsample)
+                gt = resize_linear(gt, h, w)
+                K = np.diag([downsample, downsample, 1.0]).astype(
+                    np.float32) @ K
+            outputs = render_fn(pose, K, h, w)
+            pred_key = 'ray_rgb' if 'ray_rgb' in outputs else 'rgb_pr'
+            res = eval_and_dump(gt, outputs, model_name, step, i,
+                                pred_key=pred_key)
+            for k, v in res.items():
+                agg.setdefault(k, []).append(v)
+        means = {k: float(np.mean(v)) for k, v in agg.items()}
+        return means, means.get(self.key_metric_name, 0.0)

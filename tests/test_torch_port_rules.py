@@ -9,9 +9,10 @@
   * Every dataset-backed database name dispatches: parse_database_name
     raises NotImplementedError for none of them.
   * No silent CPU: an entry point without an explicit device (both
-    trainers, the microbench, the training, mesh, material- and
-    geometry-evaluation CLIs) means the card and raises where CUDA is
-    absent; eval_orb_shape runs on the host only and takes no device.
+    trainers, the microbench, the training, mesh, material-,
+    geometry-evaluation and relighting CLIs) means the card and raises
+    where CUDA is absent; eval_orb_shape and eval_orb_relight run on the
+    host only and take no device.
   * The marching-tetrahedra library is built from the port's own copy of
     its source (csrc/), never from the JAX package's native/.
   * The kernel wrappers take the plain version only for CPU tensors, and
@@ -164,7 +165,7 @@ def test_clis_without_device_need_cuda(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip('a card is present: device=None means the card')
     from tensoflow_tpu_torch import (eval_geo, eval_mat, extract_mesh,
-                                     run_training)
+                                     relight_orb, run_training)
     monkeypatch.chdir(tmp_path)
     cfg = os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
@@ -176,10 +177,15 @@ def test_clis_without_device_need_cuda(tmp_path, monkeypatch):
             ROOT, 'configs/mat/syn/compressor.yaml'), '--run_nvs'])
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         eval_geo.main(['--cfg', cfg, *SMALL_SHAPE])
-    # the Chamfer CLI is host numpy / scipy: no device to fall back from
-    src = os.path.join(PKG, 'eval_orb_shape.py')
-    assert not [m for m in _imports(src) if m.split('.')[0] == 'torch']
-    assert '--device' not in open(src).read()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        relight_orb.main(['--cfg', os.path.join(
+            ROOT, 'configs/mat/syn/compressor.yaml'), '--hdr', 'env.hdr'])
+    # the Chamfer and relight-metric CLIs are host numpy / scipy: no
+    # device to fall back from
+    for name in ('eval_orb_shape.py', 'eval_orb_relight.py'):
+        src = os.path.join(PKG, name)
+        assert not [m for m in _imports(src) if m.split('.')[0] == 'torch']
+        assert '--device' not in open(src).read()
 
 
 def test_marching_tets_builds_the_ports_own_source(tmp_path, monkeypatch):

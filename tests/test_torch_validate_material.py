@@ -23,6 +23,7 @@ float32 with estimator_dtype='f32'.  Tolerances:
   * validate: PSNR within 0.05 dB;
   * predict_vertex_materials: rtol 1e-5 / atol 1e-6.
 """
+import json
 import os
 import pickle
 
@@ -322,10 +323,11 @@ def test_run_training_material_validates_and_keeps_best(cli_run, capsys):
     assert 'layers' in best['params']['outer_light']
 
 
-def test_eval_mat_writes_views_and_materials(cli_run):
+def test_eval_mat_writes_views_and_materials(cli_run, monkeypatch):
     """The PNG, read back by cv2, is the render of the loaded checkpoint
     pixel for pixel (analytic pass: load restarts the flows); the
-    metallic / roughness bakes are the vertex materials, gamma-corrected."""
+    metallic / roughness bakes are the vertex materials, gamma-corrected;
+    --relight leaves the Blender bundle."""
     d, over = cli_run['dir'], cli_run['overrides']
     cfg = pconfig.load_config(CLI_CFG, overrides=over)
     tr = MaterialTrainer(cfg, cfg['geo_model_path'], device='cpu')
@@ -353,7 +355,12 @@ def test_eval_mat_writes_views_and_materials(cli_run):
     assert albedo.shape == (len(verts), 3) and np.all(np.isfinite(albedo))
     assert (d / 'data' / 'nvs' / 'cli_mat' / 'albedoRescale_record.txt'
             ).exists()
-    with pytest.raises(NotImplementedError,
-                       match='queue 1, item 4: eval and relighting'):
-        eval_mat.main(['--cfg', CLI_CFG, '--relight', '--device', 'cpu',
-                       *over])
+    # --relight bakes the same materials and leaves the Blender bundle
+    # (no blender binary here)
+    monkeypatch.chdir(d)
+    res = eval_mat.main(['--cfg', CLI_CFG, '--relight', '--hdr', 'env.hdr',
+                         '--device', 'cpu', *over])
+    assert res['relight'] is None
+    bundle = json.load(open(d / 'data' / 'relight' / 'cli_mat' /
+                            'relight_cfg.json'))
+    assert bundle['hdr'] == 'env.hdr' and bundle['mesh'] == cli_run['ply']
