@@ -3,9 +3,10 @@
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases (any failure exits nonzero; no phase's failure is caught; the
-training phases (3, 5, 3b, 3c, 3d, in this order) and the relight phase
-3e run before the kernel phases, and their profiled steps last, because
-running the profiler slows every later launch of the process):
+training phases (3, 5, 3b, 3c, 3d, in this order), the relight phase 3e
+and the variants phase 3f run before the kernel phases, and their
+profiled steps last, because running the profiler slows every later
+launch of the process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
                (one nvcc per source, started together) and print the seconds.
   2. kernels — hold the stencil-head fwd and bwd kernels to their plain
@@ -103,6 +104,30 @@ running the profiler slows every later launch of the process):
                forward a chunk; the stencil forward on its middle chunk's
                own inputs against its plain version, timed beside the
                bound.  Its profiled chunk runs with the others at the end.
+  3f. variants — the options no published config sets.  Stage 2 at the
+               widths of configs/mat/syn/compressor.yaml on phase 5's
+               checkpoint with phase 5's cuts, once for each of
+               flow_type pwlinear, flow_type realnvp, shade_mixed_all +
+               use_nis_all (as tests/test_train_material.py sets it, then
+               with use_nis_diffuse so that flow_all gets a loss) and
+               disable_tensorial + disable_reflected: each variant's
+               small step on the card against the CPU (check_stage2_small),
+               then 12 steps across the NIS phases (finite terms, the
+               flows a NIS-loss step moves, the median ms/step of each
+               phase beside phase 5's pwquad), one validated view for
+               realnvp and both shade_mixed_all runs (_nis pass, one
+               stencil forward a chunk), the stencil launches of that path
+               counted; predict_materials through mat_pack against the raw
+               planes.  Stage 1's human light: the small card-vs-CPU
+               comparison with it on, then configs/shape/custom/shoe.yaml
+               with shader_config.human_light on phase 3d's JPEG capture,
+               5 steps (one fwd + one bwd launch a step, the light's MLP
+               moved by the first step, the share of shaded samples it
+               lights).  The split stencil route: sdf_with_grad_hessian
+               with stencil_impl 'xla' against the kernels on a 512^3
+               hierarchical step's own inputs (phase 3c's trainer):
+               agreement and both times.  Profiled last: a human-light
+               step and a shade_mixed_all step.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions at every shape of the gather probes
                (exact equality), timed beside the byte bound and
@@ -144,8 +169,9 @@ Then it prints the card's name and power limit, one JSON line listing
 every hand-written kernel (the stencil kernels with their float32 B=2
 figures, the shape of 80 % of a published run, and their launches in
 phase 3c, the other instantiations and the launches of phase 3b, of
-phase 5's render, of phase 3d's from-disk training and of phase 3e's
-800x800 relit view beside them),
+phase 5's render, of phase 3d's from-disk training, of phase 3e's
+800x800 relit view and of phase 3f's human-light steps and stage-2
+variants beside them),
 and as the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
 exits nonzero and prints no result.
@@ -2112,6 +2138,365 @@ def phase_relight(card, trainer, geo):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: the field and shader options no published config sets
+# ---------------------------------------------------------------------------
+
+# the stage-2 options of the paper's ablations, each at the widths of
+# configs/mat/syn/compressor.yaml on phase 5's checkpoint with phase 5's
+# cuts; (c) as tests/test_train_material.py sets it (the combined flow
+# alone: phase() gates its NIS loss on use_nis_diffuse / use_nis_specular,
+# so it never trains), then with use_nis_diffuse on (the loss trains
+# flow_all while the diffuse slot holds flow_diffuse's copy)
+MAT_VARIANTS = (
+    ('pwlinear', {'flow_type': 'pwlinear'}),
+    ('realnvp', {'flow_type': 'realnvp'}),
+    ('all', {'shade_fn': 'shade_mixed_all', 'use_nis_all': True,
+             'use_nis_diffuse': False, 'use_nis_specular': False}),
+    ('all+diffuse', {'shade_fn': 'shade_mixed_all', 'use_nis_all': True,
+                     'use_nis_diffuse': True, 'use_nis_specular': False}),
+    ('disable', {'disable_tensorial': True, 'disable_reflected': True}),
+)
+# the flows a NIS-loss step moves (and the ones it must leave alone)
+MOVED_BY_NIS = {'pwlinear': ('flow_diffuse', 'flow_specular'),
+                'realnvp': ('flow_diffuse', 'flow_specular'),
+                'all': (), 'all+diffuse': ('flow_all',),
+                'disable': ('flow_diffuse', 'flow_specular')}
+VALIDATED = ('realnvp', 'all', 'all+diffuse')
+HUMAN_LIGHT = ['shader_config.human_light=true']
+
+
+def _phase_name(ph):
+    return ('NIS sampling' if ph.nis_sample_diffuse else
+            'NIS loss' if ph.nis_loss_diffuse or ph.nis_loss_specular else
+            'no NIS')
+
+
+def _flow_blocks(trainer):
+    from tensoflow_tpu_torch.train.trainer import named_leaves
+    return {k: [t.detach().clone()
+                for _, t in named_leaves(trainer.params[k]['blocks'])]
+            for k in trainer.params if k.startswith('flow')}
+
+
+def run_mat_variant(card, geo, name, over, steps=12):
+    """MaterialTrainer with ``over`` on the phase-5 checkpoint: init_dataset,
+    ``steps`` steps across the NIS phases (finite terms; the flows a
+    NIS-loss step moves; the median ms/step of each phase without its first
+    step), and for VALIDATED variants one validated view (its _nis pass
+    included).  Returns the trainer, its per-phase medians and the render's
+    chunk count."""
+    from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
+    cfg = _mat_cfg({'database_name': 'toy/blobs_128_12', 'split_manul': False,
+                    'shader_cfg': {**NIS_CUT, **over}})
+    trainer = MaterialTrainer(cfg, geo)
+    trainer.init_dataset()
+    loss_step = NIS_CUT['nis_loss_iter']
+    logs, ms, names, moved = [], {}, {}, None
+    for step in range(steps):
+        before = _flow_blocks(trainer) if step == loss_step else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs += trainer.train(n_steps=1, log_every=1)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if before is not None:
+            after = _flow_blocks(trainer)
+            moved = sorted(k for k in before if not all(
+                torch.equal(a, b) for a, b in zip(before[k], after[k])))
+        pn = _phase_name(trainer.phase(step))
+        names.setdefault(pn, step)
+        if names[pn] != step:             # a phase's first step warms up
+            ms.setdefault(pn, []).append(dt)
+    _check_finite(logs)
+    want = sorted(MOVED_BY_NIS[name])
+    if moved != want:
+        raise AssertionError(f'{name}: the NIS-loss step {loss_step} moved '
+                             f'the flows {moved}, expected {want}')
+    if 'NIS sampling' not in names:
+        raise AssertionError(f'{name}: no NIS-sampling step ({names})')
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    chunks, val = 0, None
+    if name in VALIDATED:
+        (vid,) = trainer.test_ids
+        h, w = trainer.database.get_image(vid).shape[:2]
+        chunks = -(-h * w // 512)
+        t0 = time.perf_counter()
+        val = trainer.validate(max_views=1)
+        val_s = time.perf_counter() - t0
+        if not np.isfinite(val):
+            raise AssertionError(f'{name}: validate() {val}')
+        val = f'validate(max_views=1) {val:.3f} dB (_nis pass) in ' \
+              f'{val_s:.2f} s, {chunks} chunks'
+    print(f'[variants] {name} {over}: {trainer.tbn} hits, loss per step '
+          + ', '.join(f'{r["loss"]:.5f}' for r in logs)
+          + f' (finite); NIS loss terms '
+          f'{[round(r.get("loss_nis", 0.0), 7) for r in logs]}; the '
+          f'NIS-loss step {loss_step} moved {moved}; median ms/step by '
+          f'phase (first step of each left out) '
+          + json.dumps({k: round(v, 1) for k, v in med.items()})
+          + (f'; {val}' if val else '') + f'; on {card}', flush=True)
+    return trainer, med, chunks
+
+
+def check_packed_materials(trainer):
+    """predict_materials with packed=mat_pack(...) against the raw-plane
+    route on the card, at the trainer's hits: the same level-0 bilinear
+    taps in another order, to 1e-5 of each output's largest value."""
+    from tensoflow_tpu_torch.fields import mc_shading
+    from tensoflow_tpu_torch.models import material_renderer as mr
+    scfg = trainer.rcfg.shader
+    pts = torch.as_tensor(trainer.batcher.batch['inters'][:65536],
+                          device='cuda')
+    aabb = mr.aabb_tensor(trainer.rcfg, 'cuda')
+    with torch.no_grad():
+        raw = mc_shading.predict_materials(trainer.params, scfg, pts, aabb)
+        packed = mc_shading.mat_pack(trainer.params, scfg)
+        pk = mc_shading.predict_materials(trainer.params, scfg, pts, aabb,
+                                          packed=packed)
+    errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+            for a, b in zip(pk, raw)]
+    if max(errs) > 1e-5:
+        raise AssertionError(f'packed materials vs raw planes: {errs}')
+    print(f'[variants] predict_materials with packed=mat_pack(...) on '
+          f'{pts.shape[0]} hits on the card vs the raw planes: max rel diff '
+          f'(metallic, roughness, albedo) '
+          f'{[f"{e:.2e}" for e in errs]} (tol 1e-5); atlas '
+          f'{tuple(packed.buffer.shape)}', flush=True)
+
+
+def phase_human_light(card, steps=5):
+    """Stage 1's human light: check_slice_small's comparison with the light
+    on; then configs/shape/custom/shoe.yaml with shader_config.human_light
+    true on phase 3d's JPEG capture (nerfDataType false, as 3d trains it)
+    at 128^3: ``steps`` steps, one fwd + one bwd stencil launch a step,
+    the human_light MLP moved by the first step, and the share of the
+    first step's shaded samples whose blend weight is non-zero (read by a
+    wrapper that syncs, so the timed steps run without it).  Returns the
+    trainer, its ms/step and the launches of the steps."""
+    from tensoflow_tpu_torch.fields import shading as shading_mod
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer, named_leaves
+    share = []
+    orig = shading_mod.predict_human_light
+
+    def spy(*args):
+        light, weight = orig(*args)
+        share.append(float((weight > 0).float().mean()))
+        return light, weight
+    shading_mod.predict_human_light = spy
+    _, logs, worst = card_vs_cpu(_load_cfg(SMALL_OVERRIDES + HUMAN_LIGHT),
+                                 'small slice + human light')
+    small_share = max(share)
+    print(f'[human_light] small float32 config with the light on: 2 steps '
+          f'on the card match the CPU plain path (worst loss-term rel err '
+          f'{worst:.2e}); light weight non-zero on up to {small_share:.4f} '
+          f'of the shaded samples; {_losses(logs)}', flush=True)
+    obj = DATASET_TOY.split('/')[1].split('_')[0]
+    name = f'custom/{obj}/raw_{RESIZE_LEN}'
+    ddir = os.path.join(_root(), 'build', 'smoke_datasets', 'custom_jpeg')
+    cfg = _load_cfg(['split_manul=false', f'database_name={name}',
+                     f'dataset_dir={ddir}', 'nerfDataType=false']
+                    + HUMAN_LIGHT, BG_YAML)
+    trainer = ShapeTrainer(cfg)
+    trainer.init_dataset()
+    if not trainer.rcfg.shading.human_light:
+        raise AssertionError('shader_config.human_light was not read')
+    hl0 = [t.detach().clone()
+           for _, t in named_leaves(trainer.params['shading']['human_light'])]
+    share.clear()
+    st.reset_launches()
+    logs = trainer.train(n_steps=1, log_every=1)
+    moved = sum(not torch.equal(t.detach(), b) for (_, t), b in zip(
+        named_leaves(trainer.params['shading']['human_light']), hl0))
+    shading_mod.predict_human_light = orig
+    if moved != len(hl0):
+        raise AssertionError(f'the first step moved {moved} of {len(hl0)} '
+                             'human_light leaves')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs += trainer.train(n_steps=steps - 1, log_every=1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    launches = dict(st.LAUNCHES)
+    _check_finite(logs)
+    if launches != {'stencil_head_fwd': steps, 'stencil_head_bwd': steps}:
+        raise AssertionError(f'human light: launches {launches} in {steps} '
+                             'steps')
+    if not max(share) > 0:
+        raise AssertionError('the human light weight is zero on every '
+                             'shaded sample')
+    print(f'[human_light] {BG_YAML} + human_light on {name} (phase 3d\'s '
+          f'JPEG capture; cuts split_manul false, nerfDataType false): grid '
+          f'{trainer.rcfg.sdf.grid_size}, {cfg["train_ray_num"]} rays x '
+          f'({cfg["n_samples"]} + {cfg["n_importance"]}) samples, '
+          f'{trainer.batcher.n} rays in the aabb; loss per step '
+          + ', '.join(f'{r["loss"]:.6f}' for r in logs)
+          + f' (finite); the first step moved all {len(hl0)} human_light '
+          f'leaves; light weight non-zero on {max(share):.4f} of the first '
+          f'step\'s shaded samples; launches {launches}; {step_ms:.1f} '
+          f'ms/step over steps 2-{steps} on {card}', flush=True)
+    return trainer, step_ms, launches
+
+
+SPLIT_GRAD_TOL = 1e-2
+
+
+def check_split_route(card, hier):
+    """sdf_with_grad_hessian on a 512^3 hierarchical step's own inputs
+    (phase 3c's trainer: float32, B=2) with stencil_impl 'xla' (the split
+    route: deduplicated taps of the 2x2 atlas, unfused head; plain torch,
+    no kernel) and with the default (the stencil kernels).  Forward
+    outputs and the parameter gradients of a random projection (the FD
+    gradient's cotangent scaled by eps, so that its 1/eps does not swamp
+    the others) as max relative differences; sdf / app held to 2 x TOL
+    (two float32 routes, each within TOL of the exact), the FD gradient to
+    that bound carried through 1/eps, the parameter gradients to
+    SPLIT_GRAD_TOL of each leaf's largest value, the tolerance at which
+    tests/test_torch_tenso_sdf.py holds the kernel route to the JAX
+    package's 'xla' route (a line texel sums thousands of contributions
+    of both signs: the FD gradient's +-offset taps cancel).  The split
+    route runs twice: the difference of its two runs (atomic index_add_
+    order) is printed beside.  Both routes timed with CUDA events."""
+    from tensoflow_tpu_torch.fields import tenso_sdf
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.train.trainer import named_leaves
+    got = {}
+    orig = tenso_sdf.sdf_with_grad_hessian
+
+    def spy(params, cfg, xyz, aabb, level=None, **kw):
+        if not got:
+            got.update(xyz=xyz.detach().clone(), aabb=aabb,
+                       level=None if level is None else level.detach().clone())
+        return orig(params, cfg, xyz, aabb, level, **kw)
+    tenso_sdf.sdf_with_grad_hessian = spy
+    hier.train(n_steps=1, log_every=1)
+    tenso_sdf.sdf_with_grad_hessian = orig
+    xyz, aabb, level = got['xyz'], got['aabb'], got['level']
+    cfg_k = hier.rcfg.sdf
+    cfg_x = cfg_k._replace(stencil_impl='xla')
+    params = hier.params['sdf']
+    names, leaves = zip(*named_leaves(params))
+    n = xyz.shape[0]
+    g = torch.Generator(device='cuda').manual_seed(5)
+    cot = [torch.randn((n,), generator=g, device='cuda'),
+           torch.randn((n, cfg_k.app_dim), generator=g, device='cuda'),
+           torch.randn((n, 3), generator=g, device='cuda')]
+    eps = tenso_sdf.units(cfg_k, aabb)
+
+    def run(cfg, grads=True):
+        out = tenso_sdf.sdf_with_grad_hessian(params, cfg, xyz, aabb, level)
+        if not grads:
+            return out
+        loss = (torch.sum(out[0] * cot[0]) + torch.sum(out[1] * cot[1])
+                + torch.sum(out[2] * cot[2] * eps))
+        return [o.detach() for o in out], torch.autograd.grad(loss, leaves)
+
+    st.reset_launches()
+    xo, xg = run(cfg_x)
+    torch.cuda.synchronize()
+    x_launches = dict(st.LAUNCHES)
+    _, xg2 = run(cfg_x)
+    ko, kg = run(cfg_k)
+    torch.cuda.synchronize()
+    k_launches = dict(st.LAUNCHES)
+    if x_launches != {'stencil_head_fwd': 0, 'stencil_head_bwd': 0} or \
+            k_launches != {'stencil_head_fwd': 1, 'stencil_head_bwd': 1}:
+        raise AssertionError(f'launches: xla {x_launches}, then the kernel '
+                             f'route {k_launches}')
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    tol = 2 * TOL[torch.float32][0]
+    outs = dict(zip(('sdf', 'app', 'grad', 'hessian'),
+                    (rel(a, b) for a, b in zip(xo, ko))))
+    grad_tol = tol * float(ko[0].abs().max() / eps.min()
+                           / ko[2].abs().max())
+    gerr = {'.'.join(map(str, k)): rel(a, b)
+            for k, a, b in zip(names, xg, kg)}
+    noise = {'.'.join(map(str, k)): rel(a, b)
+             for k, a, b in zip(names, xg2, xg)}
+    bad = [f'{k} {v:.2e}' for k, v in outs.items()
+           if k in ('sdf', 'app') and v > tol]
+    bad += [f'grad {outs["grad"]:.2e} > {grad_tol:.2e}'] \
+        if outs['grad'] > grad_tol else []
+    bad += [f'd{k} {v:.2e}' for k, v in gerr.items() if v > SPLIT_GRAD_TOL]
+    with torch.no_grad():
+        fx = cuda_ms(lambda: run(cfg_x, False), iters=5, warmup=1)
+        fk = cuda_ms(lambda: run(cfg_k, False), iters=5, warmup=1)
+    bx = cuda_ms(lambda: run(cfg_x), iters=3, warmup=1)
+    bk = cuda_ms(lambda: run(cfg_k), iters=3, warmup=1)
+    print(f'[split] sdf_with_grad_hessian on a 512^3 hierarchical step\'s '
+          f'own inputs (N={n}, grid {cfg_k.grid_size}, {cfg_k.n_levels} '
+          f'mip levels, float32): stencil_impl \'xla\' (split route, no '
+          f'kernel: launches {x_launches}) vs the default (the stencil '
+          f'kernels: {k_launches}); max rel diff '
+          + json.dumps({k: f'{v:.2e}' for k, v in outs.items()})
+          + f' (sdf/app tol {tol:.0e}, grad tol {grad_tol:.2e}, hessian '
+          f'reported only); parameter gradients, largest '
+          f'{max(gerr.values()):.2e} (tol {SPLIT_GRAD_TOL:.0e}) '
+          + json.dumps({k: f'{v:.1e}' for k, v in gerr.items()})
+          + '; two runs of the split route apart by '
+          + json.dumps({k: f'{v:.1e}' for k, v in noise.items()}),
+          flush=True)
+    print(f'[split] times on {card} (CUDA events; a different algorithm, '
+          f'not a library call): forward xla {fx:.2f} ms vs kernel route '
+          f'{fk:.2f} ms ({fx / fk:.1f}x); forward + backward xla {bx:.2f} ms '
+          f'vs {bk:.2f} ms ({bx / bk:.1f}x)', flush=True)
+    if bad:
+        raise AssertionError('split route vs kernel route: ' + '; '.join(bad))
+
+
+def phase_variants(card, geo, hier, pwquad_ms):
+    """Phase 3f: the options no published config sets (the paper's
+    ablations and a custom capture's photographer light).  Stage 2: each
+    MAT_VARIANTS entry's small step on the card against the CPU, then its
+    run at the compressor widths (run_mat_variant) with the stencil
+    launches counted from the first trainer to the last validation, beside
+    phase 5's pwquad figures; predict_materials through mat_pack.  Stage
+    1: the human light (phase_human_light).  The split stencil route
+    (check_split_route).  Returns the launches of both paths and the
+    trainers + ms/step that are profiled last."""
+    from tensoflow_tpu_torch.ops import stencil as st
+    t_phase = time.perf_counter()
+    for name, over in MAT_VARIANTS:
+        check_stage2_small(name, over)
+    st.reset_launches()
+    kept, chunks = {}, 0
+    for name, over in MAT_VARIANTS:
+        trainer, med, ch = run_mat_variant(card, geo, name, over)
+        kept[name] = med
+        chunks += ch
+        if name == 'all+diffuse':
+            mat_trainer, mat_ms = trainer, med['NIS sampling']
+        else:
+            del trainer
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mat_launches = dict(st.LAUNCHES)
+    filter_chunks = mat_launches['stencil_head_fwd'] - chunks
+    if mat_launches['stencil_head_bwd'] != 0 or \
+            filter_chunks != len(MAT_VARIANTS) * 3:
+        raise AssertionError(f'stage-2 variants: launches {mat_launches} for '
+                             f'{chunks} render chunks + 3 hit-filtering '
+                             f'chunks a trainer')
+    print(f'[variants] stage-2 ms/step by phase on {card}: pwquad (phase 5) '
+          + json.dumps({k: round(v, 1) for k, v in pwquad_ms.items()})
+          + '; ' + '; '.join(f'{k} ' + json.dumps(
+              {p: round(v, 1) for p, v in m.items()}) for k, m in kept.items())
+          + f'; stencil launches of the variants\' path {mat_launches} '
+          f'({len(MAT_VARIANTS)} x 3 hit-filtering chunks + {chunks} render '
+          'chunks, forward only)', flush=True)
+    check_packed_materials(mat_trainer)
+    light_trainer, light_ms, light_launches = phase_human_light(card)
+    check_split_route(card, hier)
+    print(f'[variants] phase {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return {'mat_trainer': mat_trainer, 'mat_ms': mat_ms,
+            'mat_launches': mat_launches, 'light_trainer': light_trainer,
+            'light_ms': light_ms, 'light_launches': light_launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the tile-gather probes
 # ---------------------------------------------------------------------------
 
@@ -2210,7 +2595,7 @@ def _mat_cfg(extra):
                                   extra=extra)
 
 
-def check_stage2_small():
+def check_stage2_small(variant=None, over=None):
     """One stage-2 training step in its last phase (NIS loss + sampling
     from frozen flow copies) on the card against the same step on the CPU
     at a small float32 configuration: same initial parameters (both
@@ -2220,7 +2605,9 @@ def check_stage2_small():
     step (float32 sums of Monte-Carlo samples in another order) and 2e-2
     at the second: Adam's first update is sign(g) * lr, so tiny gradients
     may step either way, and the estimator's few samples with a small pdf
-    carry that into the colours."""
+    carry that into the colours.  ``over``: the shader options of a
+    variant (phase 3f); the render check runs for the published options
+    only."""
     from tensoflow_tpu_torch.data import rays as rays_mod
     from tensoflow_tpu_torch.fields import mc_shading
     from tensoflow_tpu_torch.ops.sdf_trace import PackedSDFGrid
@@ -2238,7 +2625,8 @@ def check_stage2_small():
     ShapeTrainer(_load_cfg(SMALL_OVERRIDES + ['init_radius=0.5']),
                  device='cpu').save(geo)
     cfg = _mat_cfg({'database_name': 'toy/sphere_32_4', 'train_ray_num': 64,
-                    'bake_resolution': 32, 'shader_cfg': SMALL_SHADER})
+                    'bake_resolution': 32,
+                    'shader_cfg': {**SMALL_SHADER, **(over or {})}})
     ref = CpuDraws(cfg, geo, device='cpu')
     ref.init_dataset()
     card = CpuDraws(cfg, geo, device='cuda')
@@ -2253,7 +2641,9 @@ def check_stage2_small():
                                          cfg['random_seed'])
         logs[name] = tr.train(n_steps=2, log_every=1)
     _check_finite(logs['cuda'])
-    assert card.phase(1).nis_sample_diffuse and card.phase(1).nis_loss_diffuse
+    scfg = card.rcfg.shader
+    assert card.phase(1).nis_sample_diffuse and \
+        card.phase(1).nis_loss_diffuse == scfg.use_nis_diffuse
     worst, bad = 0.0, []
     for i, (gl, cl) in enumerate(zip(logs['cuda'], logs['cpu'])):
         rtol = 1e-4 if i == 0 else 2e-2
@@ -2272,14 +2662,16 @@ def check_stage2_small():
                     worst = max(worst, err / abs(v))
             if err > tol:
                 bad.append(f'step {i} {k}: card {gl[k]!r} vs CPU {v!r}')
+    tag = '[stage2]' if variant is None else f'[variants] {variant}:'
     if bad:
-        raise AssertionError('small stage-2 step: ' + '; '.join(bad)
+        raise AssertionError(f'{tag} small stage-2 step: ' + '; '.join(bad)
                              + f'; card {logs["cuda"]}; cpu {logs["cpu"]}')
-    print(f'[stage2] small float32 config ({ref.tbn} hits kept): 2 steps '
+    print(f'{tag} small float32 config ({ref.tbn} hits kept): 2 steps '
           f'on the card match the CPU (worst term rel err {worst:.2e}, tol '
           f'1e-4 then 2e-2); card {json.dumps({k: round(v, 6) for k, v in logs["cuda"][-1].items()})}',
           flush=True)
-    check_render_small(card, ref)
+    if variant is None:
+        check_render_small(card, ref)
 
 
 # render_image, card against CPU: pixels whose primary hit may differ (a
@@ -2542,7 +2934,8 @@ def phase_stage2(card, steps=12):
     last = ms['NIS sampling']
     render_launches, chunk_ms = stage2_eval(trainer, card)
     phase_lights(card, geo)
-    return trainer, sum(last) / len(last), render_launches, chunk_ms
+    medians = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    return trainer, sum(last) / len(last), render_launches, chunk_ms, medians
 
 
 def stage2_eval(trainer, card, chunk=512):
@@ -2804,13 +3197,15 @@ def main():
     # 112 / 168 / 168 ms after a session), which would inflate the step
     # times of these host-bound steps
     _, shape_trainer, shape_ms = phase_slice(card)
-    mat_trainer, mat_ms, render_launches, chunk_ms = phase_stage2(card)
+    mat_trainer, mat_ms, render_launches, chunk_ms, mat_phase_ms = \
+        phase_stage2(card)
     launches, sched_trainer, sched_ms = phase_schedule(card)
     hier_launches, hier_trainer, hier_ms, hier_errs = phase_hierarchical(card)
     geo = os.path.join(_root(), 'build', 'smoke_geo.pt')
     disk_launches = phase_datasets(card, geo)
     relight_launches, relight_chunk, relight_ms = phase_relight(
         card, mat_trainer, geo)
+    var = phase_variants(card, geo, hier_trainer, mat_phase_ms)
     kinds = phase_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
@@ -2822,6 +3217,10 @@ def main():
                      what=f'relight chunk ({RELIGHT_CHUNK} rays)')
     profile_step(sched_trainer, card, sched_ms, tag='schedule')
     profile_step(hier_trainer, card, hier_ms, tag='hier')
+    profile_step(var['light_trainer'], card, var['light_ms'],
+                 tag='human_light')
+    profile_step(var['mat_trainer'], card, var['mat_ms'],
+                 tag='stage2_all')
     for k, n in gather_launches.items():
         if n <= 0:
             raise AssertionError(f'{k} was not launched by microbench_r3')
@@ -2846,7 +3245,11 @@ def main():
                                  'occ_schedule_bf16': launches[k],
                                  'stage2_render_f32': render_launches[k],
                                  'from_disk': disk_launches[k],
-                                 'stage2_relight_f32': relight_launches[k]},
+                                 'stage2_relight_f32': relight_launches[k],
+                                 'human_light_f32':
+                                     var['light_launches'][k],
+                                 'stage2_variants':
+                                     var['mat_launches'][k]},
             'other_rows': {f'{t} B={b}': kinds[t, b][k]
                            for t, b in kinds if (t, b) != ('f32', 2)}})
     print(json.dumps({'kernels': stencil + [

@@ -3,18 +3,18 @@ sampling (counterpart of tensoflow_tpu/fields/flow.py).
 
 A 2-D flow on the unit square (normalized half-vector angles) built from
 two alternating-mask coupling blocks whose element-wise transform is a
-piecewise-quadratic spline; conditioning = tensorial VM feature of the
-surface point, embedded reflection angles and a (zeroed) roughness
-embedding.  Frozen sampling copies are second parameter trees handled by
-the caller.
+piecewise-quadratic ('pwquad') or piecewise-linear ('pwlinear') spline or
+an affine map ('realnvp', with a Gaussian prior and a sigmoid output
+cell); conditioning = tensorial VM feature of the surface point, embedded
+reflection angles and a (zeroed) roughness embedding.  Frozen sampling
+copies are second parameter trees handled by the caller.
 
 Sign convention: ``flow_sample`` returns -log q, ``flow_log_density``
 +log q.
 
-Ported: the 'pwquad' transform.  'pwlinear' and 'realnvp' raise
-NotImplementedError (see ROADMAP.md).  The prior's random azimuth roll is
-an argument (``noise``, uniforms [pn, sn, 1]) or drawn from the given
-torch.Generator.
+The prior's draws are an argument (``noise``: the azimuth roll, uniforms
+[pn, sn, 1], for the lattice prior; standard normals [pn, sn, 2] for
+realnvp's Gaussian) or come from the given torch.Generator.
 """
 from __future__ import annotations
 
@@ -69,8 +69,11 @@ class FlowConfig(NamedTuple):
         """Per-dim spline parameter count (ref: flow.py:644-648 bin_fn)."""
         if self.flow_type == 'pwquad':
             return 2 * self.n_bins + 1
-        raise NotImplementedError(
-            f'flow_type={self.flow_type!r}: only pwquad is ported')
+        if self.flow_type == 'pwlinear':
+            return self.n_bins
+        if self.flow_type == 'realnvp':
+            return 2
+        raise ValueError(f'unknown flow_type {self.flow_type!r}')
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +100,38 @@ def sphere_prior_log_prob(x):
     return torch.log(torch.cos(x[..., 1:] * (0.5 * math.pi)))
 
 
+def ggx_prior_sample(pn: int, sn: int, a: float = 0.04, gen=None,
+                     noise=None, device='cpu'):
+    """(ref: flow.py:92-120); a = 0.2^2.  ``noise`` [pn, sn, 2] uniforms,
+    else drawn from ``gen``."""
+    u = noise if noise is not None else torch.rand(
+        (pn, sn, 2), generator=gen, device=device)
+    e_phi, e_theta = u[..., :1], u[..., 1:]
+    a2 = a * a
+    cos_t = torch.sqrt(torch.clamp(
+        (1 - e_theta) / torch.clamp(1 + (a2 - 1) * e_theta, min=1e-6),
+        min=1e-6))
+    x = torch.clamp(torch.cat([e_phi, cos_t ** 2], -1), 1e-6, 1 - 1e-6)
+    return x, -ggx_prior_log_prob(x, a)
+
+
+def ggx_prior_log_prob(x, a: float = 0.04):
+    a2 = a * a
+    cos2 = x[..., 1:]
+    pdf = a2 / (cos2 * (a2 - 1) + 1) ** 2
+    return torch.log(torch.clamp(pdf, min=1e-6))
+
+
+def uniform_prior_sample(pn: int, sn: int, d: int = 2, gen=None,
+                         noise=None, device='cpu'):
+    x = noise if noise is not None else torch.rand(
+        (pn, sn, d), generator=gen, device=device)
+    return x, torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype,
+                          device=x.device)
+
+
 # ---------------------------------------------------------------------------
-# the piecewise-quadratic element-wise transform
+# element-wise transforms
 # ---------------------------------------------------------------------------
 
 def _modified_softmax(v_tilde, w):
@@ -188,14 +221,62 @@ def pwquad_flow(y, wv_tilde):
     return x, logj
 
 
-_TRANSFORMS = {'pwquad': (pwquad_flow, pwquad_flow_inv)}
+def _pwlinear_bins(q_tilde):
+    """Slopes q [N,k,b] and left values q_left [N,k,b] of the
+    piecewise-linear CDF, bin width w = 1/b."""
+    b = q_tilde.shape[-1]
+    w = 1.0 / b
+    q = torch.clamp(torch.softmax(q_tilde, -1), min=1e-6) / w
+    q_left = torch.cat([torch.zeros_like(q[..., :1]),
+                        torch.cumsum(q, -1)[..., :-1] * w], -1)
+    return q, q_left, b, w
 
 
-def _transforms(cfg: FlowConfig):
-    if cfg.flow_type not in _TRANSFORMS:
-        raise NotImplementedError(
-            f'flow_type={cfg.flow_type!r}: only pwquad is ported')
-    return _TRANSFORMS[cfg.flow_type]
+def pwlinear_flow_inv(x, q_tilde):
+    """(ref: flow.py:193-249)"""
+    q, q_left, b, w = _pwlinear_bins(q_tilde)
+    mx = torch.clamp(torch.floor(b * x).to(torch.int64), 0, b - 1)
+    slopes = _take_bin(q, mx)
+    out = (x - mx * w) * slopes + _take_bin(q_left, mx)
+    eps = torch.finfo(out.dtype).eps
+    out = torch.clamp(out, eps, 1 - eps)
+    logj = torch.sum(torch.log(slopes), -1, keepdim=True)
+    return out, logj
+
+
+def pwlinear_flow(y, q_tilde):
+    """(ref: flow.py:251-311)"""
+    q, q_left, b, w = _pwlinear_bins(q_tilde)
+    mx = _searchsorted_batch(q_left[..., 1:], y, max_bin=b - 1)
+    q_m = _take_bin(q, mx)
+    x = (y - _take_bin(q_left, mx)) / q_m + mx * w
+    eps = torch.finfo(x.dtype).eps
+    x = torch.clamp(x, eps, 1 - eps)
+    logj = -torch.sum(torch.log(q_m), -1, keepdim=True)
+    return x, logj
+
+
+def affine_flow(x, st):
+    """RealNVP affine transform (ref: flow.py:528-547)."""
+    es = torch.exp(st[..., 0])
+    y = es * x + st[..., 1]
+    logj = torch.sum(torch.log(torch.clamp(es, min=1e-6)), -1, keepdim=True)
+    return y, logj
+
+
+def affine_flow_inv(x, st):
+    es = torch.exp(-st[..., 0])
+    y = es * (x - st[..., 1])
+    logj = torch.sum(torch.log(torch.clamp(es, min=1e-6)), -1, keepdim=True)
+    return y, logj
+
+
+_TRANSFORMS = {
+    'pwquad': (pwquad_flow, pwquad_flow_inv),
+    'pwlinear': (pwlinear_flow, pwlinear_flow_inv),
+    'realnvp': (affine_flow, affine_flow_inv),
+}
+FLOW_TYPES = tuple(_TRANSFORMS)
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +302,11 @@ def _block_params(block, y_pass, feature, cfg: FlowConfig):
         y_emb = positional_encoding(y_pass, cfg.angle_multires)
     else:
         y_emb = y_pass
-    h = torch.cat([y_emb, feature], -1) * 2.0 - 1.0
+    h = torch.cat([y_emb, feature], -1)
+    if cfg.flow_type != 'realnvp':
+        # Reshift input activation: pwquad / pwlinear only; the realnvp
+        # registry entry has input_activation=None (ref: flow.py:644-648)
+        h = h * 2.0 - 1.0
     n = len(block['layers'])
     for i, layer in enumerate(block['layers']):
         h = mlp.apply_linear(layer, h)
@@ -239,7 +324,7 @@ def block_flow(block, y, logj, feature, cfg: FlowConfig, mask_idx: int,
     y_n = y[..., keep:keep + 1]
     y_m = y[..., move:move + 1]
     st = _block_params(block, y_n, feature, cfg)
-    fwd, inv = _transforms(cfg)
+    fwd, inv = _TRANSFORMS[cfg.flow_type]
     y_m_new, dlogj = (inv if inverse else fwd)(y_m, st)
     out = torch.cat([y_n, y_m_new] if keep == 0 else [y_m_new, y_n], -1)
     return out, logj + dlogj
@@ -264,14 +349,24 @@ def init_tenso_flow(gen, cfg: FlowConfig, device='cpu') -> Dict[str, Any]:
                        init_block(gen, cfg, device)]}
 
 
+def flow_pack(params, cfg: FlowConfig):
+    """Pack the flow's VM conditioning field into its gather atlas, once
+    per step and parameter tree, for ``packed=`` below."""
+    return tfield.pack_vm_field(params['field'], cfg.n_levels)
+
+
 def flow_feature(params, cfg: FlowConfig, pts, aabb, refl_angles01,
-                 roughness):
+                 roughness, packed=None):
     """Conditioning feature (ref: flow.py:709-744, 801-816): VM field ->
-    MLP(16), PE(reflection angles), zeroed roughness embedding.  The field
-    is sampled from its raw planes at level 0 (a flow conditions on a few
-    thousand points per step)."""
+    MLP(16), PE(reflection angles), zeroed roughness embedding.  Without
+    ``packed`` the field is sampled from its raw planes at level 0 (a flow
+    conditions on a few thousand points per step); the same numbers as
+    the packed atlas's level 0."""
     xyz01 = contraction(pts, aabb)
-    feats = tfield.vm_features(params['field'], xyz01)
+    if packed is None:
+        feats = tfield.vm_features(params['field'], xyz01)
+    else:
+        feats = tfield.vm_features_packed(packed, xyz01)
     if cfg.nis_multires > 0:
         xyz_in = positional_encoding(pts, cfg.nis_multires)
     else:
@@ -309,33 +404,70 @@ def _run_blocks(params, cfg: FlowConfig, x, logj, feature, inverse: bool):
     return x.reshape(*pre_shape, cfg.d), logj.reshape(*pre_shape, 1)
 
 
+def _prior_log_prob(cfg: FlowConfig, z):
+    """Prior density per flow variant (ref registry flow.py:644-648:
+    pwquad/pwlinear -> SphereSampler, realnvp -> factorized Gaussian)."""
+    if cfg.flow_type == 'realnvp':
+        return torch.sum(-0.5 * z ** 2 - 0.5 * math.log(2 * math.pi), -1,
+                         keepdim=True)
+    return sphere_prior_log_prob(z)
+
+
+def _prior_sample(cfg: FlowConfig, gen, pn: int, sn: int, train: bool,
+                  noise, device):
+    """realnvp: standard normals [pn, sn, 2] (``noise`` or drawn, also
+    when not training, as the reference does); the lattice prior: its
+    azimuth roll while training."""
+    if cfg.flow_type == 'realnvp':
+        z = noise if noise is not None else torch.randn(
+            (pn, sn, cfg.d), generator=gen, device=device)
+        return z, -_prior_log_prob(cfg, z)
+    roll = None
+    if train:
+        roll = noise if noise is not None else torch.rand(
+            (pn, sn, 1), generator=gen, device=device)
+    return sphere_prior_sample(pn, sn, roll, device)
+
+
 def flow_log_density(params, cfg: FlowConfig, pts, aabb, refl_angles01,
-                     roughness, x, rays_id=None):
+                     roughness, x, rays_id=None, packed=None):
     """Density evaluation: x -> (z, log q(x)) (ref: flow.py:801-831).
     pts [pn,3]; x [pn,sn,2] or [M,2] with rays_id [M] into pn."""
     x = torch.clamp(x, 1e-6, 1 - 1e-6)
-    feature = flow_feature(params, cfg, pts, aabb, refl_angles01, roughness)
+    feature = flow_feature(params, cfg, pts, aabb, refl_angles01, roughness,
+                           packed=packed)
     if rays_id is not None:
         feature = torch.index_select(
             feature, 0, torch.clamp(rays_id, 0, feature.shape[0] - 1))
     logj = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    if cfg.flow_type == 'realnvp':
+        # output sigmoid cell (ref: flow.py:126-144): invert it first
+        z0 = torch.clamp(x, 1e-6, 1 - 1e-6)
+        logj = logj - torch.sum(
+            torch.log(torch.clamp(z0 * (1 - z0), min=1e-6)), -1,
+            keepdim=True)
+        x = torch.log(z0 / (1 - z0))
     z, logj = _run_blocks(params, cfg, x, logj, feature, inverse=True)
-    return z, logj + sphere_prior_log_prob(z)
+    return z, logj + _prior_log_prob(cfg, z)
 
 
 def flow_sample(params, cfg: FlowConfig, gen, pts, aabb, refl_angles01,
-                roughness, n_samples: int, train: bool = True, noise=None):
+                roughness, n_samples: int, train: bool = True, noise=None,
+                packed=None):
     """Sampling: prior -> x with -log q (ref: flow.py:833-855).
 
-    The prior's azimuth roll is ``noise`` ([pn, n_samples, 1] uniforms)
-    when given, else drawn from ``gen`` while training.
+    The prior's draws are ``noise`` when given (see the module
+    docstring), else drawn from ``gen``.
     Returns (x [pn,sn,2], -log q [pn,sn,1])."""
-    _transforms(cfg)
     pn = pts.shape[0]
-    roll = None
-    if train:
-        roll = noise if noise is not None else torch.rand(
-            (pn, n_samples, 1), generator=gen, device=pts.device)
-    x, logj = sphere_prior_sample(pn, n_samples, roll, pts.device)
-    feature = flow_feature(params, cfg, pts, aabb, refl_angles01, roughness)
-    return _run_blocks(params, cfg, x, logj, feature, inverse=False)
+    x, logj = _prior_sample(cfg, gen, pn, n_samples, train, noise,
+                            pts.device)
+    feature = flow_feature(params, cfg, pts, aabb, refl_angles01, roughness,
+                           packed=packed)
+    x, logj = _run_blocks(params, cfg, x, logj, feature, inverse=False)
+    if cfg.flow_type == 'realnvp':
+        y = torch.clamp(torch.sigmoid(x), 1e-6, 1 - 1e-6)
+        logj = logj + torch.sum(
+            torch.log(torch.clamp(y * (1 - y), min=1e-6)), -1, keepdim=True)
+        x = y
+    return x, logj

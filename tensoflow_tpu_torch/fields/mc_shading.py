@@ -8,18 +8,22 @@ flows; secondary-ray radiance = sphere-traced visibility (baked SDF grid)
 selecting between an inner-light MLP (hit) and the trainable environment
 cubemap (miss).  Dense ``[points, samples]`` layout with an NoL>0 mask.
 
-Ported: ``shade_fn='shade_mixed'`` with each of the three outer lights
-('envlight' cubemap, 'direction' and 'sphere_direction' MLPs) and the
-photographer ``human_lights`` blend.  ``shade_mixed_all`` / ``use_nis_all``
-and the flows other than pwquad raise NotImplementedError (see
-ROADMAP.md).
+Two estimators: ``shade_fn='shade_mixed'`` (separate diffuse and specular
+sample sets, each with its own flow) and ``'shade_mixed_all'`` (one
+direction set for both lobes, one combined flow ``flow_all``, whose frozen
+copy rides in the diffuse-copy slot as in the reference); each with the
+three outer lights ('envlight' cubemap, 'direction' and
+'sphere_direction' MLPs), the photographer ``human_lights`` blend and the
+three flow types of fields/flow.py.
 
-Random draws: ``draw_shade_noise`` makes the step's four draws from a
-torch.Generator; ``shade_mixed``/``mc_forward`` take them ready-made as
-``noise`` (the parity tests hand in jax.random's numbers).  The secondary
-trace runs under torch.no_grad(): it is non-differentiable in the
-reference too, and ~30 taps on 1.8M rays would otherwise keep their
-inputs for a backward pass that never uses them.
+Random draws: ``draw_shade_noise`` makes the step's draws from a
+torch.Generator (``draw_eval_noise`` the realnvp prior's normals that an
+evaluation pass also consumes); ``shade_mixed``/``shade_mixed_all``/
+``mc_forward`` take them ready-made as ``noise`` (the parity tests hand in
+jax.random's numbers).  The secondary trace runs under torch.no_grad():
+it is non-differentiable in the reference too, and ~30 taps on 1.8M rays
+would otherwise keep their inputs for a backward pass that never uses
+them.
 """
 from __future__ import annotations
 
@@ -118,15 +122,13 @@ class MCShadingConfig(NamedTuple):
 
 
 def check_supported(cfg: MCShadingConfig):
-    """Raise for a configuration that reaches a part not ported yet."""
-    if cfg.shade_fn != 'shade_mixed' or cfg.use_nis_all:
-        raise NotImplementedError(
-            'shade_mixed_all / use_nis_all are not ported yet')
+    """Raise for an outer light or a flow type the JAX package rejects
+    too.  (Any shade_fn other than 'shade_mixed_all' takes shade_mixed,
+    as in the reference's dispatch.)"""
     if cfg.outer_light_version not in OUTER_LIGHTS:
         raise NotImplementedError(cfg.outer_light_version)
-    if cfg.flow_type != 'pwquad':
-        raise NotImplementedError(
-            f'flow_type={cfg.flow_type!r} is not ported yet (only pwquad)')
+    if cfg.flow_type not in flow_mod.FLOW_TYPES:
+        raise ValueError(f'unknown flow_type {cfg.flow_type!r}')
 
 
 def init_mc_shading(gen: torch.Generator, cfg: MCShadingConfig,
@@ -162,6 +164,8 @@ def init_mc_shading(gen: torch.Generator, cfg: MCShadingConfig,
         params['human_light'] = mlp.init_predictor(
             gen, 2 * 2 * 6, 4, 4, final_bias=float(np.log(0.02)),
             device=device)
+    if cfg.use_nis_all:
+        params['flow_all'] = flow_mod.init_tenso_flow(gen, cfg.flow, device)
     if cfg.use_nis_diffuse:
         params['flow_diffuse'] = flow_mod.init_tenso_flow(gen, cfg.flow,
                                                           device)
@@ -175,14 +179,24 @@ def init_mc_shading(gen: torch.Generator, cfg: MCShadingConfig,
 # materials (ref: fields.py:776-810, 1010-1017)
 # ---------------------------------------------------------------------------
 
-def tenso_feature(params, cfg: MCShadingConfig, pts, aabb):
-    """Material-field features, sampled from the raw planes at level 0
-    (stage 2 evaluates this field at a few thousand points per step)."""
-    return tfield.vm_features(params['mat_field'], contraction(pts, aabb))
+def mat_pack(params, cfg: MCShadingConfig):
+    """Pack the material VM field into its gather atlas, once per step,
+    for ``packed=`` below."""
+    return tfield.pack_vm_field(params['mat_field'], cfg.mat_n_levels)
 
 
-def predict_materials(params, cfg: MCShadingConfig, pts, aabb):
-    feats = tenso_feature(params, cfg, pts, aabb)
+def tenso_feature(params, cfg: MCShadingConfig, pts, aabb, packed=None):
+    """Material-field features at level 0: from the raw planes (stage 2
+    evaluates this field at a few thousand points per step), or from
+    ``packed`` (mat_pack), the same numbers."""
+    xyz01 = contraction(pts, aabb)
+    if packed is None:
+        return tfield.vm_features(params['mat_field'], xyz01)
+    return tfield.vm_features_packed(packed, xyz01)
+
+
+def predict_materials(params, cfg: MCShadingConfig, pts, aabb, packed=None):
+    feats = tenso_feature(params, cfg, pts, aabb, packed)
     metallic = mlp.apply_predictor(params['metallic'], feats, 'sigmoid')
     roughness = mlp.apply_predictor(params['roughness'], feats, 'sigmoid')
     rmax, rmin = 1.0, 0.04 ** 2
@@ -414,18 +428,37 @@ class ShadePhase(NamedTuple):
     nis_loss_specular: bool = False
 
 
+def _prior_noise(gen, cfg: MCShadingConfig, pn: int, sn: int, device):
+    """A flow prior's draw: realnvp's standard normals [pn, sn, 2], else
+    the lattice prior's azimuth roll [pn, sn, 1]."""
+    if cfg.flow_type == 'realnvp':
+        return torch.randn((pn, sn, 2), generator=gen, device=device)
+    return torch.rand((pn, sn, 1), generator=gen, device=device)
+
+
 def draw_shade_noise(gen: torch.Generator, cfg: MCShadingConfig, pn: int,
                      phase: ShadePhase, device) -> Dict[str, torch.Tensor]:
-    """The uniforms one training call of shade_mixed consumes: the flow
-    priors' azimuth rolls [pn, sn, 1] (when the phase samples from a flow
-    copy) and the analytic samplers' rolls [pn, 1, 1]."""
+    """The draws one training call of the shader consumes.  shade_mixed:
+    the flow priors' draws (when the phase samples from a flow copy) and
+    the analytic samplers' azimuth rolls [pn, 1, 1].  shade_mixed_all: the
+    combined flow's prior draw, then its azimuth roll (the reference's
+    k_f, k_a)."""
     def u(*shape):
         return torch.rand(shape, generator=gen, device=device)
     noise = {}
+    if cfg.shade_fn == 'shade_mixed_all':
+        if phase.nis_sample_diffuse:
+            noise['flow_all'] = _prior_noise(gen, cfg, pn,
+                                             cfg.nis_sample_num, device)
+        if cfg.random_azimuth:
+            noise['az_all'] = u(pn, 1, 1)
+        return noise
     if phase.nis_sample_diffuse:
-        noise['flow_diffuse'] = u(pn, cfg.nis_diffuse_sample_num, 1)
+        noise['flow_diffuse'] = _prior_noise(
+            gen, cfg, pn, cfg.nis_diffuse_sample_num, device)
     if phase.nis_sample_specular:
-        noise['flow_specular'] = u(pn, cfg.nis_specular_sample_num, 1)
+        noise['flow_specular'] = _prior_noise(
+            gen, cfg, pn, cfg.nis_specular_sample_num, device)
     if cfg.random_azimuth:
         noise['az_diffuse'] = u(pn, 1, 1)
         if not phase.nis_sample_specular:
@@ -433,13 +466,34 @@ def draw_shade_noise(gen: torch.Generator, cfg: MCShadingConfig, pn: int,
     return noise
 
 
+def draw_eval_noise(gen: torch.Generator, cfg: MCShadingConfig, pn: int,
+                    device) -> Dict[str, torch.Tensor]:
+    """The draws of an evaluation's ``_nis`` pass (both flow copies
+    sampled): none for the lattice prior, which rolls only while training;
+    realnvp's Gaussian prior draws its normals at evaluation too, as in
+    the reference."""
+    if cfg.flow_type != 'realnvp':
+        return {}
+    if cfg.shade_fn == 'shade_mixed_all':
+        return {'flow_all': _prior_noise(gen, cfg, pn, cfg.nis_sample_num,
+                                         device)}
+    return {'flow_diffuse': _prior_noise(gen, cfg, pn,
+                                         cfg.nis_diffuse_sample_num, device),
+            'flow_specular': _prior_noise(
+                gen, cfg, pn, cfg.nis_specular_sample_num, device)}
+
+
 def _flow_sample_halfvec(flow_params, fcfg, pts, aabb, view_angles01,
-                         roughness, normals, view_dirs, sn, train, roll):
+                         roughness, normals, view_dirs, sn, train, draw):
     """Draw sn half-vector samples from a (frozen) flow and convert them
-    to outgoing directions + solid-angle pdf (ref: fields.py:1084-1113)."""
+    to outgoing directions + solid-angle pdf (ref: fields.py:1084-1113).
+    draw: the prior's draw (_prior_noise); a lattice prior without one
+    takes no roll."""
+    if fcfg.flow_type != 'realnvp':
+        train = train and draw is not None
     angles01, logq = flow_mod.flow_sample(
         flow_params, fcfg, None, pts, aabb, view_angles01, roughness, sn,
-        train=train and roll is not None, noise=roll)
+        train=train, noise=draw)
     angles_half = torch.cat(
         [angles01[..., :1] * (2 * math.pi),
          angles01[..., 1:2] * (0.5 * math.pi)], -1)
@@ -451,6 +505,28 @@ def _flow_sample_halfvec(flow_params, fcfg, pts, aabb, view_angles01,
     return dirs, angles, prob, angles_half, hov
 
 
+def _split_noise(noise, is_train: bool):
+    """(flow-prior draws, azimuth rolls): the rolls only while training."""
+    noise = noise or {}
+    az = {k: v for k, v in noise.items() if k.startswith('az_')} \
+        if is_train else {}
+    return {k: v for k, v in noise.items() if k.startswith('flow_')}, az
+
+
+def _view_angles01(normals, view_dirs):
+    view_angles = direction_to_angle(normals, view_dirs[:, None, :])[:, 0]
+    return view_angles / device_constant(
+        'view_angle_scale', lambda: [2 * np.pi, 0.5 * np.pi],
+        view_angles.device, view_angles.dtype)
+
+
+def _halfvec_x(half):
+    """Half-vector angles -> the flow's unit-square coordinates."""
+    return torch.clamp(torch.cat(
+        [half[..., 0:1] / (2 * math.pi),
+         half[..., 1:2] / (0.5 * math.pi)], -1), EPS, 1 - EPS)
+
+
 def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
                 pts, normals, view_dirs, metallic, roughness, albedo,
                 phase: ShadePhase, noise: Optional[Dict[str, Any]],
@@ -459,21 +535,19 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     """The MC estimator (ref: fields.py:1075-1335), dense and masked.
 
     noise: draw_shade_noise's dict (None or missing keys: no roll, as at
-    eval).  Returns (colors [pn,3], outputs dict)."""
-    noise = (noise or {}) if is_train else {}
+    eval; an evaluation takes only draw_eval_noise's flow-prior draws).
+    Returns (colors [pn,3], outputs dict)."""
+    noise, az = _split_noise(noise, is_train)
     fcfg = cfg.flow
     f32 = torch.float32
     dev = pts.device
 
-    view_angles = direction_to_angle(normals, view_dirs[:, None, :])[:, 0]
-    view_angles01 = view_angles / device_constant(
-        'view_angle_scale', lambda: [2 * np.pi, 0.5 * np.pi], dev,
-        view_angles.dtype)
+    view_angles01 = _view_angles01(normals, view_dirs)
 
     # ---------------- diffuse sampling ----------------
     dtable = direction_table(cfg.diffuse_sample_num, dev)
     d_dirs2, _, d_prob2, d_half2 = sample_diffuse_directions(
-        dtable, normals, view_dirs, noise.get('az_diffuse'))
+        dtable, normals, view_dirs, az.get('az_diffuse'))
     if phase.nis_sample_diffuse:
         d_dirs1, _, d_prob1, d_half1, _ = _flow_sample_halfvec(
             flow_diffuse_copy, fcfg, pts, aabb, view_angles01, roughness,
@@ -501,7 +575,7 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     else:
         stable = direction_table(cfg.specular_sample_num, dev)
         spec_dirs, _, spec_prob, spec_half = sample_specular_directions(
-            stable, normals, view_dirs, roughness, noise.get('az_specular'))
+            stable, normals, view_dirs, roughness, az.get('az_specular'))
     spec_num = spec_dirs.shape[1]
 
     # estimator-chain dtype (MCShadingConfig.estimator_dtype): the wide
@@ -593,18 +667,13 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
         torch.mean(fx_d, -1, keepdim=True, dtype=f32)
         / torch.clamp(diffuse_prob, min=EPS), unbiased=False)
 
-    def halfvec_x(half):
-        return torch.clamp(torch.cat(
-            [half[..., 0:1] / (2 * math.pi),
-             half[..., 1:2] / (0.5 * math.pi)], -1), EPS, 1 - EPS)
-
     zero = torch.zeros((), dtype=f32, device=dev)
     if phase.nis_loss_diffuse and cfg.use_nis_diffuse:
         sn = cfg.nis_diffuse_sample_num
         theta = diffuse_half[:, :sn, 1:2]
         _, logqx_ = flow_mod.flow_log_density(
             params['flow_diffuse'], fcfg, pts, aabb, view_angles01,
-            roughness, halfvec_x(diffuse_half[:, :sn]))
+            roughness, _halfvec_x(diffuse_half[:, :sn]))
         logqx = logqx_ - torch.log(torch.clamp(
             4 * math.pi ** 2 * hov_diff[:, :sn] * torch.sin(theta),
             min=EPS))
@@ -623,7 +692,7 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
         theta = spec_half[..., 1:2]
         _, logqx_ = flow_mod.flow_log_density(
             params['flow_specular'], fcfg, pts, aabb, view_angles01,
-            roughness, halfvec_x(spec_half))
+            roughness, _halfvec_x(spec_half))
         logqx = logqx_ - torch.log(torch.clamp(
             4 * math.pi ** 2 * hov_spec * torch.sin(theta), min=EPS))
         sp = torch.clamp(spec_prob, min=EPS)
@@ -638,20 +707,126 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     return colors, outputs
 
 
+def shade_mixed_all(params, cfg: MCShadingConfig, grid, unit_size, aabb,
+                    pts, normals, view_dirs, metallic, roughness, albedo,
+                    phase: ShadePhase, noise: Optional[Dict[str, Any]],
+                    is_train: bool, flow_all_copy=None, human_poses=None):
+    """Single-flow combined estimator (ref: fields.py:1337-1451): ONE
+    direction set drives both the diffuse and the specular lobe, with the
+    combined flow copy's samples in front once it exists.  noise:
+    draw_shade_noise's 'flow_all' / 'az_all'.  Its NIS loss is the mean
+    over all samples (not masked as shade_mixed's specular one), and
+    diffuse_light / specular_light are the same image."""
+    noise, az = _split_noise(noise, is_train)
+    fcfg = cfg.flow
+    f32 = torch.float32
+    view_angles01 = _view_angles01(normals, view_dirs)
+
+    dtable = direction_table(cfg.diffuse_sample_num, pts.device)
+    dirs2, _, prob2, half2 = sample_diffuse_directions(
+        dtable, normals, view_dirs, az.get('az_all'))
+    if phase.nis_sample_diffuse and flow_all_copy is not None:
+        dirs1, _, prob1, half1, _ = _flow_sample_halfvec(
+            flow_all_copy, fcfg, pts, aabb, view_angles01, roughness,
+            normals, view_dirs, cfg.nis_sample_num, is_train,
+            noise.get('flow_all'))
+        directions = torch.cat([dirs1, dirs2], 1)
+        prob = torch.cat([prob1, prob2], 1)
+        angles_half = torch.cat([half1, half2], 1)
+    else:
+        directions, prob, angles_half = dirs2, prob2, half2
+
+    lights, light_hit = get_lights(
+        params, cfg, grid, unit_size, pts[:, None, :].expand(
+            directions.shape), directions, human_poses, normals=normals)
+
+    # estimator-chain dtype: the policy of shade_mixed
+    cdt = torch.bfloat16 if cfg.estimator_dtype == 'bf16' else pts.dtype
+    nc = normals.to(cdt)
+    vc = view_dirs.to(cdt)
+    dirs_c = directions.to(cdt)
+    met_c = metallic.to(cdt)
+    alb_c = albedo.to(cdt)
+    rough_c = roughness.to(cdt)
+    lights_c = lights.to(cdt)
+    prob_c = torch.clamp(prob, min=EPS).to(cdt)
+
+    kd = 1.0 - met_c[:, None, :]
+    diffuse_w = (alb_c[:, None, :] * kd
+                 * (saturate_dot(dirs_c, nc[:, None, :]) / math.pi))
+    diffuse_colors = torch.mean(diffuse_w * lights_c / prob_c, 1, dtype=f32)
+
+    f0 = 0.04 * (1.0 - met_c) + met_c * alb_c
+    h = safe_normalize(view_dirs[:, None, :] + directions)
+    hov = saturate_dot(h, view_dirs[:, None, :])
+    fresnel = fresnel_schlick(f0[:, None, :], hov.to(cdt))
+    nov = saturate_dot(nc, vc)[:, None, :]
+    nol = saturate_dot(nc[:, None, :], dirs_c)
+    geom = brdf_geometry(nov, nol, rough_c[:, None, :], cfg.geometry_type)
+    # the GGX NDF stays float32 (see shade_mixed)
+    noh = saturate_dot(normals[:, None, :], h)
+    dist = distribution_ggx(noh, roughness[:, None, :]).to(cdt)
+    spec_w = dist * fresnel * geom / torch.clamp(4.0 * nov, min=EPS)
+    specular_colors = torch.mean(spec_w * lights_c / prob_c, 1, dtype=f32)
+
+    colors = linear_to_srgb(diffuse_colors + specular_colors)
+    light_hit_f = light_hit[..., None].to(cdt)
+    mean_light = torch.clamp(linear_to_srgb(torch.mean(lights, 1)), 0, 1)
+    outputs: Dict[str, Any] = {
+        'albedo': albedo,
+        'normal': (normals + 1.0) / 2.0,
+        'roughness': roughness,
+        'metallic': metallic,
+        'diffuse_light': mean_light,
+        'specular_light': mean_light,
+        'diffuse_color': torch.clamp(linear_to_srgb(diffuse_colors), 0, 1),
+        'specular_color': torch.clamp(linear_to_srgb(specular_colors), 0, 1),
+        'visibility': 1.0 - torch.mean(light_hit_f, 1, dtype=f32),
+        'indirect_light': torch.mean(lights_c * light_hit_f, 1, dtype=f32),
+    }
+    outputs['approximate_light'] = torch.clamp(
+        linear_to_srgb(torch.mean(kd * lights_c, 1, dtype=f32)
+                       + outputs['specular_color']), 0, 1)
+
+    fx = (diffuse_w + spec_w) * lights_c
+    outputs['variance'] = torch.var(
+        torch.mean(fx, -1, keepdim=True, dtype=f32)
+        / torch.clamp(prob, min=EPS), unbiased=False)
+    if (phase.nis_loss_diffuse or phase.nis_loss_specular) \
+            and cfg.use_nis_all:
+        theta = angles_half[..., 1:2]
+        _, logqx_ = flow_mod.flow_log_density(
+            params['flow_all'], fcfg, pts, aabb, view_angles01, roughness,
+            _halfvec_x(angles_half))
+        logqx = logqx_ - torch.log(torch.clamp(
+            4 * math.pi ** 2 * hov * torch.sin(theta), min=EPS))
+        outputs['loss_nis'] = -torch.mean(
+            fx.float() * logqx / torch.clamp(prob, min=EPS))
+    else:
+        outputs['loss_nis'] = torch.zeros((), dtype=f32, device=pts.device)
+    return colors, outputs
+
+
 def mc_forward(params, cfg: MCShadingConfig, grid, unit_size, aabb, pts,
                view_dirs, normals, phase: ShadePhase, noise, is_train: bool,
                flow_diffuse_copy=None, flow_specular_copy=None,
                human_poses=None):
-    """Full shade: materials + mixed estimator (ref: fields.py:1453-1473).
-    noise: see shade_mixed."""
-    check_supported(cfg)
+    """Full shade: materials + the estimator that ``cfg.shade_fn`` names
+    (ref: fields.py:1453-1473); shade_mixed_all takes its combined flow's
+    copy from the diffuse-copy slot.  noise: see shade_mixed."""
     view_dirs = safe_normalize(view_dirs)
     normals = safe_normalize(normals)
     metallic, roughness, albedo = predict_materials(params, cfg, pts, aabb)
-    colors, outputs = shade_mixed(
-        params, cfg, grid, unit_size, aabb, pts, normals, view_dirs,
-        metallic, roughness, albedo, phase, noise, is_train,
-        flow_diffuse_copy, flow_specular_copy, human_poses)
+    if cfg.shade_fn == 'shade_mixed_all':
+        colors, outputs = shade_mixed_all(
+            params, cfg, grid, unit_size, aabb, pts, normals, view_dirs,
+            metallic, roughness, albedo, phase, noise, is_train,
+            flow_all_copy=flow_diffuse_copy, human_poses=human_poses)
+    else:
+        colors, outputs = shade_mixed(
+            params, cfg, grid, unit_size, aabb, pts, normals, view_dirs,
+            metallic, roughness, albedo, phase, noise, is_train,
+            flow_diffuse_copy, flow_specular_copy, human_poses)
     outputs['rgb_pr'] = colors
     return outputs
 

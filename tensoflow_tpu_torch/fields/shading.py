@@ -4,8 +4,10 @@ tensoflow_tpu/fields/shading.py): split-sum PBR at each ray sample.
 Material MLP -> albedo/roughness/metallic; diffuse = albedo x cosine-
 prefiltered envlight(normal); specular = FG-LUT(NoV, roughness) x the
 light blended between an indirect-light MLP and the prefiltered envlight
-by a learned occlusion probability.  The FG LUT is read from the port's
-own asset (assets/fg_lut_256_1024.npy, the JAX package's table).
+by a learned occlusion probability; with ``human_light`` the envlight
+part is blended with a photographer light predicted where the reflected
+ray meets the capturing camera's plane.  The FG LUT is read from the
+port's own asset (assets/fg_lut_256_1024.npy, the JAX package's table).
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import numpy as np
 import torch
 
 from .. import device_constant
-from ..ops.math import (ide_dim, integrated_dir_encoding, linear_to_srgb,
+from ..ops.math import (get_camera_plane_intersection, ide_dim,
+                        integrated_dir_encoding,
+                        integrated_positional_encoding, linear_to_srgb,
                         pe_dim, positional_encoding, safe_normalize)
 from ..ops.tensor_field import sample_bilinear_packed
 from . import light as envlight_mod
@@ -61,8 +65,6 @@ def fg_lut_packed(device: str):
 
 def init_shading(gen: torch.Generator, cfg: ShadingConfig,
                  device='cpu') -> Dict[str, Any]:
-    if cfg.human_light:
-        raise NotImplementedError('human_light is not ported')
     feats = cfg.app_feats_dim
     sph_dim = ide_dim(5)
     dir_dim = pe_dim(3, 6)
@@ -86,6 +88,9 @@ def init_shading(gen: torch.Generator, cfg: ShadingConfig,
     if cfg.has_radiance_field:
         params['rad_mlp'] = mlp.init_predictor(
             gen, feats + 3 + pe_dim(3, 4) + 3, 3, 3, run_dim=128, **kw)
+    if cfg.human_light:
+        params['human_light'] = mlp.init_predictor(
+            gen, 2 * 2 * 6, 4, 3, final_bias=float(np.log(0.01)), **kw)
     return params
 
 
@@ -98,15 +103,34 @@ def _fix_normals(normals):
     return torch.where(degen, fallback[None, :], normals)
 
 
+def predict_human_light(params, points, reflective, human_poses, roughness):
+    """The photographer light (ref: fields.py:377-393): the reflected ray
+    meets the camera's XoY plane (human_poses [N, 3, 4]); an IPE of the
+    hit, widened by roughness and distance, feeds the human_light MLP.
+    Returns (light [N, 3], blend weight [N, 1]), zero off the plane."""
+    inter, dists, hits = get_camera_plane_intersection(
+        points, reflective, human_poses)
+    scale = 0.3
+    mean = inter[..., :2] * scale
+    var = roughness * (dists[:, None] * scale) ** 2
+    hits = hits & (torch.linalg.norm(mean, dim=-1) < 1.5) & (dists > 0)
+    hits = hits.to(torch.float32)[:, None]
+    mean = mean * hits
+    var = (var * hits).expand(mean.shape)
+    enc = integrated_positional_encoding(mean, var, 0, 6)
+    hl = mlp.apply_predictor(params['human_light'], enc, 'exp', 5.0) * hits
+    return hl[..., :3], torch.clamp(hl[..., 3:], 0.0, 1.0)
+
+
 def apply_shading(params, cfg: ShadingConfig, mips, points, normals,
-                  view_dirs, feature_vectors, step: Optional[int] = None,
-                  inter_results: bool = False):
-    """Forward shading (ref: fields.py:448-567).  step=None disables the
-    radiance head.  Returns (color [N,3], radiance or None, occ_info), and
-    with inter_results the intermediates dict (materials, lights and
-    colours, the displayed ones as clipped sRGB) as a fourth item."""
-    if cfg.human_light:
-        raise NotImplementedError('human_light is not ported')
+                  view_dirs, feature_vectors, human_poses=None,
+                  step: Optional[int] = None, inter_results: bool = False):
+    """Forward shading (ref: fields.py:448-567).  human_poses [N, 3, 4]
+    (with cfg.human_light) blends in the photographer light; step=None
+    disables the radiance head.  Returns (color [N,3], radiance or None,
+    occ_info), and with inter_results the intermediates dict (materials,
+    lights and colours, the displayed ones as clipped sRGB; with
+    cfg.human_light also 'human_light') as a fourth item."""
     normals = _fix_normals(normals)
     view_dirs = safe_normalize(view_dirs)
     reflective = torch.sum(view_dirs * normals, -1, keepdim=True) \
@@ -149,8 +173,14 @@ def apply_shading(params, cfg: ShadingConfig, mips, points, normals,
     occ_prob = occ_prob * 0.5 + 0.5
     occ_prob_c = torch.clamp(occ_prob, 0.0, 1.0)
 
+    human_light, human_weight = 0.0, 0.0
+    if cfg.human_light and human_poses is not None:
+        human_light, human_weight = predict_human_light(
+            params, points, reflective, human_poses, roughness)
     specular_light = (indirect_light * occ_prob_c
-                      + direct_light * (1.0 - occ_prob_c))
+                      + (human_light * human_weight
+                         + direct_light * (1.0 - human_weight))
+                      * (1.0 - occ_prob_c))
 
     lut_p, (res_h, res_w) = fg_lut_packed(str(points.device))
     fg = sample_bilinear_packed(
@@ -182,5 +212,9 @@ def apply_shading(params, cfg: ShadingConfig, mips, points, normals,
             'occ_prob': occ_prob_c,
             'indirect_light': indirect_light * occ_prob_c,
         }
+        if cfg.human_light:
+            hl = human_light * human_weight     # 0.0 without poses
+            inter['human_light'] = linear_to_srgb(
+                hl if torch.is_tensor(hl) else specular_light.new_zeros(()))
         return color, radiance, occ_info, inter
     return color, radiance, occ_info

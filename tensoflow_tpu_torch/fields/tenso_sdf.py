@@ -4,10 +4,16 @@ VM-decomposed SDF + appearance field: 3 planes + 3 lines with circle-SDF
 init, a 2-layer softplus(beta=100) MLP head producing [sdf, app_feat],
 and first/second-order derivatives by a 7-point central FD stencil.
 
-The stencil always goes through the patch atlas + stencil head
-(ops/stencil.py) — the JAX package's Pallas route (tenso_sdf.py:223-257):
-the plain version on CPU tensors, the Hopper kernels on CUDA tensors.
-The JAX package's 'xla' route is not ported; it is the tests' oracle.
+``stencil_impl`` picks the stencil's route, as in the JAX package
+(tenso_sdf.py:220-283):
+
+  * 'auto' and 'pallas' (the default): the patch atlas + the fused stencil
+    head (ops/stencil.py): the Hopper kernels on CUDA tensors, their plain
+    version on CPU tensors;
+  * 'xla': the deduplicated split-feature route in plain torch
+    (tensor_field.vm_stencil_features_split on the 2x2 atlas, the unfused
+    head, only the sdf column at the 6 offset points).  No kernel; taken
+    only when the config names it, never chosen by itself.
 """
 from __future__ import annotations
 
@@ -34,6 +40,20 @@ class SDFConfig(NamedTuple):
     # 'float32' | 'bfloat16': storage dtype of the gathered atlas rows
     # (params stay f32 for Adam; cast once per step)
     gather_dtype: str = 'float32'
+    # 'auto' | 'pallas' (the stencil kernels) | 'xla' (the split route)
+    stencil_impl: str = 'auto'
+
+
+STENCIL_IMPLS = ('auto', 'pallas', 'xla')
+
+
+def stencil_route(cfg: SDFConfig) -> str:
+    """'kernel' (ops/stencil.py) for 'auto' / 'pallas', 'split' for
+    'xla'; any other value raises."""
+    if cfg.stencil_impl not in STENCIL_IMPLS:
+        raise ValueError(f'stencil_impl={cfg.stencil_impl!r}: expected one '
+                         f'of {STENCIL_IMPLS}')
+    return 'split' if cfg.stencil_impl == 'xla' else 'kernel'
 
 
 def units(cfg: SDFConfig, aabb):
@@ -95,14 +115,21 @@ def _pe_in(cfg: SDFConfig, xyz, xyz01):
     return xyz
 
 
+def _mlp_head(params, cfg: SDFConfig, feats_list, xyz_in):
+    """The head's first layer: per-plane feats [[M, C]] * 3 + embedded
+    coords [M, E] -> softplus100 hidden [M, hidden] (one product over the
+    concatenated inputs, operands in the gather dtype, f32 accumulation)."""
+    cd = _compute_dtype(cfg)
+    x = torch.cat([f.to(cd) for f in feats_list] + [xyz_in.to(cd)], dim=-1)
+    h = _dot_f32(x, params['mlp'][0]['w'], cd) + params['mlp'][0]['b']
+    return mlp.softplus100(h)
+
+
 def _hidden(params, cfg: SDFConfig, packed, xyz, aabb, level):
     xyz01 = contraction(xyz, aabb)
     feats = tfield.vm_features_split(packed, xyz01, level)
-    cd = _compute_dtype(cfg)
-    x = torch.cat([f.to(cd) for f in feats]
-                  + [_pe_in(cfg, xyz, xyz01).to(cd)], dim=-1)
-    h = _dot_f32(x, params['mlp'][0]['w'], cd) + params['mlp'][0]['b']
-    return mlp.softplus100(h), cd
+    return (_mlp_head(params, cfg, feats, _pe_in(cfg, xyz, xyz01)),
+            _compute_dtype(cfg))
 
 
 def apply_tenso_sdf(params, cfg: SDFConfig, xyz, aabb, level=None,
@@ -158,9 +185,10 @@ def _pe_rot_table(offs, n_freqs: int):
 
 
 def sdf_with_grad_hessian(params, cfg: SDFConfig, xyz, aabb, level=None,
-                          with_hessian: bool = True):
+                          with_hessian: bool = True, packed=None):
     """SDF + app features + FD gradient (+ normal-projected hessian) by one
-    7-point stencil through the patch atlas and the stencil head.
+    7-point stencil, on the route ``cfg.stencil_impl`` names (module
+    docstring); ``packed`` (pack_field) serves the 'xla' route.
     Returns (sdf [N], app [N, app_dim], grad [N, 3], hessian [N] or None).
     """
     n = xyz.shape[0]
@@ -170,7 +198,59 @@ def sdf_with_grad_hessian(params, cfg: SDFConfig, xyz, aabb, level=None,
     offs01 = device_constant(('stencil_offsets', tuple(d01)),
                              lambda: _stencil_offsets(d01), xyz.device)
     w1, b1 = params['mlp'][1]['w'], params['mlp'][1]['b']
+    if stencil_route(cfg) == 'split':
+        sdf, app, s = _stencil_split(params, cfg, xyz, xyz01, aabb, level,
+                                     packed, offs01, d01)
+    else:
+        sdf, app, s = _stencil_kernel(params, cfg, xyz, xyz01, aabb, level,
+                                      offs01, d01)
+    grad = ((s[:, 0] - s[:, 1]) / (2.0 * eps[:, None])).t()
+    if not with_hessian:
+        return sdf, app, grad, None
+    hess = ((s[:, 0] + s[:, 1] - 2.0 * sdf[None, :])
+            / (eps[:, None] ** 2)).t()
+    normal_hessian = torch.sum(grad * hess, -1) / (
+        torch.sum(grad ** 2, -1) + 1e-5)
+    return sdf, app, grad, normal_hessian
 
+
+def _stencil_split(params, cfg: SDFConfig, xyz, xyz01, aabb, level, packed,
+                   offs01, d01):
+    """The 'xla' route (JAX tenso_sdf.py:258-282): deduplicated stencil
+    taps of the 2x2 atlas, the unfused head over [7N] rows, the full
+    output layer at the centre and only its sdf column at the 6 offset
+    points.  Returns (sdf [N], app [N, app_dim], s [3, 2, N])."""
+    n = xyz.shape[0]
+    if packed is None:
+        packed = pack_field(params, cfg)
+    cd = _compute_dtype(cfg)
+    w1, b1 = params['mlp'][1]['w'], params['mlp'][1]['b']
+    # embedded coords of the 7 stencil points, stencil-major [7, N, E]
+    if cfg.sdf_multires > 0:
+        if cfg.sdf_multires == 3:
+            pe_in = xyz01[None] + offs01[:, None, :]
+        else:
+            pe_in = xyz[None] + (offs01 * (aabb[1] - aabb[0])[None, :])[
+                :, None, :]
+        xyz_in = positional_encoding(pe_in, cfg.sdf_multires)
+    else:
+        xyz_in = xyz[None] + (offs01 * (aabb[1] - aabb[0])[None, :])[
+            :, None, :]
+    feats = tfield.vm_stencil_features_split(packed, xyz01, d01, level)
+    h = _mlp_head(params, cfg, [f.reshape(7 * n, f.shape[-1])
+                                for f in feats], xyz_in.reshape(7 * n, -1))
+    h = h.reshape(7, n, -1)
+    out_c = _dot_f32(h[0], w1, cd) + b1
+    s_off = _dot_f32(h[1:].reshape(6 * n, -1), w1[:, :1], cd)[:, 0] + b1[0]
+    return out_c[:, 0], out_c[:, 1:], s_off.reshape(3, 2, n)
+
+
+def _stencil_kernel(params, cfg: SDFConfig, xyz, xyz01, aabb, level,
+                    offs01, d01):
+    """The kernel route: the patch atlas and the fused stencil head
+    (ops/stencil.py).  Returns (sdf [N], app [N, app_dim], s [3, 2, N])."""
+    n = xyz.shape[0]
+    w1, b1 = params['mlp'][1]['w'], params['mlp'][1]['b']
     atlas = tfield.pack_vm_patches(params['field'], cfg.n_levels,
                                    _gather_dtype(cfg))
     pp, lp, fr, sigmas = tfield.vm_patch_gather(atlas, xyz01, d01, level)
@@ -191,23 +271,14 @@ def sdf_with_grad_hessian(params, cfg: SDFConfig, xyz, aabb, level=None,
     out_c, s_off6 = stencil.stencil_head(
         [p for row in pp for p in row], [l for row in lp for l in row],
         fr, sigmas, pe_c, rot, w0_parts, params['mlp'][0]['b'], w1, b1)
-    sdf = out_c[:, 0]
-    app = out_c[:, 1:]
-    s = s_off6.reshape(3, 2, n)                  # [axis, (+,-), N]
-    grad = ((s[:, 0] - s[:, 1]) / (2.0 * eps[:, None])).t()
-    if not with_hessian:
-        return sdf, app, grad, None
-    hess = ((s[:, 0] + s[:, 1] - 2.0 * sdf[None, :])
-            / (eps[:, None] ** 2)).t()
-    normal_hessian = torch.sum(grad * hess, -1) / (
-        torch.sum(grad ** 2, -1) + 1e-5)
-    return sdf, app, grad, normal_hessian
+    return out_c[:, 0], out_c[:, 1:], s_off6.reshape(3, 2, n)
 
 
-def gradient_only(params, cfg: SDFConfig, xyz, aabb, level=None):
+def gradient_only(params, cfg: SDFConfig, xyz, aabb, level=None,
+                  packed=None):
     """FD gradient without hessian (ref: fields.py:227-248)."""
     return sdf_with_grad_hessian(params, cfg, xyz, aabb, level,
-                                 with_hessian=False)[2]
+                                 with_hessian=False, packed=packed)[2]
 
 
 def upsample_tenso_sdf(params, cfg: SDFConfig, res_target

@@ -9,9 +9,10 @@ traced depth, and their normals come from the neural SDF's
 finite-difference gradient, flipped to face the ray
 (ref: materialRenderer.py:265-343).
 
-Evaluation draws nothing: ``eval_outputs`` shades with ``is_train=False``,
-so the analytic samplers take no azimuth roll and the flow priors no roll
-either, as in the reference.
+Evaluation shades with ``is_train=False``: the analytic samplers take no
+azimuth roll and the lattice flow prior no roll either, as in the
+reference; only a realnvp flow's Gaussian prior draws at evaluation
+(``eval_outputs``'s ``noise``, from mc_shading.draw_eval_noise).
 """
 from __future__ import annotations
 
@@ -196,11 +197,13 @@ def train_step_outputs(params, cfg: MaterialRendererConfig, grid, batch,
 
 def eval_outputs(params, cfg: MaterialRendererConfig, grid, batch,
                  flow_diffuse_copy=None, flow_specular_copy=None,
-                 with_nis: bool = True):
+                 with_nis: bool = True, noise=None):
     """Eval forward on traced hits: the analytic pass, then the ``_nis``
-    pass (both flow copies sampled) when the copies exist
-    (ref: materialRenderer.py:566-639; fields.py:1465-1473).  Like the
-    reference it passes no human poses: a human-light scene renders
+    pass (both flow copies sampled; a shade_mixed_all model reads its
+    combined copy from the diffuse slot) when the copies exist
+    (ref: materialRenderer.py:566-639; fields.py:1465-1473).  noise: the
+    ``_nis`` pass's flow-prior draws (mc_shading.draw_eval_noise).  Like
+    the reference it passes no human poses: a human-light scene renders
     without the photographer light."""
     pts = batch['inters']
     aabb = aabb_tensor(cfg, pts.device)
@@ -211,7 +214,7 @@ def eval_outputs(params, cfg: MaterialRendererConfig, grid, batch,
         out_nis = mc_shading.mc_forward(
             *args, mc_shading.ShadePhase(nis_sample_diffuse=True,
                                          nis_sample_specular=True),
-            None, False, flow_diffuse_copy, flow_specular_copy)
+            noise, False, flow_diffuse_copy, flow_specular_copy)
         out.update({k + '_nis': v for k, v in out_nis.items()})
     return out
 

@@ -335,6 +335,10 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
                              rays_cos[:, None, :])
     levels = torch.log2(sbr[..., 0] / br)
     flat_dirs = dirs[:, None, :].expand(pts.shape).reshape(-1, 3)
+    # the rays' camera poses [rn, 3, 4] (human light) or None; each sample
+    # takes its ray's on the device, so the step copies only its batch
+    human_poses = ray_batch.get('human_poses') \
+        if cfg.shading.human_light else None
 
     if compact:
         m = rn * cfg.compact_samples_per_ray
@@ -345,12 +349,15 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
         s_pts, s_lv = s_cols[:, 0:3], s_cols[:, 3:4]
         s_mid = mid.reshape(-1)[src] if eval_extras else None
         s_dirs, s_dists = s_cols[:, 4:7], s_cols[:, 7]
+        s_hp = None if human_poses is None else human_poses[src // sn]
     else:
         # every [rays, samples] sample goes through the field, the masked
         # ones included (the JAX package does not compact them)
         s_pts, s_lv = pts.reshape(-1, 3), levels.reshape(-1, 1)
         s_dirs, s_dists = flat_dirs, dists.reshape(-1)
         slot_mask = inner.reshape(-1)
+        s_hp = None if human_poses is None else human_poses[:, None].expand(
+            rn, sn, 3, 4).reshape(-1, 3, 4)
 
     sdf, app_feat, grads, hessian = tenso_sdf.sdf_with_grad_hessian(
         params['sdf'], cfg.sdf, s_pts, aabb, s_lv, with_hessian=is_train)
@@ -367,7 +374,7 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
     normals = safe_normalize(grads)
     sampled_color, sampled_radiance, occ_info = shading_mod.apply_shading(
         params['shading'], cfg.shading, mips, s_pts, normals, -s_dirs,
-        app_feat, step=(step if radiance_on else None))
+        app_feat, s_hp, step=(step if radiance_on else None))
 
     mask_f = inner.to(alpha_s.dtype)
     slot_f = slot_mask.to(alpha_s.dtype)
@@ -492,7 +499,8 @@ def _eval_extras(params, cfg: ShapeRendererConfig, mips, aabb, ray_batch,
     surf_pts = t_depth * dirs + rays_o
     lv_d = torch.log2(compute_ball_radii(t_depth, radii, rays_cos) / br)
     nrm = safe_normalize(tenso_sdf.gradient_only(params['sdf'], cfg.sdf,
-                                                 surf_pts, aabb, lv_d))
+                                                 surf_pts, aabb, lv_d,
+                                                 packed=packed))
     inner_d = (~torch.any((aabb[0] > surf_pts) | (surf_pts > aabb[1]), -1,
                           keepdim=True)).to(nrm.dtype)
     out['normal_vis'] = ((nrm + 1.0) * 0.5) * inner_d
@@ -500,7 +508,7 @@ def _eval_extras(params, cfg: ShapeRendererConfig, mips, aabb, ray_batch,
                                      lv_d, packed=packed)[..., 1:]
     _, _, occ_info, inter = shading_mod.apply_shading(
         params['shading'], cfg.shading, mips, surf_pts, nrm, -dirs, feat,
-        step=step, inter_results=True)
+        ray_batch.get('human_poses'), step=step, inter_results=True)
 
     def sdf_fun(x):
         return tenso_sdf.sdf_only(params['sdf'], cfg.sdf, x, aabb,

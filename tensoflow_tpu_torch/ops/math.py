@@ -1,7 +1,6 @@
 """Math primitives of the port (counterpart of tensoflow_tpu/ops/math.py).
 
-Only the pieces the two training steps reach are ported.  Channel
-layouts match the JAX package exactly.
+Channel layouts match the JAX package exactly.
 """
 from __future__ import annotations
 
@@ -31,6 +30,23 @@ def safe_normalize(x, eps: float = 1e-20):
     return x * torch.rsqrt(torch.clamp(n2, min=eps))
 
 
+def reflect(v, n):
+    """Reflect direction ``v`` about normal ``n`` (both [..., 3])."""
+    return 2.0 * dot(v, n) * n - v
+
+
+def safe_sqrt(x, eps: float = 1e-12):
+    return torch.sqrt(torch.clamp(x, min=eps))
+
+
+def safe_acos(x, eps: float = EPS):
+    return torch.arccos(torch.clamp(x, -1.0 + eps, 1.0 - eps))
+
+
+def safe_log(x, eps: float = EPS):
+    return torch.log(torch.clamp(x, min=eps))
+
+
 def charbonnier(pred, gt, eps: float = 1e-3):
     """Charbonnier RGB loss summed over channels (ref: shapeRenderer.py:803-805)."""
     return torch.sqrt(torch.sum((gt - pred) ** 2, dim=-1) + eps)
@@ -45,10 +61,38 @@ def linear_to_srgb(linear):
     return torch.where(linear <= 0.0031308, srgb0, srgb1)
 
 
+def srgb_to_linear(srgb):
+    """(ref: utils/raw_utils.py:19-28)"""
+    eps = float(np.finfo(np.float32).eps)
+    lin0 = 25.0 / 323.0 * srgb
+    lin1 = torch.clamp((200.0 * srgb + 11.0) / 211.0, min=eps) ** (12.0 / 5.0)
+    return torch.where(srgb <= 0.04045, lin0, lin1)
+
+
 def contraction(xyz, aabb):
     """Map world coords into the unit cube [0,1]^3 (ref: network_utils.py:90-91)."""
     lo, hi = aabb[0], aabb[1]
     return (xyz - lo) / (hi - lo)
+
+
+def normalize_coord(xyz, aabb):
+    """Map world coords into [-1,1]^3 (ref: network_utils.py:93-94)."""
+    lo, hi = aabb[0], aabb[1]
+    return 2.0 * (xyz - lo) / (hi - lo) - 1.0
+
+
+def to_sphere_angles(d):
+    """Cartesian direction -> (phi, theta), phi in [0,2pi), theta in [0,pi]."""
+    theta = safe_acos(d[..., 2:3])
+    phi = torch.remainder(torch.atan2(d[..., 1:2], d[..., 0:1]), 2.0 * np.pi)
+    return torch.cat([phi, theta], dim=-1)
+
+
+def from_sphere_angles(angles):
+    """(phi, theta) -> unit direction (ref: network_utils.py:101-106)."""
+    phi, theta = angles[..., 0:1], angles[..., 1:2]
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return torch.cat([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1)
 
 
 def get_sphere_intersection(pts, dirs, radius: float = 1.0):
@@ -177,6 +221,43 @@ def integrated_dir_encoding(xyz, kappa_inv, deg_view: int = 5):
     im_xy = r_pow * torch.sin(m_f * phi)
     atten = torch.exp(-sigma * kappa_inv)
     return torch.cat([re_xy * zpart * atten, im_xy * zpart * atten], dim=-1)
+
+
+def spherical_harmonics(levels: int, directions):
+    """Real SH components up to ``levels`` (ref: ref_utils.py:130-193)."""
+    x, y, z = directions[..., 0], directions[..., 1], directions[..., 2]
+    xx, yy, zz = x * x, y * y, z * z
+    comps = [torch.full_like(x, 0.28209479177387814)]
+    if levels > 1:
+        comps += [0.4886025119029199 * y,
+                  0.4886025119029199 * z,
+                  0.4886025119029199 * x]
+    if levels > 2:
+        comps += [1.0925484305920792 * x * y,
+                  1.0925484305920792 * y * z,
+                  0.9461746957575601 * zz - 0.31539156525251999,
+                  1.0925484305920792 * x * z,
+                  0.5462742152960396 * (xx - yy)]
+    if levels > 3:
+        comps += [0.5900435899266435 * y * (3 * xx - yy),
+                  2.890611442640554 * x * y * z,
+                  0.4570457994644658 * y * (5 * zz - 1),
+                  0.3731763325901154 * z * (5 * zz - 3),
+                  0.4570457994644658 * x * (5 * zz - 1),
+                  1.445305721320277 * z * (xx - yy),
+                  0.5900435899266435 * x * (xx - 3 * yy)]
+    if levels > 4:
+        comps += [2.5033429417967046 * x * y * (xx - yy),
+                  1.7701307697799304 * y * z * (3 * xx - yy),
+                  0.9461746957575601 * x * y * (7 * zz - 1),
+                  0.6690465435572892 * y * z * (7 * zz - 3),
+                  0.10578554691520431 * (35 * zz * zz - 30 * zz + 3),
+                  0.6690465435572892 * x * z * (7 * zz - 3),
+                  0.47308734787878004 * (xx - yy) * (7 * zz - 1),
+                  1.7701307697799304 * x * z * (xx - 3 * yy),
+                  0.6258357354491761 * (xx * (xx - 3 * yy)
+                                        - yy * (3 * xx - yy))]
+    return torch.stack(comps, dim=-1)
 
 
 def xla_linspace(start: float, stop: float, n: int) -> np.ndarray:

@@ -38,6 +38,14 @@ def fibonacci_sphere(num_samples: int, begin_elevation: float = 0):
     return azimuths, elevations
 
 
+def az_el_to_points(azimuths, elevations):
+    """(ref: base_utils.py:884-888)"""
+    z = np.sin(elevations)
+    x = np.cos(azimuths) * np.cos(elevations)
+    y = np.sin(azimuths) * np.cos(elevations)
+    return np.stack([x, y, z], -1)
+
+
 def direction_samples_01(num_samples: int) -> np.ndarray:
     """The shader's precomputed (az, el) table scaled to [0,1]^2
     (ref: fields.py:733-742).  float32 [n, 2]."""
@@ -58,6 +66,44 @@ def sphere_prior_angles_01(num_samples: int) -> np.ndarray:
     phis = (2 * np.pi * ns * phi) % (2 * np.pi) / (2 * np.pi)
     thetas = np.arcsin(z) / (0.5 * np.pi)
     return np.stack([phis, thetas], -1).astype(np.float32)
+
+
+def halton_sequence(dim_num: int, sample_num: int) -> np.ndarray:
+    """Halton low-discrepancy sequence (replaces the ghalton wheel of
+    ref: base_utils.py:68-71).  float32 [sample_num, dim_num]."""
+    primes = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53]
+    assert dim_num <= len(primes)
+    out = np.zeros((sample_num, dim_num), dtype=np.float64)
+    for d in range(dim_num):
+        b = primes[d]
+        nn = np.arange(1, sample_num + 1, dtype=np.int64)
+        f = np.ones(sample_num)
+        r = np.zeros(sample_num)
+        while nn.max() > 0:
+            f = f / b
+            r = r + f * (nn % b)
+            nn = nn // b
+        out[:, d] = r
+    return out.astype(np.float32)
+
+
+def stratified_samples_1d(sample_num: int,
+                          rng: np.random.Generator | None = None):
+    """(ref: base_utils.py:73-80)"""
+    rng = rng or np.random.default_rng()
+    t = np.linspace(0.0, 1.0, sample_num, dtype=np.float32)
+    mids = 0.5 * (t[1:] + t[:-1])
+    upper = np.concatenate([mids, t[-1:]])
+    lower = np.concatenate([t[:1], mids])
+    return (lower + (upper - lower) * rng.random(sample_num)).astype(
+        np.float32)
+
+
+def stratified_samples_2d(sample_num: int,
+                          rng: np.random.Generator | None = None):
+    """(ref: base_utils.py:82-83)"""
+    return np.stack([stratified_samples_1d(sample_num, rng),
+                     stratified_samples_1d(sample_num, rng)], -1)
 
 
 def direction_table(num_samples: int, device) -> torch.Tensor:

@@ -4,8 +4,12 @@ A field is 3 planes ``[H, W, C]`` + 3 lines ``[L, C]`` (matMode
 [[0,1],[0,2],[1,2]], vecMode [2,1,0]).  The port keeps the JAX package's
 layouts and atlas formats so its tests compare like with like:
 
+  * the raw planes (``vm_features``, with mip pyramids when n_levels > 1)
+    for the stage-2 material and flow fields;
   * ``pack_vm_field``  — 2x2 patch rows for the single-point field eval
-    (occupancy update, sdf_only);
+    (occupancy update, sdf_only, ``vm_features_packed``) and the
+    deduplicated 7-point stencil lookups of the split route
+    (``vm_stencil_features_split``, fields/tenso_sdf.py 'xla');
   * ``pack_vm_patches`` — the patch atlas feeding the stencil head
     (ops/stencil.py): 4x4 (p16) rows, one gathered row per texture per mip
     branch, or, from a 256x256 top plane up, 1x4 (p4) rows, four gathered
@@ -164,17 +168,62 @@ def sample_linear_1d(tex, u):
     return ((1 - f) * _take(tex, x0i) + f * _take(tex, x1i)).float()
 
 
-def vm_features(field: FieldParams, xyz01):
-    """Level-0 features of a VM field at contracted coords [N,3] in [0,1]
-    -> [N, 3*C] (plane_i * line_i concatenated over i), sampled from the
-    raw planes.  Coordinates are detached."""
+def _mip_weights(level, n_levels: int):
+    """Per-level trilinear blending weights for a fractional mip level:
+    level [N] (clamped to [0, n_levels-1]) -> [n_levels, N]."""
+    lv = torch.clamp(level, 0.0, n_levels - 1)
+    ls = torch.arange(n_levels, dtype=lv.dtype, device=lv.device)[:, None]
+    return torch.clamp(1.0 - torch.abs(lv[None, :] - ls), min=0.0)
+
+
+def sample_mip_2d(pyramid: Sequence[torch.Tensor], uv, level):
+    """dr.texture(..., mip_level_bias=level, boundary='clamp'): pyramid of
+    [H/2^l, W/2^l, C]; uv [N,2]; level [N] -> [N, C]."""
+    ws = _mip_weights(level, len(pyramid))
+    out = 0.0
+    for l, tex in enumerate(pyramid):
+        out = out + ws[l][:, None] * sample_bilinear_2d(tex, uv)
+    return out
+
+
+def sample_mip_1d(pyramid: Sequence[torch.Tensor], u, level):
+    ws = _mip_weights(level, len(pyramid))
+    out = 0.0
+    for l, tex in enumerate(pyramid):
+        out = out + ws[l][:, None] * sample_linear_1d(tex, u)
+    return out
+
+
+def vm_features(field: FieldParams, xyz01, level=None, n_levels: int = 1,
+                gather_dtype=None):
+    """Features of a VM field at contracted coords [N,3] in [0,1] ->
+    [N, 3*C] (plane_i * line_i concatenated over i), sampled from the raw
+    planes; with n_levels > 1 from their mip pyramids at the fractional
+    ``level`` [N] (None: level 0).  ``gather_dtype`` casts the texture
+    once; weights and outputs stay float32.  Coordinates and level are
+    detached."""
     xyz01 = torch.clamp(xyz01.detach(), 0.0, 1.0)
+    n = xyz01.shape[0]
+    if level is None:
+        level = torch.zeros((n,), dtype=xyz01.dtype, device=xyz01.device)
+    else:
+        level = level.detach().reshape(n)
+    if gather_dtype is not None:
+        field = {'planes': [p.to(gather_dtype) for p in field['planes']],
+                 'lines': [l.to(gather_dtype) for l in field['lines']]}
     cols = [xyz01[:, 0], xyz01[:, 1], xyz01[:, 2]]
     feats = []
     for i in range(3):
         uv = torch.stack([cols[MAT_MODE[i][0]], cols[MAT_MODE[i][1]]], dim=1)
-        pf = sample_bilinear_2d(field['planes'][i], uv)
-        lf = sample_linear_1d(field['lines'][i], cols[VEC_MODE[i]])
+        w = cols[VEC_MODE[i]]
+        if n_levels > 1:
+            pf = sample_mip_2d(build_pyramid_2d(field['planes'][i], n_levels),
+                               uv, level)
+            lf = sample_mip_1d(build_pyramid_1d(field['lines'][i], n_levels),
+                               w, level)
+        else:
+            pf = sample_bilinear_2d(field['planes'][i], uv)
+            lf = sample_linear_1d(field['lines'][i], w)
         feats.append(pf * lf)
     return torch.cat(feats, dim=-1)
 
@@ -353,6 +402,103 @@ def vm_features_split(packed: PackedVMField, xyz01, level=None):
             P[i] = p if P[i] is None else P[i] + p
             L[i] = ll if L[i] is None else L[i] + ll
     return [P[i] * L[i] for i in range(3)]
+
+
+def vm_features_packed(packed: PackedVMField, xyz01, level=None):
+    """vm_features on the 2x2 atlas: [N,3] -> [N, 3C] (concat form)."""
+    return torch.cat(vm_features_split(packed, xyz01, level), -1)
+
+
+def _linear_take(buffer, base, l, xt):
+    """Clamped linear lookup on the 2x2 atlas: one row -> [N, C] f32."""
+    x0 = torch.floor(xt)
+    f = (xt - x0)[:, None]
+    rows = _take(buffer, base + _clip_idx(x0.long() + 1, l))
+    c = rows.shape[-1] // 4
+    return ((1 - f) * rows[:, :c] + f * rows[:, c:2 * c]).float()
+
+
+# stencil point -> (plane variant, line variant).  Plane lookup variants:
+# [center, u+, u-, v+, v-]; line variants: [center, x+, x-].  Stencil
+# order [center, +x, -x, +y, -y, +z, -z] matches fields/tenso_sdf.
+_PLANE_SHIFTS = ((0.0, 0.0), (1.0, 0.0), (-1.0, 0.0), (0.0, 1.0),
+                 (0.0, -1.0))
+_LINE_SHIFTS = (0.0, 1.0, -1.0)
+_STENCIL = ((None, 0), (0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
+
+
+def vm_stencil_variants(packed: PackedVMField, xyz01, delta01, level=None):
+    """Deduplicated texture lookups of the 7-point FD stencil.
+
+    xyz01 [N,3] contracted coords; delta01 [3] per-axis offsets in
+    contracted units.  Per plane only 5 distinct bilinear lookups exist
+    (center, +-u, +-v) and per line 3 (center, +-x).  Returns (P, L):
+    P[i][vi] [N, C] for plane i and variant vi in _PLANE_SHIFTS order,
+    L[i][vi] over _LINE_SHIFTS; each mip-blended."""
+    meta = packed.meta
+    xyz01 = torch.clamp(xyz01.detach(), 0.0, 1.0)
+    n = xyz01.shape[0]
+    if level is not None:
+        level = level.detach()
+    cols = [xyz01[:, 0], xyz01[:, 1], xyz01[:, 2]]
+    d01 = [float(delta01[0]), float(delta01[1]), float(delta01[2])]
+    P = [[None] * 5 for _ in range(3)]
+    L = [[None] * 3 for _ in range(3)]
+    for l0, mw in _level_branches(meta.n_levels, level, n):
+        mwc = None if mw is None else mw[:, None]
+        for i in range(3):
+            a, b = MAT_MODE[i]
+            base, h, w, hf, wf = _plane_params(meta, i, l0)
+            ut0 = cols[a] * hf - 0.5
+            vt0 = cols[b] * wf - 0.5
+            dut = d01[a] * hf
+            dvt = d01[b] * wf
+            for vi, (su, sv) in enumerate(_PLANE_SHIFTS):
+                p = sample_bilinear_packed(packed.buffer, h, w,
+                                           ut0 + su * dut, vt0 + sv * dvt,
+                                           base)
+                if mwc is not None:
+                    p = p * mwc
+                P[i][vi] = p if P[i][vi] is None else P[i][vi] + p
+            c = VEC_MODE[i]
+            base, ln, lf = _line_params(meta, i, l0)
+            xt0 = cols[c] * lf - 0.5
+            dxt = d01[c] * lf
+            for vi, sx in enumerate(_LINE_SHIFTS):
+                ll = _linear_take(packed.buffer, base, ln, xt0 + sx * dxt)
+                if mwc is not None:
+                    ll = ll * mwc
+                L[i][vi] = ll if L[i][vi] is None else L[i][vi] + ll
+    return P, L
+
+
+def vm_stencil_features_split(packed: PackedVMField, xyz01, delta01,
+                              level=None):
+    """Per-plane features of the 7-point FD stencil, deduplicated: a list
+    of 3 tensors [7, N, C] (stencil-major)."""
+    P, L = vm_stencil_variants(packed, xyz01, delta01, level)
+    out = []
+    for i in range(3):
+        a, b = MAT_MODE[i]
+        c = VEC_MODE[i]
+        feats = []
+        for d, sign in _STENCIL:
+            pi, li = 0, 0
+            if d == a:
+                pi = 1 if sign > 0 else 2
+            elif d == b:
+                pi = 3 if sign > 0 else 4
+            elif d == c:
+                li = 1 if sign > 0 else 2
+            feats.append(P[i][pi] * L[i][li])
+        out.append(torch.stack(feats, dim=0))
+    return out
+
+
+def vm_stencil_features(packed: PackedVMField, xyz01, delta01, level=None):
+    """Concat form of vm_stencil_features_split: [7, N, 3C]."""
+    return torch.cat(vm_stencil_features_split(packed, xyz01, delta01,
+                                               level), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -609,6 +755,26 @@ def upsample_vm(field: FieldParams, res_target: Sequence[int]) -> FieldParams:
 # ---------------------------------------------------------------------------
 # regularizers
 # ---------------------------------------------------------------------------
+
+def shrink_vm(field: FieldParams, grid_size, aabb, new_aabb):
+    """Crop the VM grids to a tightened aabb (ref: fields.py:180-203).
+    Host-side (the shapes change).  Returns (field, new_grid_size)."""
+    aabb = np.asarray(aabb, np.float64)
+    new_aabb = np.asarray(new_aabb, np.float64)
+    gs = np.asarray(grid_size)
+    units = (aabb[1] - aabb[0]) / (gs - 1)
+    t_l = np.round((new_aabb[0] - aabb[0]) / units).astype(int)
+    b_r = np.minimum(np.round((new_aabb[1] - aabb[0]) / units).astype(int)
+                     + 1, gs)
+    planes, lines = [], []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        v = VEC_MODE[i]
+        planes.append(field['planes'][i][t_l[m0]:b_r[m0], t_l[m1]:b_r[m1]])
+        lines.append(field['lines'][i][t_l[v]:b_r[v]])
+    new_size = tuple(int(x) for x in (b_r - t_l))
+    return {'planes': planes, 'lines': lines}, new_size
+
 
 def tv_loss_vm(field: FieldParams):
     """Total-variation regularizer over planes+lines

@@ -66,8 +66,15 @@ def build_shape_config(cfg: Dict[str, Any], grid_size, n_levels: int
         app_dim=cfg['app_dim'], n_levels=n_levels,
         sdf_multires=cfg['sdf_multires'],
         init_radius=float(cfg.get('init_radius', 0.2)),
-        gather_dtype=cfg.get('gather_dtype', 'float32'))
+        gather_dtype=cfg.get('gather_dtype', 'float32'),
+        stencil_impl=cfg.get('stencil_impl', 'auto'))
+    tenso_sdf.stencil_route(sdf_cfg)        # an unknown value raises here
+    # the photographer light of a custom capture: shader_config.human_light
+    # of the shape configs, as the reference reads it (the JAX package's
+    # trainer leaves that key unread)
+    shader_config = cfg.get('shader_config') or {}
     shading_cfg = shading_mod.ShadingConfig(
+        human_light=bool(shader_config.get('human_light', False)),
         app_feats_dim=cfg['app_dim'],
         has_radiance_field=cfg['has_radiance_field'],
         radiance_field_step=cfg['radiance_field_step'],

@@ -12,6 +12,8 @@ tensoflow_tpu/train/trainer_mat.py).
     SEC_BUDGET_INTERVAL steps and at ``log_every``;
   * frozen flow copies are refreshed on the reference schedule
     (ref: fields.py:1050-1065): detached clones the optimizer never sees;
+    with ``use_nis_all`` the combined flow's copy takes the 'diffuse'
+    slot, before flow_diffuse's (which then overwrites it);
   * render_image / validate render held-out views in chunks of 512 rays:
     primary trace, the analytic eval pass and, once the flow copies exist,
     the ``_nis`` pass.
@@ -19,8 +21,7 @@ tensoflow_tpu/train/trainer_mat.py).
 Entry points run on the card: ``MaterialTrainer(cfg, path)`` means CUDA and
 raises when CUDA is absent; the CPU runs only with ``device='cpu'``.
 
-Not ported yet (see ROADMAP.md): the combined flow (use_nis_all), the
-multi-device mesh.
+Not ported yet (see ROADMAP.md): the multi-device mesh.
 """
 from __future__ import annotations
 
@@ -81,7 +82,9 @@ def build_material_config(cfg: Dict[str, Any], geo_kwargs: Dict[str, Any]
         n_comp=geo_kwargs['sdf_n_comp'], sdf_dim=geo_kwargs['sdf_dim'],
         app_dim=geo_kwargs['app_dim'], n_levels=geo_kwargs['n_levels'],
         sdf_multires=geo_kwargs.get('sdf_multires', 3),
-        gather_dtype=cfg.get('gather_dtype', 'float32'))
+        gather_dtype=cfg.get('gather_dtype', 'float32'),
+        stencil_impl=cfg.get('stencil_impl', 'auto'))
+    tenso_sdf.stencil_route(sdf_cfg)        # an unknown value raises here
     return mr.MaterialRendererConfig(
         shader=shader, sdf=sdf_cfg,
         aabb=tuple(tuple(x) for x in geo_kwargs['aabb']),
@@ -188,6 +191,11 @@ class MaterialTrainer:
         s1 = step + 1
         due = (s1 >= scfg.nis_start_iter
                and (s1 - scfg.nis_start_iter) % scfg.nis_update_interval == 0)
+        # the combined flow (shade_mixed_all) rides in the diffuse slot;
+        # with use_nis_diffuse on too, flow_diffuse's copy replaces it
+        # (the reference's order, kept as it is)
+        if scfg.use_nis_all and due:
+            self.flow_copies['diffuse'] = _clone_tree(self.params['flow_all'])
         if scfg.use_nis_diffuse and due:
             self.flow_copies['diffuse'] = _clone_tree(
                 self.params['flow_diffuse'])
@@ -196,6 +204,10 @@ class MaterialTrainer:
                 self.params['flow_specular'])
 
     def phase(self, step: int) -> mc_shading.ShadePhase:
+        """The step's phase flags.  The NIS-loss flags follow
+        use_nis_diffuse / use_nis_specular even for shade_mixed_all, whose
+        combined-flow loss therefore needs one of them on (the
+        reference's gating, kept as it is)."""
         scfg = self.rcfg.shader
         return mc_shading.ShadePhase(
             nis_sample_diffuse=('diffuse' in self.flow_copies),
@@ -314,11 +326,14 @@ class MaterialTrainer:
         float32 tensors on the device."""
         inters, normals, _, hit = mr.trace_surface(
             self.geo_params, self.rcfg, self.grid, o, d)
+        noise = mc_shading.draw_eval_noise(
+            self.gen, self.rcfg.shader, o.shape[0], self.device) \
+            if with_nis else None
         out = mr.eval_outputs(
             self.params, self.rcfg, self.grid,
             {'inters': inters, 'normals': normals, 'rays_d': d},
             self.flow_copies.get('diffuse'), self.flow_copies.get('specular'),
-            with_nis)
+            with_nis, noise)
         keys = list(RENDER_KEYS) + ([k + '_nis' for k in RENDER_KEYS]
                                     if with_nis else [])
         res = {k: out[k].float().reshape(o.shape[0], -1) for k in keys}

@@ -202,8 +202,18 @@ def test_flow_sample_draws_from_its_generator(flow_case):
 
 
 def test_unported_flow_types_raise():
-    with pytest.raises(NotImplementedError, match='pwquad'):
-        pflow.FlowConfig(flow_type='pwlinear').param_len
+    """The flow types that once raised (pwlinear, realnvp) initialise with
+    the JAX trees' shapes; an unknown type raises."""
+    for flow_type in ('pwlinear', 'realnvp'):
+        kw = dict(grid_size=(8, 8, 8), flow_type=flow_type)
+        jp = jflow.init_tenso_flow(jax.random.PRNGKey(0),
+                                   jflow.FlowConfig(**kw))
+        pp = pflow.init_tenso_flow(torch.Generator().manual_seed(0),
+                                   pflow.FlowConfig(**kw))
+        assert [np.shape(v) for v in jax.tree.leaves(jp)] == \
+            [tuple(v.shape) for v in jax.tree.leaves(pp)], flow_type
+    with pytest.raises(ValueError, match='flow_type'):
+        pflow.FlowConfig(flow_type='spline').param_len
 
 
 # ---------------------------------------------------------------------------

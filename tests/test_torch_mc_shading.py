@@ -1,7 +1,9 @@
 """The port's Monte-Carlo shader (fields/mc_shading.py) against the JAX
 package: get_lights in each of its branches, and mc_forward outputs and
 parameter gradients in each of the three training phases (no NIS, NIS
-loss, NIS sampling from frozen flow copies).
+loss, NIS sampling from frozen flow copies), for shade_mixed_all with its
+combined flow (no copy, the copy sampled, the copy and the loss), and for
+shade_mixed with realnvp flows sampled.
 
 Geometry is the two-lobe analytic grid at 32^3 (self-occluding).  The
 random draws of the JAX shader (four keys split from one) are evaluated
@@ -37,7 +39,17 @@ PHASES = {
     'nis_loss': dict(nis_loss_diffuse=True, nis_loss_specular=True),
     'nis_sampling': dict(nis_sample_diffuse=True, nis_sample_specular=True,
                          nis_loss_diffuse=True, nis_loss_specular=True),
+    'all_no_copy': dict(),
+    'all_copy': dict(nis_sample_diffuse=True),
+    'all_loss': dict(nis_sample_diffuse=True, nis_loss_diffuse=True),
+    'realnvp_sampling': dict(nis_sample_diffuse=True,
+                             nis_sample_specular=True,
+                             nis_loss_diffuse=True, nis_loss_specular=True),
 }
+ALL = dict(shade_fn='shade_mixed_all', use_nis_all=True, nis_sample_num=4)
+# the shader options each case runs with
+PHASE_CFG = {'all_no_copy': ALL, 'all_copy': ALL, 'all_loss': ALL,
+             'realnvp_sampling': dict(flow_type='realnvp')}
 
 
 def two_lobe_sdf(pts):
@@ -60,18 +72,33 @@ def _close(a, b, rtol, atol, msg=''):
                                atol=atol, err_msg=msg)
 
 
+def _prior_draw(key, cfg, pn, sn):
+    """A flow prior's draw from its key (flow.py:89, 425): realnvp's
+    normals, else the lattice's azimuth roll."""
+    if cfg.flow_type == 'realnvp':
+        return jax.random.normal(key, (pn, sn, 2))
+    return jax.random.uniform(key, (pn, sn, 1))
+
+
 def jax_shade_noise(key, cfg, pn, phase):
-    """shade_mixed's draws, from the keys it splits (mc_shading.py:487;
-    samplers.py:146,188; flow.py:89), as numpy."""
+    """The shader's draws, from the keys it splits, as numpy: shade_mixed
+    four ways (mc_shading.py:487; samplers.py:146,188; flow.py:89),
+    shade_mixed_all two ways (k_f, k_a; mc_shading.py:683)."""
+    if cfg.shade_fn == 'shade_mixed_all':
+        k_f, k_a = jax.random.split(key)
+        noise = {'az_all': jax.random.uniform(k_a, (pn, 1, 1))}
+        if phase.nis_sample_diffuse:
+            noise['flow_all'] = _prior_draw(k_f, cfg, pn, cfg.nis_sample_num)
+        return {k: _t(v) for k, v in noise.items()}
     k_d, k_s, k_da, k_sa = jax.random.split(key, 4)
     noise = {'az_diffuse': jax.random.uniform(k_da, (pn, 1, 1)),
              'az_specular': jax.random.uniform(k_sa, (pn, 1, 1))}
     if phase.nis_sample_diffuse:
-        noise['flow_diffuse'] = jax.random.uniform(
-            k_d, (pn, cfg.nis_diffuse_sample_num, 1))
+        noise['flow_diffuse'] = _prior_draw(k_d, cfg, pn,
+                                            cfg.nis_diffuse_sample_num)
     if phase.nis_sample_specular:
-        noise['flow_specular'] = jax.random.uniform(
-            k_s, (pn, cfg.nis_specular_sample_num, 1))
+        noise['flow_specular'] = _prior_draw(k_s, cfg, pn,
+                                             cfg.nis_specular_sample_num)
     return {k: _t(v) for k, v in noise.items()}
 
 
@@ -123,7 +150,10 @@ def scene():
     def grow(p, key):
         # the fields start 1e-4 small and the predictors near constants:
         # scale the fields up so that materials and flows vary by point
-        for name in ('mat_field', 'flow_diffuse', 'flow_specular'):
+        for name in ('mat_field', 'flow_diffuse', 'flow_specular',
+                     'flow_all'):
+            if name not in p:
+                continue
             f = p[name]['field'] if name.startswith('flow') else p[name]
             f['planes'] = [x * 3e3 for x in f['planes']]
         base = p['outer_light']['base']
@@ -131,13 +161,23 @@ def scene():
             key, base.shape)
         return p
 
-    jp = grow(jmc.init_mc_shading(jax.random.PRNGKey(1), JCFG),
-              jax.random.PRNGKey(2))
-    jcopies = grow(jmc.init_mc_shading(jax.random.PRNGKey(3), JCFG),
-                   jax.random.PRNGKey(4))
+    def params(over, k0, k1):
+        return grow(jmc.init_mc_shading(jax.random.PRNGKey(k0),
+                                        JCFG._replace(**over)),
+                    jax.random.PRNGKey(k1))
+
+    jp = params({}, 1, 2)
+    jcopies = params({}, 3, 4)
+    # shade_mixed_all: flow_all drawn from another key than flow_diffuse
+    jp_all = dict(jp, flow_all=params({}, 5, 6)['flow_diffuse'])
+    jp_nvp = params(PHASE_CFG['realnvp_sampling'], 1, 2)
+    jc_nvp = params(PHASE_CFG['realnvp_sampling'], 3, 4)
     return dict(jdense=jdense, jpg=jpg, pdense=sdf_grid_from_jax(vals, AABB),
                 ppg=_port_pg(jpg), pts=pts, n=n, v=v, pn=pn, jp=jp,
-                jcd=jcopies['flow_diffuse'], jcs=jcopies['flow_specular'])
+                jcd=jcopies['flow_diffuse'], jcs=jcopies['flow_specular'],
+                jp_all=jp_all, jp_nvp=jp_nvp,
+                jcd_nvp=jc_nvp['flow_diffuse'],
+                jcs_nvp=jc_nvp['flow_specular'])
 
 
 def _pparams(jp):
@@ -253,37 +293,48 @@ class _TorchNP:
         c, a, torch.full_like(a, b)))
 
 
+def _scene_params(scene, name):
+    """(params, diffuse copy, specular copy) of a case (JAX trees)."""
+    if name.startswith('realnvp'):
+        return scene['jp_nvp'], scene['jcd_nvp'], scene['jcs_nvp']
+    if name.startswith('all'):
+        copies = name != 'all_no_copy'
+        return scene['jp_all'], scene['jcd'] if copies else None, None
+    if name == 'nis_sampling':
+        return scene['jp'], scene['jcd'], scene['jcs']
+    return scene['jp'], None, None
+
+
 def _run_phase(scene, name, jcfg, pcfg, with_grads=True):
+    jcfg = jcfg._replace(**PHASE_CFG.get(name, {}))
+    pcfg = pcfg._replace(**PHASE_CFG.get(name, {}))
     jphase = jmc.ShadePhase(**PHASES[name])
     pphase = pmc.ShadePhase(**PHASES[name])
     key = jax.random.PRNGKey(21)
     rng = np.random.RandomState(8)
     proj = rng.randn(scene['pn'], 3).astype(np.float32)
-    copies = name == 'nis_sampling'
+    jp, jcd, jcs = _scene_params(scene, name)
 
     def jloss(p):
         out = jmc.mc_forward(
             p, jcfg, scene['jpg'], UNIT, jnp.asarray(AABB),
             jnp.asarray(scene['pts']), jnp.asarray(scene['v']),
-            jnp.asarray(scene['n']), jphase, key, True,
-            scene['jcd'] if copies else None,
-            scene['jcs'] if copies else None)
+            jnp.asarray(scene['n']), jphase, key, True, jcd, jcs)
         loss = (jnp.sum(out['rgb_pr'] * proj) + 10.0 * out['loss_nis']
                 + jnp.sum(out['diffuse_light']))
         return loss, out
 
     if with_grads:
-        (_, jout), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
-            scene['jp'])
+        (_, jout), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
     else:
-        jout, jg = jax.jit(lambda p: jloss(p)[1])(scene['jp']), None
-    pp = _pparams(scene['jp'])
+        jout, jg = jax.jit(lambda p: jloss(p)[1])(jp), None
+    pp = _pparams(jp)
     noise = jax_shade_noise(key, jcfg, scene['pn'], jphase)
     pout = pmc.mc_forward(
         pp, pcfg, scene['ppg'], UNIT, _t(AABB), _t(scene['pts']),
         _t(scene['v']), _t(scene['n']), pphase, noise, True,
-        params_from_jax(_np(scene['jcd'])) if copies else None,
-        params_from_jax(_np(scene['jcs'])) if copies else None)
+        None if jcd is None else params_from_jax(_np(jcd)),
+        None if jcs is None else params_from_jax(_np(jcs)))
     if with_grads:
         (torch.sum(pout['rgb_pr'] * _t(proj)) + 10.0 * pout['loss_nis']
          + torch.sum(pout['diffuse_light'])).backward()
@@ -297,15 +348,21 @@ def test_mc_forward_outputs_and_param_grads(scene, phase):
     largest magnitude (absolute 1e-9 for leaves whose gradient is 0)."""
     jout, jg, pout, pp = _run_phase(scene, phase, JCFG, PCFG)
     assert sorted(pout) == sorted(jout)
-    dn = JCFG.diffuse_sample_num + (
-        JCFG.nis_diffuse_sample_num if phase == 'nis_sampling' else 0)
-    sn = (JCFG.nis_specular_sample_num if phase == 'nis_sampling'
-          else JCFG.specular_sample_num)
-    _rates_close(pout, jout, scene['pn'] * (dn + sn))
+    flags = PHASES[phase]
+    if phase.startswith('all'):
+        n_rays = JCFG.diffuse_sample_num + (
+            ALL['nis_sample_num'] if flags else 0)
+    else:
+        n_rays = JCFG.diffuse_sample_num + (
+            JCFG.nis_diffuse_sample_num if flags.get('nis_sample_diffuse')
+            else 0) + (JCFG.nis_specular_sample_num
+                       if flags.get('nis_sample_specular')
+                       else JCFG.specular_sample_num)
+    _rates_close(pout, jout, scene['pn'] * n_rays)
     for k, v in jout.items():
         if not k.startswith('secondary_'):
             _close(pout[k], v, rtol=2e-4, atol=2e-5, msg=f'{phase} {k}')
-    if phase != 'no_nis':
+    if flags.get('nis_loss_diffuse'):
         assert abs(float(jout['loss_nis'])) > 1e-6
     jleaves = jax.tree_util.tree_leaves_with_path(jg)
     for (path, jleaf), pleaf in zip(jleaves, jax.tree.leaves(pp)):
@@ -338,6 +395,9 @@ def test_mc_forward_bf16_estimator_is_close_to_jax(scene):
 
 
 def test_eval_shade_uses_no_noise_and_unported_options_raise(scene):
+    """An evaluation takes no azimuth roll; the options that once raised
+    (shade_mixed_all, use_nis_all, the realnvp and pwlinear flows)
+    initialise with the JAX trees' shapes."""
     pp = params_from_jax(_np(scene['jp']))
     args = (pp, PCFG, scene['ppg'], UNIT, _t(AABB), _t(scene['pts']),
             _t(scene['v']), _t(scene['n']), pmc.ShadePhase())
@@ -347,10 +407,15 @@ def test_eval_shade_uses_no_noise_and_unported_options_raise(scene):
         b = pmc.mc_forward(*args, None, False)
     assert torch.equal(a['rgb_pr'], b['rgb_pr'])
     for over in (dict(shade_fn='shade_mixed_all'), dict(use_nis_all=True),
-                 dict(flow_type='realnvp')):
-        with pytest.raises(NotImplementedError):
-            pmc.init_mc_shading(torch.Generator().manual_seed(0),
-                                PCFG._replace(**over))
+                 dict(flow_type='realnvp'), dict(flow_type='pwlinear')):
+        pi = pmc.init_mc_shading(torch.Generator().manual_seed(0),
+                                 PCFG._replace(**over))
+        ji = jmc.init_mc_shading(jax.random.PRNGKey(0),
+                                 JCFG._replace(**over))
+        assert {jax.tree_util.keystr(p): tuple(v.shape) for p, v in
+                jax.tree_util.tree_leaves_with_path(pi)} == \
+            {jax.tree_util.keystr(p): v.shape for p, v in
+             jax.tree_util.tree_leaves_with_path(ji)}, over
 
 
 def test_init_mc_shading_tree_matches_jax(scene):
@@ -366,3 +431,51 @@ def test_init_mc_shading_tree_matches_jax(scene):
     assert {k: tuple(v.shape) for k, v in noise.items()} == {
         'flow_diffuse': (5, 4, 1), 'az_diffuse': (5, 1, 1),
         'az_specular': (5, 1, 1)}
+
+
+def test_draw_noise_variants_and_eval_noise():
+    """draw_shade_noise's keys and shapes for shade_mixed_all and realnvp;
+    draw_eval_noise draws only for realnvp's Gaussian prior."""
+    gen = torch.Generator().manual_seed(0)
+    ph = pmc.ShadePhase(nis_sample_diffuse=True, nis_sample_specular=True)
+    shapes = lambda d: {k: tuple(v.shape) for k, v in d.items()}  # noqa
+    cfg_all = PCFG._replace(**ALL)
+    assert shapes(pmc.draw_shade_noise(gen, cfg_all, 5, ph, 'cpu')) == {
+        'flow_all': (5, 4, 1), 'az_all': (5, 1, 1)}
+    cfg_nvp = PCFG._replace(flow_type='realnvp')
+    assert shapes(pmc.draw_shade_noise(gen, cfg_nvp, 5, ph, 'cpu')) == {
+        'flow_diffuse': (5, 4, 2), 'flow_specular': (5, 4, 2),
+        'az_diffuse': (5, 1, 1)}
+    assert pmc.draw_eval_noise(gen, PCFG, 5, 'cpu') == {}
+    assert shapes(pmc.draw_eval_noise(gen, cfg_nvp, 5, 'cpu')) == {
+        'flow_diffuse': (5, 4, 2), 'flow_specular': (5, 4, 2)}
+    assert shapes(pmc.draw_eval_noise(
+        gen, cfg_all._replace(flow_type='realnvp'), 5, 'cpu')) == {
+        'flow_all': (5, 4, 2)}
+
+
+def test_eval_nis_pass_with_realnvp_takes_jax_draws(scene):
+    """The _nis pass of an evaluation with realnvp flows: the Gaussian
+    prior draws from the key the JAX shader is given (is_train False);
+    handed in, the outputs agree as in the training phases."""
+    jcfg = JCFG._replace(flow_type='realnvp')
+    pcfg = PCFG._replace(flow_type='realnvp')
+    ph = dict(nis_sample_diffuse=True, nis_sample_specular=True)
+    key = jax.random.PRNGKey(9)
+    jout = jax.jit(lambda p: jmc.mc_forward(
+        p, jcfg, scene['jpg'], UNIT, jnp.asarray(AABB),
+        jnp.asarray(scene['pts']), jnp.asarray(scene['v']),
+        jnp.asarray(scene['n']), jmc.ShadePhase(**ph), key, False,
+        scene['jcd_nvp'], scene['jcs_nvp']))(scene['jp_nvp'])
+    noise = {k: v for k, v in jax_shade_noise(
+        key, jcfg, scene['pn'], jmc.ShadePhase(**ph)).items()
+        if k.startswith('flow')}
+    with torch.no_grad():
+        pout = pmc.mc_forward(
+            params_from_jax(_np(scene['jp_nvp'])), pcfg, scene['ppg'], UNIT,
+            _t(AABB), _t(scene['pts']), _t(scene['v']), _t(scene['n']),
+            pmc.ShadePhase(**ph), noise, False,
+            params_from_jax(_np(scene['jcd_nvp'])),
+            params_from_jax(_np(scene['jcs_nvp'])))
+    for k in ('rgb_pr', 'diffuse_color', 'specular_color', 'visibility'):
+        _close(pout[k], jout[k], rtol=2e-4, atol=2e-5, msg=k)

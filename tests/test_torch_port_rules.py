@@ -21,6 +21,12 @@
     copies nothing from the host but its ray batch.
   * Nothing of stage 1 raises NotImplementedError for the hierarchical
     sampler, the alpha mask or predict_BG.
+  * fields/flow.py, fields/mc_shading.py and fields/shading.py raise
+    NotImplementedError for no value the JAX package accepts (the flow
+    types, shade_fn, use_nis_all, human_light).
+  * stencil_impl 'auto' (and 'pallas') takes the stencil kernels' route
+    of ops/stencil.py, 'xla' never does, another value raises; a
+    stage-1 step with the human light on copies only its batch.
 """
 import ast
 import os
@@ -342,6 +348,100 @@ def test_hierarchical_step_copies_only_the_batch_to_the_device():
     trainer = ShapeTrainer(cfg, device='cpu')
     trainer.train(n_steps=2, log_every=1)
     assert trainer.alpha_mask is not None
+    made = []
+
+    class FromHost(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.tensor, torch.as_tensor) \
+                    and not isinstance(args[0], torch.Tensor):
+                made.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with FromHost():
+        trainer.train(n_steps=1, log_every=1)
+    assert made == ['as_tensor'], made
+
+
+def test_no_not_implemented_for_options_the_jax_package_accepts():
+    """Every NotImplementedError left in the flow, the stage-2 shader and
+    the stage-1 shading names an outer light the JAX package rejects too;
+    each option the JAX package accepts initialises."""
+    from tensoflow_tpu_torch.fields import flow, mc_shading, shading
+    for rel in ('fields/flow.py', 'fields/mc_shading.py',
+                'fields/shading.py'):
+        path = os.path.join(PKG, rel)
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Raise) and node.exc is not None \
+                    and 'NotImplementedError' in ast.unparse(node.exc):
+                assert 'outer_light_version' in ast.unparse(node.exc), (
+                    rel, ast.unparse(node.exc))
+    gen = torch.Generator().manual_seed(0)
+    small = dict(grid_size=(8, 8, 8), mat_n_comp=2, light_reso=8)
+    for over in (dict(flow_type='pwlinear'), dict(flow_type='realnvp'),
+                 dict(shade_fn='shade_mixed_all', use_nis_all=True),
+                 dict(disable_tensorial=True, disable_reflected=True)):
+        cfg = mc_shading.MCShadingConfig(**small, **over)
+        params = mc_shading.init_mc_shading(gen, cfg)
+        assert ('flow_all' in params) == cfg.use_nis_all
+    for ft in ('pwquad', 'pwlinear', 'realnvp'):
+        assert flow.FlowConfig(flow_type=ft).param_len > 0
+    sp = shading.init_shading(gen, shading.ShadingConfig(
+        human_light=True, env=shading.envlight_mod.EnvLightConfig(
+            max_res=8)))
+    assert 'human_light' in sp
+
+
+def test_stencil_impl_routes_and_unknown_raises(monkeypatch):
+    """'auto' and 'pallas' reach ops/stencil.stencil_head (whose CPU
+    tensors take the plain version), 'xla' does not; an unknown value
+    raises in sdf_with_grad_hessian and when a trainer builds its
+    config."""
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.fields import tenso_sdf
+    from tensoflow_tpu_torch.ops import stencil
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    calls = []
+    real = stencil.stencil_head
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(stencil, 'stencil_head', spy)
+    gen = torch.Generator().manual_seed(0)
+    aabb = torch.tensor([[-1.0] * 3, [1.0] * 3])
+    xyz = torch.rand((16, 3), generator=gen) - 0.5
+    for impl, n in (('auto', 1), ('pallas', 1), ('xla', 0)):
+        cfg = tenso_sdf.SDFConfig(grid_size=(8, 8, 8), n_comp=2, sdf_dim=8,
+                                  app_dim=4, stencil_impl=impl)
+        params = tenso_sdf.init_tenso_sdf(gen, cfg)
+        calls.clear()
+        tenso_sdf.sdf_with_grad_hessian(params, cfg, xyz, aabb)
+        assert len(calls) == n, impl
+    with pytest.raises(ValueError, match='stencil_impl'):
+        tenso_sdf.sdf_with_grad_hessian(
+            params, cfg._replace(stencil_impl='cuda'), xyz, aabb)
+    bad = pconfig.load_config(
+        os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml'),
+        overrides=SMALL_SHAPE + ['stencil_impl=fused'])
+    with pytest.raises(ValueError, match='stencil_impl'):
+        ShapeTrainer(bad, device='cpu')
+
+
+@pytest.mark.parametrize('extra', [['shader_config.human_light=true'],
+                                   ['stencil_impl=xla']])
+def test_option_step_copies_only_the_batch_to_the_device(extra):
+    """The rule of test_training_step_copies_only_the_batch_to_the_device
+    with the human light on (each sample's pose is gathered from the
+    batch on the device) and on the split stencil route."""
+    from torch.overrides import TorchFunctionMode
+    from tensoflow_tpu_torch import config as pconfig
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    cfg = pconfig.load_config(
+        os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml'),
+        overrides=SMALL_SHAPE + extra)
+    trainer = ShapeTrainer(cfg, device='cpu')
+    trainer.train(n_steps=1, log_every=1)
     made = []
 
     class FromHost(TorchFunctionMode):

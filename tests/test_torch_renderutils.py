@@ -2,9 +2,8 @@
 function, forward, and the BSDFs' input gradients), and the torch-oracle
 cases of tests/test_ref_parity.py run against the port on
 tests/fixtures/ref_oracles.npz at that file's tolerances: the BSDF set,
-prepare_shading_normal, the pwquad flow transforms, sample_pdf and
-get_weights (secondary.march_weights).  The pwlinear case waits for the
-port's pwlinear flow.
+prepare_shading_normal, the pwquad and pwlinear flow transforms,
+sample_pdf and get_weights (secondary.march_weights).
 """
 import os
 
@@ -182,6 +181,21 @@ def test_pwquad_roundtrip(fx):
     _close(x2, fx['pwq_x'], rtol=1e-4, atol=1e-5)
     _close(logj + logj2, np.zeros_like(fx['pwq_inv_logj']), rtol=0,
            atol=1e-4)
+
+
+def test_pwlinear_matches_reference(fx):
+    """tests/test_ref_parity.py's pwlinear case on the port, at its
+    tolerances."""
+    x, q = _t(fx['pwq_x'], True), _t(fx['pwl_q'], True)
+    y, logj = flow_mod.pwlinear_flow_inv(x, q)
+    _close(y, fx['pwl_inv_y'], rtol=1e-5, atol=1e-5)
+    _close(logj, fx['pwl_inv_logj'], rtol=1e-4, atol=1e-4)
+    (torch.sum(y) + torch.sum(logj)).backward()
+    _close(x.grad, fx['pwl_inv_gx'], rtol=1e-3, atol=2e-3)
+    _close(q.grad, fx['pwl_inv_gq'], rtol=1e-3, atol=2e-3)
+    x2, logj2 = flow_mod.pwlinear_flow(_t(fx['pwq_x']), _t(fx['pwl_q']))
+    _close(x2, fx['pwl_fwd_x'], rtol=1e-5, atol=1e-5)
+    _close(logj2, fx['pwl_fwd_logj'], rtol=1e-4, atol=1e-4)
 
 
 def test_sample_pdf_matches_reference(fx):
