@@ -3,9 +3,9 @@
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases (any failure exits nonzero; no phase's failure is caught; the
-training phases (3, 5, 3b, 3c, 3d, in this order), the relight phase 3e
-and the variants phase 3f run before the kernel phases, and their
-profiled steps last, because running the profiler slows every later
+training phases (3, 5, 3b, 3c, 3d, in this order), the relight phase 3e,
+the variants phase 3f and the sharded phase 3g run before the kernel
+phases, and their profiled steps last, because running the profiler slows every later
 launch of the process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
                (one nvcc per source, started together) and print the seconds.
@@ -120,7 +120,8 @@ launch of the process):
                counted; predict_materials through mat_pack against the raw
                planes.  Stage 1's human light: the small card-vs-CPU
                comparison with it on, then configs/shape/custom/shoe.yaml
-               with shader_config.human_light on phase 3d's JPEG capture,
+               with the human light turned on in its renderer config on
+               phase 3d's JPEG capture,
                5 steps (one fwd + one bwd launch a step, the light's MLP
                moved by the first step, the share of shaded samples it
                lights).  The split stencil route: sdf_with_grad_hessian
@@ -128,6 +129,26 @@ launch of the process):
                hierarchical step's own inputs (phase 3c's trainer):
                agreement and both times.  Profiled last: a human-light
                step and a shade_mixed_all step.
+  3g. sharded — the multi-device path (parallel/sharding.py), in
+               subprocesses of this script (no process group lives in the
+               main process): two gloo ranks on the one card run
+               configs/shape/syn/compressor.yaml's hierarchical step at
+               512^3 from step 0 (1,024 rays, 512 a rank; the grid at its
+               N_voxel_final, occ loss, radiance head and Gaussian loss on)
+               and configs/mat/syn/compressor.yaml's stage-2 step (2,048
+               rays, both flows sampling and training) on phase 5's
+               checkpoint; each is held to the single-device step of the
+               same params, batch and draws run in this process at the CPU
+               tests' tolerance (rtol 2e-4 / atol 2e-5), the ranks' params
+               must be equal bit for bit, one fwd + one bwd stencil launch
+               a rank and stage-1 step, and the kernels are held to their
+               plain version on rank 0's shard.  Beside them: python -m
+               tensoflow_tpu_torch.run_training --multihost (NCCL, one
+               rank) on configs/shape/toy/sphere.yaml for 2 steps, and
+               python -m tensoflow_tpu_torch.parallel.dryrun with 2 gloo
+               ranks on the card.  Then one NCCL rank: both steps' ms/step
+               sharded beside unsharded in one process, the gradient
+               buffer's bytes and its all-reduce time.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions at every shape of the gather probes
                (exact equality), timed beside the byte bound and
@@ -170,8 +191,9 @@ every hand-written kernel (the stencil kernels with their float32 B=2
 figures, the shape of 80 % of a published run, and their launches in
 phase 3c, the other instantiations and the launches of phase 3b, of
 phase 5's render, of phase 3d's from-disk training, of phase 3e's
-800x800 relit view and of phase 3f's human-light steps and stage-2
-variants beside them),
+800x800 relit view, of phase 3f's human-light steps and stage-2
+variants, and of phase 3g's two ranks' sharded stage-1 steps beside
+them),
 and as the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
 exits nonzero and prints no result.
@@ -181,6 +203,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -666,7 +689,7 @@ def _check_finite(logs):
                                  f'{rec["step"]}: {bad}')
 
 
-def card_vs_cpu(cfg, what, steps=2):
+def card_vs_cpu(cfg, what, steps=2, configure=None):
     """The training step on the card (kernels) against the same step on
     the CPU (plain versions) at a small float32 configuration: same
     initial parameters (both trainers seed the same CPU generator), same
@@ -680,7 +703,7 @@ def card_vs_cpu(cfg, what, steps=2):
 
     class CpuDraws(ShapeTrainer):
         def __init__(self, cfg, device):
-            super().__init__(cfg, device=device)
+            super().__init__(cfg, device=device, configure=configure)
             self.cpu_gen = torch.Generator().manual_seed(cfg['random_seed'])
 
         def step_noise(self, step):
@@ -2162,7 +2185,6 @@ MOVED_BY_NIS = {'pwlinear': ('flow_diffuse', 'flow_specular'),
                 'all': (), 'all+diffuse': ('flow_all',),
                 'disable': ('flow_diffuse', 'flow_specular')}
 VALIDATED = ('realnvp', 'all', 'all+diffuse')
-HUMAN_LIGHT = ['shader_config.human_light=true']
 
 
 def _phase_name(ph):
@@ -2266,8 +2288,9 @@ def check_packed_materials(trainer):
 
 def phase_human_light(card, steps=5):
     """Stage 1's human light: check_slice_small's comparison with the light
-    on; then configs/shape/custom/shoe.yaml with shader_config.human_light
-    true on phase 3d's JPEG capture (nerfDataType false, as 3d trains it)
+    on; then configs/shape/custom/shoe.yaml with the light turned on in
+    the renderer config (ShapeTrainer(configure=with_human_light)) on
+    phase 3d's JPEG capture (nerfDataType false, as 3d trains it)
     at 128^3: ``steps`` steps, one fwd + one bwd stencil launch a step,
     the human_light MLP moved by the first step, and the share of the
     first step's shaded samples whose blend weight is non-zero (read by a
@@ -2275,7 +2298,8 @@ def phase_human_light(card, steps=5):
     trainer, its ms/step and the launches of the steps."""
     from tensoflow_tpu_torch.fields import shading as shading_mod
     from tensoflow_tpu_torch.ops import stencil as st
-    from tensoflow_tpu_torch.train.trainer import ShapeTrainer, named_leaves
+    from tensoflow_tpu_torch.train.trainer import (ShapeTrainer, named_leaves,
+                                                   with_human_light)
     share = []
     orig = shading_mod.predict_human_light
 
@@ -2284,8 +2308,9 @@ def phase_human_light(card, steps=5):
         share.append(float((weight > 0).float().mean()))
         return light, weight
     shading_mod.predict_human_light = spy
-    _, logs, worst = card_vs_cpu(_load_cfg(SMALL_OVERRIDES + HUMAN_LIGHT),
-                                 'small slice + human light')
+    _, logs, worst = card_vs_cpu(_load_cfg(SMALL_OVERRIDES),
+                                 'small slice + human light',
+                                 configure=with_human_light)
     small_share = max(share)
     print(f'[human_light] small float32 config with the light on: 2 steps '
           f'on the card match the CPU plain path (worst loss-term rel err '
@@ -2295,12 +2320,12 @@ def phase_human_light(card, steps=5):
     name = f'custom/{obj}/raw_{RESIZE_LEN}'
     ddir = os.path.join(_root(), 'build', 'smoke_datasets', 'custom_jpeg')
     cfg = _load_cfg(['split_manul=false', f'database_name={name}',
-                     f'dataset_dir={ddir}', 'nerfDataType=false']
-                    + HUMAN_LIGHT, BG_YAML)
-    trainer = ShapeTrainer(cfg)
+                     f'dataset_dir={ddir}', 'nerfDataType=false'],
+                    BG_YAML)
+    trainer = ShapeTrainer(cfg, configure=with_human_light)
     trainer.init_dataset()
     if not trainer.rcfg.shading.human_light:
-        raise AssertionError('shader_config.human_light was not read')
+        raise AssertionError('the human light is not on')
     hl0 = [t.detach().clone()
            for _, t in named_leaves(trainer.params['shading']['human_light'])]
     share.clear()
@@ -2494,6 +2519,319 @@ def phase_variants(card, geo, hier, pwquad_ms):
     return {'mat_trainer': mat_trainer, 'mat_ms': mat_ms,
             'mat_launches': mat_launches, 'light_trainer': light_trainer,
             'light_ms': light_ms, 'light_launches': light_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: sharded (parallel/sharding.py on torch.distributed)
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2
+# compressor.yaml's hierarchical step at 512^3 from step 0: phase 3c's
+# database cut, the grid at its N_voxel_final from the start (no
+# upsampling), and the occ loss, radiance head and Gaussian loss (published
+# from steps 10,000 / 20,000) on at step 0
+SHARD_CUTS = ['database_name=toy/sphere_128_12', 'split_manul=false',
+              'N_voxel_init=134217729', 'upsample_list=null',
+              'occ_loss_step=0', 'radiance_field_step=-1',
+              'gaussianLoss_step=-1']
+# phase 5's database and checkpoint, the NIS schedule cut so that the first
+# step samples and trains both flows
+SHARD_NIS = {'nis_loss_iter': 0, 'nis_start_iter': 1,
+             'nis_update_interval': 1}
+SHARD_TOL = (2e-4, 2e-5)   # rtol, atol: tests/test_torch_sharding.py's
+# run_training --multihost on a toy config (tests/test_torch_sharding.py's)
+SHARD_CLI = ['database_name=toy/sphere_16_2', 'sdf_n_comp=2', 'sdf_dim=16',
+             'app_dim=8', 'N_voxel_init=512', 'N_voxel_final=512',
+             'train_ray_num=16', 'n_samples=8', 'n_importance=8',
+             'upsample_list=null', 'init_radius=0.5', 'sdf_multires=0',
+             'split_manul=false', 'save_interval=2', 'val_interval=1000',
+             'train_log_step=1', 'name=smoke_multihost']
+
+
+def shard_trainer(kind, geo, mesh=None):
+    """A fresh trainer of phase 3g ('shape': compressor.yaml at 512^3,
+    'mat': mat compressor.yaml on phase 5's checkpoint) with its dataset;
+    mesh None: the single-device one."""
+    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
+    if kind == 'shape':
+        t = ShapeTrainer(_load_cfg(SHARD_CUTS, HIER_YAML), mesh=mesh)
+    else:
+        t = MaterialTrainer(_mat_cfg({'database_name': DATASET_TOY,
+                                      'split_manul': False,
+                                      'shader_cfg': dict(SHARD_NIS)}), geo,
+                            mesh=mesh)
+    t.init_dataset()
+    return t
+
+
+def shard_step(t):
+    """One training step; returns its log and the stencil launches."""
+    from tensoflow_tpu_torch.ops import stencil as st
+    torch.cuda.synchronize()
+    st.reset_launches()
+    logs = t.train(n_steps=1, log_every=1)
+    torch.cuda.synchronize()
+    _check_finite(logs)
+    return logs[0], dict(st.LAUNCHES)
+
+
+def rank_spread(params):
+    """The largest |difference| of any parameter from rank 0's (each leaf
+    broadcast from rank 0) and the number of leaves."""
+    import torch.distributed as dist
+    from tensoflow_tpu_torch.train.trainer import named_leaves
+    worst, leaves = 0.0, named_leaves(params)
+    with torch.no_grad():
+        for _, t in leaves:
+            ref = t.detach().clone()
+            dist.broadcast(ref, 0)
+            worst = max(worst, float((ref - t).abs().max()))
+    return worst, len(leaves)
+
+
+def shard_rank(rank, ranks, port, out, geo, backend):
+    """One rank of the two-rank check: both stages' sharded steps, the
+    ranks' parameter spread, and on rank 0 the stencil kernels against
+    their plain version on this shard's own inputs."""
+    from tensoflow_tpu_torch.parallel import sharding
+    mesh = sharding.init_multihost(f'localhost:{port}', ranks, rank,
+                                   backend=backend)
+    res = {'device': str(mesh.device)}
+    for kind in ('shape', 'mat'):
+        t = shard_trainer(kind, geo, mesh)
+        with HeadSpy() as spy:
+            spy.capture_next = kind == 'shape' and rank == 0
+            log, launches = shard_step(t)
+        spread, n_leaves = rank_spread(t.params)
+        res[kind] = {'log': log, 'launches': launches, 'spread': spread,
+                     'leaves': n_leaves}
+        if spy.captured is not None:
+            d = _captured_inputs(spy.captured, t.params['sdf']['mlp'][1]['b'])
+            spy.captured = None
+            n, S = d['fr'].shape[0], 7
+            res['kernel_case'] = f'S={S} B={len(d["sigmas"])} f32 N={n}'
+            res['kernel_errs'] = check_inputs(
+                res['kernel_case'] + ' (rank 0\'s shard of a sharded 512^3 '
+                'step)', d, S, torch.float32)
+            del d
+        del t
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out, f'rank{rank}.pt'))
+    sharding.shutdown(mesh)
+
+
+def nccl_timing(port, out, geo, steps=4, reps=2, iters=20):
+    """One NCCL rank on the card: each stage's ms/step sharded (the
+    collectives and the host reads of the compaction counts included)
+    beside the unsharded step of the same process, in alternating windows;
+    the gradient buffer's bytes and its all-reduce time (CUDA events)."""
+    import torch.distributed as dist
+    from tensoflow_tpu_torch.parallel import sharding
+    mesh = sharding.init_multihost(f'localhost:{port}', 1, 0)
+    res = {'backend': dist.get_backend()}
+    for kind in ('shape', 'mat'):
+        runs = {'single': shard_trainer(kind, geo),
+                'nccl': shard_trainer(kind, geo, mesh)}
+        for t in runs.values():
+            log, _ = shard_step(t)                         # warm-up
+        ms = {k: [] for k in runs}
+        for _ in range(reps):
+            for k, t in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _check_finite(t.train(n_steps=steps, log_every=steps))
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) / steps * 1e3)
+        params = runs['nccl'].opt.params
+        # the loss terms and their sum ride at the buffer's end
+        n_terms = sum(k.startswith('loss') for k in log)
+        nbytes = sharding.grad_buffer_bytes(params, n_terms)
+        flat = torch.zeros(nbytes // 4, device='cuda')
+        ar_ms = cuda_ms(lambda: dist.all_reduce(flat), iters=iters,
+                        warmup=3)
+        res[kind] = {'ms': ms, 'bytes': nbytes, 'all_reduce_ms': ar_ms,
+                     'leaves': len(params)}
+        del runs, flat
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out, 'nccl.pt'))
+    sharding.shutdown(mesh)
+
+
+def _start(argv, out, name, env=None, cwd=None):
+    from tensoflow_tpu_torch.parallel import dryrun
+    return dryrun.start(argv, os.path.join(out, name + '.log'), env, cwd)
+
+
+def _finish(procs, timeout=600):
+    """Wait for (name, process, log file) triples (dryrun.finish); raise
+    with the tail of the output of the first one that failed by itself
+    (not killed after another failed)."""
+    from tensoflow_tpu_torch.parallel import dryrun
+    res = dryrun.finish([(p, log) for _, p, log in procs], timeout)
+    bad = sorted(((rc == -signal.SIGKILL, name, rc, out)
+                  for (name, _, _), (rc, out) in zip(procs, res) if rc),
+                 key=lambda b: b[0])
+    if bad:
+        _, name, rc, out = bad[0]
+        raise AssertionError(f'{name} exited with {rc}:\n{out[-6000:]}')
+
+
+def _read(path):
+    with open(path, errors='replace') as f:
+        return f.read()
+
+
+def phase_sharded(card, geo):
+    """Phase 3g: the multi-device path on the one card, in subprocesses
+    (no process group lives in this process).  Two gloo ranks run
+    compressor.yaml's hierarchical step at 512^3 (1,024 rays, 512 a rank)
+    and mat compressor.yaml's stage-2 step (2,048 rays) on phase 5's
+    checkpoint, each held to the single-device step of the same params,
+    batch and draws run here, at the CPU tests' tolerance; the ranks'
+    params must be equal bit for bit; one fwd + one bwd stencil launch a
+    rank and step, and the kernels against their plain version on rank
+    0's shard.  Meanwhile run_training --multihost (NCCL, one rank) trains
+    a toy config 2 steps and parallel.dryrun runs 2 gloo ranks.  Then one
+    NCCL rank times both sharded steps beside the unsharded ones, the
+    gradient buffer and its all-reduce.  Returns the stencil launches of
+    the two ranks' stage-1 steps."""
+    from tensoflow_tpu_torch.parallel import dryrun
+    t_phase = time.perf_counter()
+    root = _root()
+    out = os.path.join(root, 'build', 'sharded')
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(os.path.join(out, 'cli'))
+    me = os.path.abspath(__file__)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get('PYTHONPATH', ''))
+    port = dryrun.free_port()
+    procs = [(f'rank {r}',) + _start(
+        [sys.executable, me, '--shard-rank', str(r), '--ranks',
+         str(SHARD_RANKS), '--port', str(port), '--out', out, '--geo', geo,
+         '--backend', 'gloo'], out, f'rank{r}', env)
+        for r in range(SHARD_RANKS)]
+    procs.append(('dryrun',) + _start(
+        [sys.executable, '-m', 'tensoflow_tpu_torch.parallel.dryrun',
+         '--ranks', '2', '--backend', 'gloo'], out, 'dryrun', env, root))
+    procs.append(('run_training',) + _start(
+        [sys.executable, '-m', 'tensoflow_tpu_torch.run_training', '--cfg',
+         os.path.join(root, 'configs/shape/toy/sphere.yaml'), '--steps', '2',
+         '--multihost', f'localhost:{dryrun.free_port()}',
+         '--num-processes', '1', '--process-id', '0', *SHARD_CLI], out,
+        'run_training', env, os.path.join(out, 'cli')))
+    single = {}
+    try:
+        for kind in ('shape', 'mat'):
+            t = shard_trainer(kind, geo)
+            single[kind] = shard_step(t)
+            del t
+            torch.cuda.empty_cache()
+    finally:
+        _finish(procs)
+    ranks = [torch.load(os.path.join(out, f'rank{r}.pt'), weights_only=False)
+             for r in range(SHARD_RANKS)]
+    rtol, atol = SHARD_TOL
+    sharded_launches = {k: 0 for k in TPU_KERNELS}
+    for kind, what in (('shape', 'compressor.yaml hierarchical step at '
+                                 '512^3, float32'),
+                       ('mat', 'mat compressor.yaml stage-2 step (both '
+                               'flows sampling and training)')):
+        ref, ref_launches = single[kind]
+        worst = 0.0
+        for r, res in enumerate(ranks):
+            log = res[kind]['log']
+            if sorted(log) != sorted(ref):
+                raise AssertionError(f'{kind}: rank {r} logs {sorted(log)}')
+            for k, v in ref.items():
+                err = abs(log[k] - v)
+                if err > atol + rtol * abs(v):
+                    raise AssertionError(
+                        f'{kind} {k}: rank {r} {log[k]!r} vs single-device '
+                        f'{v!r} (rtol {rtol}, atol {atol})')
+                worst = max(worst, err / max(abs(v), 1e-12))
+            if res[kind]['spread'] != 0.0:
+                raise AssertionError(f'{kind}: rank {r} params differ from '
+                                     f'rank 0 by {res[kind]["spread"]}')
+        launches = [res[kind]['launches'] for res in ranks]
+        if kind == 'shape':
+            for r, ln in enumerate(launches):
+                if ln != {'stencil_head_fwd': 1, 'stencil_head_bwd': 1}:
+                    raise AssertionError(f'rank {r}: launches {ln} in one '
+                                         'sharded step')
+                for k in sharded_launches:
+                    sharded_launches[k] += ln[k]
+        print(f'[sharded] {what}: {SHARD_RANKS} gloo ranks on one card '
+              f'({", ".join(res["device"] for res in ranks)}) match the '
+              f'single-device step (loss {ref["loss"]:.6f}; worst loss-term '
+              f'rel err {worst:.2e}, tol rtol {rtol} / atol {atol}); params '
+              f'equal on both ranks bit for bit ({ranks[0][kind]["leaves"]} '
+              f'leaves, max |diff| {max(r[kind]["spread"] for r in ranks)}); '
+              f'stencil launches per rank {launches} (single-device step '
+              f'{ref_launches}); on {card}', flush=True)
+    print(f'[sharded] kernels on rank 0\'s shard ({ranks[0]["kernel_case"]}):'
+          f' fwd / bwd max abs err vs plain f64 '
+          f'{ranks[0]["kernel_errs"][0]:.3e} / '
+          f'{ranks[0]["kernel_errs"][1]:.3e} (within TOL); rank 0 printed:',
+          flush=True)
+    for ln in _read(os.path.join(out, 'rank0.log')).splitlines():
+        if ln.startswith('[kernels]'):
+            print(f'[sharded]   {ln}', flush=True)
+    dry = _read(os.path.join(out, 'dryrun.log'))
+    cli = _read(os.path.join(out, 'run_training.log'))
+    for want, text in (('dryrun(2 ranks): stage-1 loss=', dry),
+                       ('dryrun(2 ranks): stage-2 loss=', dry),
+                       ('[mesh] 1 devices', cli),
+                       ('training done at step 2 (rank 0)', cli)):
+        if want not in text:
+            raise AssertionError(f'{want!r} not in:\n{text[-4000:]}')
+    print('[sharded] python -m tensoflow_tpu_torch.parallel.dryrun --ranks 2 '
+          '--backend gloo on the card: ' + ' | '.join(
+              ln for ln in dry.splitlines() if ln.startswith('dryrun(')),
+          flush=True)
+    print('[sharded] run_training --multihost (NCCL, --num-processes 1) on '
+          'configs/shape/toy/sphere.yaml, 2 steps: ' + ' | '.join(
+              ln for ln in cli.splitlines()
+              if ln.startswith(('[mesh]', 'training done'))
+              or ln.startswith('step=') or ' loss=' in ln), flush=True)
+    port = dryrun.free_port()
+    _finish([('nccl timing',) + _start(
+        [sys.executable, me, '--nccl-timing', '--port', str(port), '--out',
+         out, '--geo', geo], out, 'nccl', env)])
+    res = torch.load(os.path.join(out, 'nccl.pt'), weights_only=False)
+    for kind, what in (('shape', '512^3 hierarchical'), ('mat', 'stage-2')):
+        r = res[kind]
+        ms = {k: sorted(v)[len(v) // 2] for k, v in r['ms'].items()}
+        print(f'[sharded] one {res["backend"]} rank, {what} step: '
+              f'{ms["nccl"]:.1f} ms/step sharded vs {ms["single"]:.1f} '
+              f'unsharded in the same process (windows '
+              f'{json.dumps({k: [round(x, 1) for x in v] for k, v in r["ms"].items()})}); '
+              f'gradient buffer {r["bytes"]} bytes ({r["leaves"]} leaves + '
+              f'the loss terms) all-reduced in {r["all_reduce_ms"]:.3f} ms; '
+              f'on {card}', flush=True)
+    print(f'[sharded] phase {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return sharded_launches
+
+
+def sub_main(argv):
+    """The subprocess entries of phase 3g."""
+    import argparse
+    p = argparse.ArgumentParser()
+    p.add_argument('--shard-rank', type=int)
+    p.add_argument('--nccl-timing', action='store_true')
+    p.add_argument('--ranks', type=int, default=SHARD_RANKS)
+    p.add_argument('--port', type=int)
+    p.add_argument('--out')
+    p.add_argument('--geo')
+    p.add_argument('--backend', default=None)
+    a = p.parse_args(argv)
+    sys.path.insert(0, _root())
+    if a.nccl_timing:
+        nccl_timing(a.port, a.out, a.geo)
+    else:
+        shard_rank(a.shard_rank, a.ranks, a.port, a.out, a.geo, a.backend)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3175,6 +3513,8 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
+    if len(sys.argv) > 1:
+        return sub_main(sys.argv[1:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tensoflow_tpu_torch.ops import cuda_build
     card = card_line()
@@ -3206,6 +3546,7 @@ def main():
     relight_launches, relight_chunk, relight_ms = phase_relight(
         card, mat_trainer, geo)
     var = phase_variants(card, geo, hier_trainer, mat_phase_ms)
+    sharded_launches = phase_sharded(card, geo)
     kinds = phase_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
@@ -3249,7 +3590,8 @@ def main():
                                  'human_light_f32':
                                      var['light_launches'][k],
                                  'stage2_variants':
-                                     var['mat_launches'][k]},
+                                     var['mat_launches'][k],
+                                 'sharded_f32': sharded_launches[k]},
             'other_rows': {f'{t} B={b}': kinds[t, b][k]
                            for t, b in kinds if (t, b) != ('f32', 2)}})
     print(json.dumps({'kernels': stencil + [

@@ -37,7 +37,7 @@ from .. import device_constant
 from ..ops import sdf_trace, tensor_field as tfield
 from ..ops.brdf import (distribution_ggx, fresnel_schlick,
                         geometry as brdf_geometry)
-from ..ops.grid import compact_indices, compact_take, scatter_back
+from ..ops.grid import compact_indices_mesh, compact_take, scatter_back
 from ..ops.math import (contraction, get_camera_plane_intersection,
                         get_sphere_intersection, ide_dim,
                         integrated_dir_encoding,
@@ -48,6 +48,7 @@ from ..ops.samplers import (direction_table, direction_to_angle,
                             half_angles_to_directions,
                             sample_diffuse_directions,
                             sample_specular_directions)
+from ..parallel import sharding
 from . import flow as flow_mod
 from . import light as light_mod
 from . import mlp
@@ -270,7 +271,8 @@ def _near_masked(lights, depth, eps):
 
 
 def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
-               directions, human_poses=None, normals=None, stats=None):
+               directions, human_poses=None, normals=None, stats=None,
+               mesh=None):
     """Secondary-ray radiance for a dense [pn, sn, 3] direction set
     (ref: fields.py:951-975).
 
@@ -282,12 +284,18 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
     materialRenderer.py:223): an SDF *grid* cannot separate a tangent ray
     from its own launch surface as an exact-mesh BVH does.  The normals
     also drive the analytic launch-corridor certification of the budgeted
-    trace.  Returns (lights [pn,sn,3], hit_mask [pn,sn])."""
+    trace.  With an active ``mesh`` the points are this rank's slice of
+    the global batch: the slot budgets come from the global ray count,
+    each slot is held by the rank the global compaction gives it, and the
+    trace rates are global.  Returns (lights [pn,sn,3], hit_mask
+    [pn,sn])."""
     shape = points.shape[:-1]
     eps = 1e-5
     o = (points + directions * eps).reshape(-1, 3)
     d = directions.reshape(-1, 3)
     n_rays = o.shape[0]
+    if sharding.active(mesh):
+        n_rays = n_rays * mesh.size
 
     outer = predict_outer_lights(params, cfg, o, d)
     if cfg.human_lights and human_poses is not None:
@@ -351,16 +359,17 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
                     torch.clamp(flat_i, 0, rv ** 3 - 1))        # [pn,8]
             res = sdf_trace.sphere_trace_budget(
                 grid, o_trace, d_ng, m, h0=h0, a1_budget=cfg.a1_budget,
-                vis_rows_flat=vis_rows)
+                vis_rows_flat=vis_rows, mesh=mesh)
             hit_slots = res.hit_m & res.slot_mask
             if stats is not None:
                 # diagnostics for the trainer's adaptive budget: device
                 # scalars, read by the host at its log/adapt cadence
-                stats['secondary_cand_rate'] = torch.mean(res.cand.float())
-                stats['secondary_hit_rate'] = \
-                    torch.sum(hit_slots.float()) / n_rays
-                stats['secondary_a1_rate'] = torch.mean(
-                    res.a1_need.float())
+                counts = sharding.global_sum(mesh, torch.stack([
+                    torch.sum(res.cand.float()),
+                    torch.sum(hit_slots.float()),
+                    torch.sum(res.a1_need.float())])) / n_rays
+                stats['secondary_cand_rate'], stats['secondary_hit_rate'], \
+                    stats['secondary_a1_rate'] = counts.unbind(0)
         if 0.0 < cfg.inner_light_budget < 1.0:
             # second compaction: the 4x256 inner-light MLP only runs on
             # HIT slots; overflow beyond the hit budget falls back to the
@@ -368,7 +377,8 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
             # degrades)
             m2 = sdf_trace.budget_slots(
                 n_rays, min(cfg.inner_light_budget, cfg.secondary_budget))
-            src2, mask2, dest2 = compact_indices(hit_slots, m2)
+            src2, mask2, dest2 = compact_indices_mesh(hit_slots, m2, mesh)
+            m2 = src2.shape[0]
             pay = torch.cat([res.inters, res.view_out, res.normals], -1)
             pm2 = compact_take(pay, src2, dest2, mask2)
             inner2 = get_inner_lights(params, cfg, pm2[:, 0:3],
@@ -400,8 +410,9 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
     if 0.0 < cfg.inner_light_budget < 1.0:
         # compact hit rays before the inner-light MLP; overflow beyond the
         # budget falls back to the outer light
-        m = max(int(n_rays * cfg.inner_light_budget), 1)
-        src, slot_mask, dest = compact_indices(hit, m)
+        src, slot_mask, dest = compact_indices_mesh(
+            hit, max(int(n_rays * cfg.inner_light_budget), 1), mesh)
+        m = src.shape[0]
         payload = torch.cat([inters, -d, t_normals], dim=-1)
         pm = compact_take(payload, src, dest, slot_mask)
         inner_m = get_inner_lights(params, cfg, pm[:, 0:3], pm[:, 3:6],
@@ -531,12 +542,14 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
                 pts, normals, view_dirs, metallic, roughness, albedo,
                 phase: ShadePhase, noise: Optional[Dict[str, Any]],
                 is_train: bool, flow_diffuse_copy=None,
-                flow_specular_copy=None, human_poses=None):
+                flow_specular_copy=None, human_poses=None, mesh=None):
     """The MC estimator (ref: fields.py:1075-1335), dense and masked.
 
     noise: draw_shade_noise's dict (None or missing keys: no roll, as at
     eval; an evaluation takes only draw_eval_noise's flow-prior draws).
-    Returns (colors [pn,3], outputs dict)."""
+    mesh: on an active mesh the points are this rank's shard; the trace
+    budgets, the variances and the NIS losses' means are global (the
+    losses this rank's shares).  Returns (colors [pn,3], outputs dict)."""
     noise, az = _split_noise(noise, is_train)
     fcfg = cfg.flow
     f32 = torch.float32
@@ -616,7 +629,7 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     all_lights, all_hit = get_lights(
         params, cfg, grid, unit_size,
         pts[:, None, :].expand(all_dirs.shape), all_dirs, human_poses,
-        normals=normals, stats=trace_stats)
+        normals=normals, stats=trace_stats, mesh=mesh)
     diffuse_lights = all_lights[:, :dn]
     spec_lights = all_lights[:, dn:]
     light_hit = all_hit[:, dn:]
@@ -663,9 +676,9 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
 
     # ---------------- NIS losses (ref: fields.py:1254-1333) ----------------
     fx_d = diffuse_weights * dl_c
-    outputs['variance'] = torch.var(
-        torch.mean(fx_d, -1, keepdim=True, dtype=f32)
-        / torch.clamp(diffuse_prob, min=EPS), unbiased=False)
+    outputs['variance'] = sharding.global_var(
+        mesh, torch.mean(fx_d, -1, keepdim=True, dtype=f32)
+        / torch.clamp(diffuse_prob, min=EPS))
 
     zero = torch.zeros((), dtype=f32, device=dev)
     if phase.nis_loss_diffuse and cfg.use_nis_diffuse:
@@ -679,14 +692,15 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
             min=EPS))
         fx = fx_d[:, :sn].float()
         dp = torch.clamp(diffuse_prob[:, :sn], min=EPS)
-        outputs['loss_nis_diffuse'] = -torch.mean(fx * logqx / dp)
+        outputs['loss_nis_diffuse'] = -sharding.mean_share(
+            mesh, fx * logqx / dp)
     else:
         outputs['loss_nis_diffuse'] = zero
 
     fx_s = spec_weights * sl_c
-    outputs['variance_specular'] = torch.var(
-        torch.mean(fx_s, -1, keepdim=True, dtype=f32)
-        / torch.clamp(spec_prob, min=EPS), unbiased=False)
+    outputs['variance_specular'] = sharding.global_var(
+        mesh, torch.mean(fx_s, -1, keepdim=True, dtype=f32)
+        / torch.clamp(spec_prob, min=EPS))
 
     if phase.nis_loss_specular and cfg.use_nis_specular:
         theta = spec_half[..., 1:2]
@@ -697,7 +711,8 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
             4 * math.pi ** 2 * hov_spec * torch.sin(theta), min=EPS))
         sp = torch.clamp(spec_prob, min=EPS)
         term = fx_s.float() * logqx / sp * spec_mask[..., None].float()
-        denom = torch.clamp(torch.sum(spec_mask.float()) * 3.0, min=1.0)
+        denom = torch.clamp(sharding.global_sum(
+            mesh, torch.sum(spec_mask.float())) * 3.0, min=1.0)
         outputs['loss_nis_specular'] = -torch.sum(term) / denom
     else:
         outputs['loss_nis_specular'] = zero
@@ -710,13 +725,15 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
 def shade_mixed_all(params, cfg: MCShadingConfig, grid, unit_size, aabb,
                     pts, normals, view_dirs, metallic, roughness, albedo,
                     phase: ShadePhase, noise: Optional[Dict[str, Any]],
-                    is_train: bool, flow_all_copy=None, human_poses=None):
+                    is_train: bool, flow_all_copy=None, human_poses=None,
+                    mesh=None):
     """Single-flow combined estimator (ref: fields.py:1337-1451): ONE
     direction set drives both the diffuse and the specular lobe, with the
     combined flow copy's samples in front once it exists.  noise:
     draw_shade_noise's 'flow_all' / 'az_all'.  Its NIS loss is the mean
     over all samples (not masked as shade_mixed's specular one), and
-    diffuse_light / specular_light are the same image."""
+    diffuse_light / specular_light are the same image.  mesh: see
+    shade_mixed."""
     noise, az = _split_noise(noise, is_train)
     fcfg = cfg.flow
     f32 = torch.float32
@@ -738,7 +755,8 @@ def shade_mixed_all(params, cfg: MCShadingConfig, grid, unit_size, aabb,
 
     lights, light_hit = get_lights(
         params, cfg, grid, unit_size, pts[:, None, :].expand(
-            directions.shape), directions, human_poses, normals=normals)
+            directions.shape), directions, human_poses, normals=normals,
+        mesh=mesh)
 
     # estimator-chain dtype: the policy of shade_mixed
     cdt = torch.bfloat16 if cfg.estimator_dtype == 'bf16' else pts.dtype
@@ -789,9 +807,9 @@ def shade_mixed_all(params, cfg: MCShadingConfig, grid, unit_size, aabb,
                        + outputs['specular_color']), 0, 1)
 
     fx = (diffuse_w + spec_w) * lights_c
-    outputs['variance'] = torch.var(
-        torch.mean(fx, -1, keepdim=True, dtype=f32)
-        / torch.clamp(prob, min=EPS), unbiased=False)
+    outputs['variance'] = sharding.global_var(
+        mesh, torch.mean(fx, -1, keepdim=True, dtype=f32)
+        / torch.clamp(prob, min=EPS))
     if (phase.nis_loss_diffuse or phase.nis_loss_specular) \
             and cfg.use_nis_all:
         theta = angles_half[..., 1:2]
@@ -800,8 +818,8 @@ def shade_mixed_all(params, cfg: MCShadingConfig, grid, unit_size, aabb,
             _halfvec_x(angles_half))
         logqx = logqx_ - torch.log(torch.clamp(
             4 * math.pi ** 2 * hov * torch.sin(theta), min=EPS))
-        outputs['loss_nis'] = -torch.mean(
-            fx.float() * logqx / torch.clamp(prob, min=EPS))
+        outputs['loss_nis'] = -sharding.mean_share(
+            mesh, fx.float() * logqx / torch.clamp(prob, min=EPS))
     else:
         outputs['loss_nis'] = torch.zeros((), dtype=f32, device=pts.device)
     return colors, outputs
@@ -810,10 +828,10 @@ def shade_mixed_all(params, cfg: MCShadingConfig, grid, unit_size, aabb,
 def mc_forward(params, cfg: MCShadingConfig, grid, unit_size, aabb, pts,
                view_dirs, normals, phase: ShadePhase, noise, is_train: bool,
                flow_diffuse_copy=None, flow_specular_copy=None,
-               human_poses=None):
+               human_poses=None, mesh=None):
     """Full shade: materials + the estimator that ``cfg.shade_fn`` names
     (ref: fields.py:1453-1473); shade_mixed_all takes its combined flow's
-    copy from the diffuse-copy slot.  noise: see shade_mixed."""
+    copy from the diffuse-copy slot.  noise, mesh: see shade_mixed."""
     view_dirs = safe_normalize(view_dirs)
     normals = safe_normalize(normals)
     metallic, roughness, albedo = predict_materials(params, cfg, pts, aabb)
@@ -821,12 +839,13 @@ def mc_forward(params, cfg: MCShadingConfig, grid, unit_size, aabb, pts,
         colors, outputs = shade_mixed_all(
             params, cfg, grid, unit_size, aabb, pts, normals, view_dirs,
             metallic, roughness, albedo, phase, noise, is_train,
-            flow_all_copy=flow_diffuse_copy, human_poses=human_poses)
+            flow_all_copy=flow_diffuse_copy, human_poses=human_poses,
+            mesh=mesh)
     else:
         colors, outputs = shade_mixed(
             params, cfg, grid, unit_size, aabb, pts, normals, view_dirs,
             metallic, roughness, albedo, phase, noise, is_train,
-            flow_diffuse_copy, flow_specular_copy, human_poses)
+            flow_diffuse_copy, flow_specular_copy, human_poses, mesh)
     outputs['rgb_pr'] = colors
     return outputs
 
@@ -837,10 +856,13 @@ def mc_forward(params, cfg: MCShadingConfig, grid, unit_size, aabb, pts,
 
 def material_regularization(params, cfg: MCShadingConfig, pts, normals,
                             metallic, roughness, albedo,
-                            reg_minmax_on: float):
+                            reg_minmax_on: float, mesh=None):
     """TV on the material field (+ early saturation clamps, gated by the
-    host with reg_minmax_on = 1.0 while step < 2000)."""
-    reg = tfield.tv_loss_vm(params['mat_field']) * 0.1
+    host with reg_minmax_on = 1.0 while step < 2000).  On an active mesh
+    this rank's share: the TV of the replicated field counts on rank 0
+    only, the clamps sum this rank's points."""
+    own = 0.0 if sharding.active(mesh) and not mesh.is_main else 1.0
+    reg = tfield.tv_loss_vm(params['mat_field']) * (0.1 * own)
     if cfg.reg_min_max:
         clamp = (torch.sum(torch.relu(roughness - 0.9 ** 2))
                  + torch.sum(torch.relu(0.1 ** 2 - roughness))

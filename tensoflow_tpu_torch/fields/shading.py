@@ -6,8 +6,9 @@ prefiltered envlight(normal); specular = FG-LUT(NoV, roughness) x the
 light blended between an indirect-light MLP and the prefiltered envlight
 by a learned occlusion probability; with ``human_light`` the envlight
 part is blended with a photographer light predicted where the reflected
-ray meets the capturing camera's plane.  The FG LUT is read from the
-port's own asset (assets/fg_lut_256_1024.npy, the JAX package's table).
+ray meets the capturing camera's plane.  The FG LUT is the port's own
+asset (assets/fg_lut_256_1024.npy, the JAX package's table), the cache
+of compute_fg_lut(256, 1024).
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from ..ops.tensor_field import sample_bilinear_packed
 from . import light as envlight_mod
 from . import mlp
 
-FG_LUT_PATH = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), 'assets', 'fg_lut_256_1024.npy')
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'assets')
 
 
 class ShadingConfig(NamedTuple):
@@ -44,23 +45,84 @@ class ShadingConfig(NamedTuple):
     env: envlight_mod.EnvLightConfig = envlight_mod.EnvLightConfig()
 
 
-@functools.lru_cache(maxsize=1)
-def _fg_lut_packed_np():
-    """The split-sum LUT [roughness, NoV, 2] as 2x2 patch rows."""
-    lut = np.load(FG_LUT_PATH)
+@functools.lru_cache(maxsize=2)
+def compute_fg_lut_packed(res: int = 256, n_samples: int = 1024):
+    """compute_fg_lut as a patch_pack_2d row table: ((rows, 8), (H, W))."""
+    lut = compute_fg_lut(res, n_samples)
     h, w, c = lut.shape
     pad = np.pad(lut, ((1, 1), (1, 1), (0, 0)), mode='edge')
     slots = [pad[d0:d0 + h + 1, d1:d1 + w + 1]
              for d0 in (0, 1) for d1 in (0, 1)]
     packed = np.concatenate(slots, -1).reshape((h + 1) * (w + 1), 4 * c)
-    return packed.astype(np.float32), (h, w)
+    return packed, (h, w)
+
+
+@functools.lru_cache(maxsize=2)
+def compute_fg_lut(res: int = 256, n_samples: int = 1024) -> np.ndarray:
+    """Split-sum environment-BRDF LUT [roughness, NoV, 2], the JAX
+    package's numpy integration as it is.
+
+    A(NoV, r), B(NoV, r) such that specular ~ F0 * A + B.  GGX importance
+    sampling (alpha = roughness^2) with the height-correlated Smith
+    masking-shadowing term.  Read from assets/fg_lut_<res>_<n>.npy when
+    that cache exists, else computed (~1 min at full res) and cached
+    there."""
+    cache = os.path.join(ASSETS, f'fg_lut_{res}_{n_samples}.npy')
+    if os.path.exists(cache):
+        return np.load(cache)
+
+    nov = np.linspace(0.5 / res, 1 - 0.5 / res, res)[None, :, None]   # [1,R,1]
+    rough = np.linspace(0.5 / res, 1 - 0.5 / res, res)[:, None, None]  # [R,1,1]
+
+    # hammersley sequence
+    i = np.arange(n_samples)
+    xi1 = (i + 0.5) / n_samples
+    xi2 = np.array([int(bin(x)[2:].zfill(32)[::-1], 2) for x in i],
+                   np.float64) / 2 ** 32
+
+    a = rough ** 2
+    phi = 2 * np.pi * xi1[None, None, :]
+    cos_t = np.sqrt((1 - xi2[None, None, :])
+                    / (1 + (a ** 2 - 1) * xi2[None, None, :]))
+    sin_t = np.sqrt(np.maximum(1 - cos_t ** 2, 0))
+
+    # view vector in tangent space (n = +z)
+    v = np.stack([np.sqrt(np.maximum(1 - nov ** 2, 0))
+                  * np.ones_like(cos_t),
+                  np.zeros_like(cos_t * nov),
+                  nov * np.ones_like(cos_t)], -1)
+    h = np.stack([sin_t * np.cos(phi), sin_t * np.sin(phi), cos_t], -1)
+    voh = np.sum(v * h, -1)
+    l = 2 * voh[..., None] * h - v                      # noqa: E741
+    nol = l[..., 2]
+    noh = np.clip(cos_t, 0, 1)
+    voh = np.clip(voh, 0, 1)
+
+    def lam(a2, c):
+        c2 = c * c
+        t2 = (1 - c2) / np.maximum(c2, 1e-9)
+        return 0.5 * np.sqrt(1 + a2 * t2) - 0.5
+
+    g = 1.0 / (1.0 + lam(a * a, nov) + lam(a * a, np.clip(nol, 1e-6, 1)))
+    g_vis = np.where(nol > 0, g * voh / np.maximum(noh * nov, 1e-6), 0.0)
+    fc = (1 - voh) ** 5
+    a_term = np.mean((1 - fc) * g_vis, -1)
+    b_term = np.mean(fc * g_vis, -1)
+    out = np.stack([a_term, b_term], -1).astype(np.float32)
+    try:
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        np.save(cache, out)
+    except OSError:
+        pass
+    return out
 
 
 @functools.lru_cache(maxsize=4)
 def fg_lut_packed(device: str):
-    """Packed LUT on ``device`` (uploaded once per device)."""
-    packed, hw = _fg_lut_packed_np()
-    return torch.as_tensor(packed, device=device), hw
+    """The shipped 256 x 256 LUT (1,024 samples) packed, on ``device``
+    (uploaded once per device)."""
+    packed, hw = compute_fg_lut_packed(256, 1024)
+    return torch.as_tensor(packed, dtype=torch.float32, device=device), hw
 
 
 def init_shading(gen: torch.Generator, cfg: ShadingConfig,

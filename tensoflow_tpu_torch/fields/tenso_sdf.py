@@ -44,16 +44,11 @@ class SDFConfig(NamedTuple):
     stencil_impl: str = 'auto'
 
 
-STENCIL_IMPLS = ('auto', 'pallas', 'xla')
-
-
 def stencil_route(cfg: SDFConfig) -> str:
-    """'kernel' (ops/stencil.py) for 'auto' / 'pallas', 'split' for
-    'xla'; any other value raises."""
-    if cfg.stencil_impl not in STENCIL_IMPLS:
-        raise ValueError(f'stencil_impl={cfg.stencil_impl!r}: expected one '
-                         f'of {STENCIL_IMPLS}')
-    return 'split' if cfg.stencil_impl == 'xla' else 'kernel'
+    """'kernel' (ops/stencil.py) for 'auto' / 'pallas', 'split' for any
+    other value, as the JAX package sends every value but 'pallas' (after
+    'auto') to its 'xla' route (tenso_sdf.py:219-223 there)."""
+    return 'kernel' if cfg.stencil_impl in ('auto', 'pallas') else 'split'
 
 
 def units(cfg: SDFConfig, aabb):

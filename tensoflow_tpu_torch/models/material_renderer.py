@@ -25,6 +25,7 @@ from .. import device_constant
 from ..fields import mc_shading, mlp, tenso_sdf
 from ..ops import sdf_trace
 from ..ops.math import charbonnier, sample_pdf
+from ..parallel import sharding
 from .secondary import march_weights
 
 
@@ -167,10 +168,13 @@ def diffuse_light_regularization(diffuse_lights, lam: float):
 
 def train_step_outputs(params, cfg: MaterialRendererConfig, grid, batch,
                        phase: mc_shading.ShadePhase, noise, step: int,
-                       flow_diffuse_copy=None, flow_specular_copy=None):
+                       flow_diffuse_copy=None, flow_specular_copy=None,
+                       mesh=None):
     """Training forward on precomputed surface hits
     (ref: materialRenderer.py:537-564).  noise: mc_shading.draw_shade_noise's
-    dict."""
+    dict.  mesh: on an active mesh the hits and noise are this rank's
+    shard, psnr is global and the losses are this rank's shares
+    (mc_shading.shade_mixed)."""
     pts = batch['inters']
     aabb = aabb_tensor(cfg, pts.device)
     normals = batch['normals']
@@ -178,17 +182,18 @@ def train_step_outputs(params, cfg: MaterialRendererConfig, grid, batch,
     outputs = mc_shading.mc_forward(
         params, cfg.shader, grid, unit_size(cfg), aabb, pts,
         -batch['rays_d'], normals, phase, noise, True, flow_diffuse_copy,
-        flow_specular_copy, human_poses=batch.get('human_poses'))
+        flow_specular_copy, human_poses=batch.get('human_poses'), mesh=mesh)
     outputs['rgb_gt'] = rgb_gt
     outputs['loss_rgb'] = compute_rgb_loss(cfg, outputs['rgb_pr'], rgb_gt)
-    mse = torch.mean((outputs['rgb_pr'] - rgb_gt) ** 2)
+    mse = sharding.global_sum(mesh, sharding.mean_share(
+        mesh, (outputs['rgb_pr'] - rgb_gt) ** 2))
     outputs['psnr'] = 20.0 * torch.log10(
         1.0 / torch.sqrt(torch.clamp(mse, min=1e-10)))
     if cfg.reg_mat:
         outputs['loss_mat_reg'] = mc_shading.material_regularization(
             params, cfg.shader, pts, normals, outputs['metallic'],
             outputs['roughness'], outputs['albedo'],
-            1.0 if step < 2000 else 0.0)
+            1.0 if step < 2000 else 0.0, mesh)
     if cfg.reg_diffuse_light:
         outputs['loss_diffuse_light'] = diffuse_light_regularization(
             outputs['diffuse_light'], cfg.reg_diffuse_light_lambda)

@@ -54,3 +54,26 @@ def secondary_intersection(sdf_fun, inv_s, pts, dirs, sn0: int = 128,
     return (z_mid * m, w2 * m,
             torch.where(inside[:, None], mid_sdf,
                         torch.full_like(mid_sdf, -1.0)))
+
+
+def trace_sdf(sdf_fun, grad_fun, inv_s, rays_o, rays_d, sn0: int = 128,
+              sn1: int = 9, hit_weight_thresh: float = 0.5):
+    """Surface tracing by the occlusion march (secondary.py:74 of the JAX
+    package; it has no caller there either): the weight-expected depth as
+    the hit depth, ``grad_fun``'s SDF gradient as the normal (flipped to
+    face the ray), the accumulated weight as the hit confidence.
+
+    Returns (inters [pn,3], normals [pn,3], depth [pn,1], hit_mask [pn])."""
+    z_mid, w, _ = secondary_intersection(sdf_fun, inv_s, rays_o, rays_d,
+                                         sn0, sn1)
+    acc = torch.sum(w, -1, keepdim=True)
+    wn = w / torch.clamp(acc, min=1e-8)
+    depth = torch.sum(wn * z_mid, -1, keepdim=True)
+    hit_mask = acc[:, 0] > hit_weight_thresh
+    inters = rays_o + depth * rays_d
+    grad = grad_fun(inters)
+    normals = grad / torch.clamp(torch.linalg.norm(grad, dim=-1,
+                                                   keepdim=True), min=1e-8)
+    flip = torch.sum(normals * rays_d, -1, keepdim=True) >= 0
+    normals = torch.where(flip, -normals, normals)
+    return inters, normals, depth, hit_mask

@@ -19,6 +19,14 @@ the surface and the marched occlusion (the render_image outputs).
 Random draws come in as pre-drawn noise (``noise``, see ``draw_noise``):
 the trainer draws them from its torch.Generator, the parity tests with
 jax.random from the JAX step's own keys.
+
+With an active ``mesh`` (parallel/sharding.py) the batch is this rank's
+slice of the global batch and every batch-wide statistic is global: the
+compaction keeps what the global prefix sum keeps, the occ loss picks the
+global top-k, and every mean divides a local sum by the global count, so
+that the ranks' losses and gradients sum to the single-device step's.
+The per-ray noise is then this rank's slice, ``occ_score`` the global
+draw.  Without a mesh the paths are the single-device ones.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from ..ops import composite, grid as grid_mod
 from ..ops.math import (charbonnier, safe_normalize, sample_pdf,
                         xla_linspace)
 from ..ops.tensor_field import gaussian_smooth_loss_vm, tv_loss_vm
+from ..parallel import sharding
 from . import secondary
 
 
@@ -288,15 +297,19 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
                 ray_batch, step: int, cos_anneal_ratio, noise,
                 is_train: bool, radiance_on: bool = False,
                 occ_loss_on: bool = False, eval_extras: bool = False,
-                alpha_mask: Optional[grid_mod.AlphaGridMask] = None):
+                alpha_mask: Optional[grid_mod.AlphaGridMask] = None,
+                mesh=None):
     """Render a batch of rays; returns the outputs dict.  ``noise``
     (draw_noise's dict) is read only when is_train; ``alpha_mask`` culls
-    samples on the hierarchical sampler only."""
+    samples on the hierarchical sampler only; ``mesh``: see the module
+    docstring."""
     rays_o, dirs = ray_batch['rays_o'], ray_batch['dirs']
     radii, rays_cos = ray_batch['radiis'], ray_batch['rays_cos']
     dev = rays_o.device
     aabb = aabb_tensor(cfg, dev)
     rn = rays_o.shape[0]
+    sharded = sharding.active(mesh)
+    rn_all = rn * mesh.size if sharded else rn
     br = base_radii(cfg)
     near, far = near_far_from_sphere(rays_o, dirs)
 
@@ -340,9 +353,18 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
     human_poses = ray_batch.get('human_poses') \
         if cfg.shading.human_light else None
 
+    # the global index of this rank's first slot (the occ-loss scores are
+    # drawn per global slot)
+    slot_base = 0
     if compact:
-        m = rn * cfg.compact_samples_per_ray
-        src, slot_mask, _ = grid_mod.compact_indices(inner.reshape(-1), m)
+        m = rn_all * cfg.compact_samples_per_ray
+        if sharded:
+            src, slot_mask, _, plan = grid_mod.compact_indices_sharded(
+                inner.reshape(-1), m, mesh)
+            slot_base = plan.offset
+        else:
+            src, slot_mask, _ = grid_mod.compact_indices(inner.reshape(-1),
+                                                         m)
         cols = torch.cat([pts.reshape(-1, 3), levels.reshape(-1, 1),
                           flat_dirs, dists.reshape(-1, 1)], -1)
         s_cols = cols[src]
@@ -356,6 +378,7 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
         s_pts, s_lv = pts.reshape(-1, 3), levels.reshape(-1, 1)
         s_dirs, s_dists = flat_dirs, dists.reshape(-1)
         slot_mask = inner.reshape(-1)
+        slot_base = mesh.rank * rn * sn if sharded else 0
         s_hp = None if human_poses is None else human_poses[:, None].expand(
             rn, sn, 3, 4).reshape(-1, 3, 4)
 
@@ -426,12 +449,13 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
 
     outputs: Dict[str, Any] = {
         'ray_rgb': color, 'acc': acc,
-        'sample_num': torch.sum(mask_f) / rn,
+        'sample_num': sharding.global_sum(mesh, torch.sum(mask_f)) / rn_all,
     }
     up = device_constant('up', lambda: [0.0, 0.0, 1.0], dev, acc.dtype)
     outputs['normal'] = safe_normalize(acc_normal * acc + (1.0 - acc) * up)
 
-    nvalid = torch.clamp(torch.sum(slot_f), min=1.0)
+    nvalid = torch.clamp(sharding.global_sum(mesh, torch.sum(slot_f)),
+                         min=1.0)
     grad_err = (torch.linalg.norm(grads, dim=-1) - 1.0) ** 2
     outputs['gradient_error'] = torch.sum(grad_err * slot_f) / nvalid
     if cfg.apply_sparse_loss:
@@ -476,9 +500,15 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
                 def sdf_fun(x):
                     return tenso_sdf.sdf_only(params['sdf'], cfg.sdf, x,
                                               aabb, packed=packed)
+            score = noise['occ_score']
+            if sharded:
+                score = _local_scores(score, slot_base, slot_mask.shape[0],
+                                      plan.kept if compact else None)
+            n_all = m if compact else rn_all * sn
             outputs['loss_occ'] = _occ_loss(
                 cfg, s_pts, sdf, normals, s_dirs, occ_info, slot_mask,
-                noise['occ_score'], inv_s, sdf_fun)
+                score, inv_s, sdf_fun, mesh=mesh, n_all=n_all,
+                base=slot_base)
     if eval_extras:
         outputs.update(_eval_extras(params, cfg, mips, aabb, ray_batch,
                                     t_depth, inv_s, step))
@@ -522,22 +552,45 @@ def _eval_extras(params, cfg: ShapeRendererConfig, mips, aabb, ray_batch,
     return out
 
 
+def _local_scores(score, base: int, n: int, kept):
+    """This rank's n slots' scores out of the global draw: slots from
+    ``base`` on (only the first ``kept`` of a compacted rank's slots hold
+    samples; the rest get 0, their samples being invalid)."""
+    take = n if kept is None else kept
+    out = score[base:base + take]
+    if out.shape[0] < n:
+        out = torch.cat([out, out.new_zeros(n - out.shape[0])])
+    return out
+
+
 def _occ_loss(cfg: ShapeRendererConfig, flat_pts, sdf, normals, flat_dirs,
-              occ_info, flat_inner, score_noise, inv_s, sdf_fun):
+              occ_info, flat_inner, score_noise, inv_s, sdf_fun, mesh=None,
+              n_all=None, base: int = 0):
     """Occlusion-probability supervision (ref: shapeRenderer.py:1027-1103):
     select up to occ_loss_max_pn qualifying surface samples by the largest
     random scores, march their reflection rays through ``sdf_fun`` (the
     baked lattice on the occupancy grid, the live field otherwise; no
     gradient either way), L1 against the predicted occlusion
-    probability."""
+    probability.  With an active mesh the selection is the global top-k
+    over ``n_all`` samples (this rank's at global indices base + i) and
+    the mean is over the global selection."""
     n = flat_pts.shape[0]
     sdf_mask = torch.abs(sdf) < cfg.occ_sdf_thresh
     normal_mask = torch.sum(normals * flat_dirs, -1) < 0
     mask = flat_inner & sdf_mask & normal_mask
     score = torch.where(mask, score_noise, torch.full_like(score_noise,
                                                            -1.0))
-    kk = min(cfg.occ_loss_max_pn, n)
-    idx = torch.topk(score, kk, sorted=True).indices
+    if sharding.active(mesh):
+        kk = min(cfg.occ_loss_max_pn, n_all)
+        idx = sharding.global_topk(mesh, score, kk, base)
+        if idx.numel() == 0:
+            # nothing of the selection here: one masked-out sample keeps
+            # the march's shapes non-empty
+            idx = torch.zeros((1,), dtype=torch.long, device=score.device)
+            mask = torch.zeros_like(mask)
+    else:
+        kk = min(cfg.occ_loss_max_pn, n)
+        idx = torch.topk(score, kk, sorted=True).indices
     sel_mask = mask[idx]
     sel_pts = flat_pts[idx]
     sel_ref = occ_info['reflective'][idx]
@@ -547,7 +600,8 @@ def _occ_loss(cfg: ShapeRendererConfig, flat_pts, sdf, normals, flat_dirs,
                                                sel_ref.detach(), 64, 16)
     occ_gt = torch.sum(w, -1, keepdim=True)
     l1 = torch.abs(sel_occ - occ_gt)[:, 0] * sel_mask.to(sel_occ.dtype)
-    return torch.sum(l1) / torch.clamp(torch.sum(sel_mask), min=1.0)
+    n_sel = sharding.global_sum(mesh, torch.sum(sel_mask))
+    return torch.sum(l1) / torch.clamp(n_sel, min=1.0)
 
 
 def compute_rgb_loss(cfg: ShapeRendererConfig, rgb_pr, rgb_gt):
@@ -635,16 +689,18 @@ def build_alpha_mask(params, cfg: ShapeRendererConfig,
 
 def train_step_outputs(params, cfg: ShapeRendererConfig, mips, occ_state,
                        ray_batch, step: int, noise, radiance_on: bool,
-                       occ_loss_on: bool, alpha_mask=None):
+                       occ_loss_on: bool, alpha_mask=None, mesh=None):
     """Training forward: render + rgb/psnr/mask losses
-    (ref: shapeRenderer.py:777-794)."""
+    (ref: shapeRenderer.py:777-794).  With an active mesh, psnr is the
+    global batch's and loss_mask this rank's share of the global mean."""
     anneal = min(1.0, step / cfg.anneal_end) if cfg.anneal_end >= 0 else 1.0
     outputs = render_rays(params, cfg, mips, occ_state, ray_batch, step,
                           anneal, noise, True, radiance_on, occ_loss_on,
-                          alpha_mask=alpha_mask)
+                          alpha_mask=alpha_mask, mesh=mesh)
     rgb_gt = ray_batch['rgbs']
     outputs['loss_rgb'] = compute_rgb_loss(cfg, outputs['ray_rgb'], rgb_gt)
-    mse = torch.mean((outputs['ray_rgb'] - rgb_gt) ** 2)
+    mse = sharding.global_sum(mesh, sharding.mean_share(
+        mesh, (outputs['ray_rgb'] - rgb_gt) ** 2))
     outputs['psnr'] = 20.0 * torch.log10(
         1.0 / torch.sqrt(torch.clamp(mse, min=1e-10)))
     if radiance_on:
@@ -656,6 +712,7 @@ def train_step_outputs(params, cfg: ShapeRendererConfig, mips, occ_state,
     if cfg.apply_mask_loss and 'masks' in ray_batch:
         acc = torch.clamp(outputs['acc'], 1e-3, 1.0 - 1e-3)
         m = (ray_batch['masks'] > 0.5).to(acc.dtype)
-        outputs['loss_mask'] = torch.mean(
-            -(m * torch.log(acc) + (1 - m) * torch.log(1 - acc)))
+        outputs['loss_mask'] = sharding.mean_share(
+            mesh, -(m * torch.log(acc) + (1 - m) * torch.log(1 - acc)))
     return outputs
+

@@ -11,7 +11,7 @@ its torch.Generator, the parity tests from jax.random.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -267,15 +267,18 @@ def occ_grid_sampling(state, cfg: OccGridConfig, rays_o, dirs, near, far,
     return t_starts, t_starts + step_size, valid
 
 
-def compact_indices(valid_flat, m: int):
+def compact_indices(valid_flat, m: int, limit: Optional[int] = None):
     """Stable compaction of valid slots into a budget of m.
 
     Returns (src [M] int64, slot_mask [M] bool, dest [N] int64 — compacted
-    slot per source, or M for dropped/invalid)."""
+    slot per source, or M for dropped/invalid).  ``limit`` (<= m) keeps
+    only the first ``limit`` valid entries (a rank's share of a global
+    compaction, compact_indices_sharded)."""
     n = valid_flat.shape[0]
     dev = valid_flat.device
+    limit = m if limit is None else limit
     pos = torch.cumsum(valid_flat.long(), 0) - 1
-    keep = valid_flat & (pos < m)
+    keep = valid_flat & (pos < limit)
     dest = torch.where(keep, pos, torch.full_like(pos, m))
     keys = torch.where(keep, dest, torch.full_like(dest, n + 1))
     order = torch.sort(keys, stable=True).indices
@@ -283,9 +286,30 @@ def compact_indices(valid_flat, m: int):
         src = order[:m]
     else:
         src = torch.cat([order, order.new_zeros(m - n)])
-    n_valid = torch.clamp(valid_flat.long().sum(), max=m)
+    n_valid = torch.clamp(valid_flat.long().sum(), max=limit)
     slot_mask = torch.arange(m, device=dev) < n_valid
     return src, slot_mask, dest
+
+
+def compact_indices_sharded(valid_flat, m: int, mesh):
+    """This rank's share of the compaction of the global flat axis (the
+    ranks' axes in rank order) into m slots: the valid entries the global
+    prefix sum keeps, in ``plan.slots`` local slots, local slot j being
+    global slot ``plan.offset + j``.  Returns (src, slot_mask, dest, plan)
+    as compact_indices, with M = plan.slots."""
+    from ..parallel import sharding
+    plan = sharding.compact_plan(mesh, valid_flat, m)
+    return compact_indices(valid_flat, plan.slots, plan.kept) + (plan,)
+
+
+def compact_indices_mesh(valid_flat, m: int, mesh=None):
+    """compact_indices, or on an active mesh this rank's share of the
+    global compaction (compact_indices_sharded): (src, slot_mask, dest)
+    with M = src.shape[0] local slots."""
+    from ..parallel import sharding
+    if sharding.active(mesh):
+        return compact_indices_sharded(valid_flat, m, mesh)[:3]
+    return compact_indices(valid_flat, m)
 
 
 def _mask_rows(mask, like):

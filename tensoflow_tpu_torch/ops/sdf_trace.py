@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import device_constant
-from .grid import (compact_indices, pack_cell_rows, packed_trilinear_tap,
+from .grid import (compact_indices_mesh, pack_cell_rows, packed_trilinear_tap,
                    scatter_back, trilinear_sample_3d)
 
 MISS_DEPTH = 10.0
@@ -589,7 +589,7 @@ def sphere_trace_budget(pg: PackedSDFGrid, rays_o, rays_d, m: int,
                         c_cap_cells: float = 12.0,
                         cert_factor: float = 0.6, h_min: float = 0.12,
                         a1_budget: float = 0.0,
-                        vis_rows_flat=None) -> CompactSecondary:
+                        vis_rows_flat=None, mesh=None) -> CompactSecondary:
     """Budgeted two-phase secondary trace (see the comment above).
 
     m: refinement budget (slots).  h0: optional [N] cosine between the
@@ -604,9 +604,16 @@ def sphere_trace_budget(pg: PackedSDFGrid, rays_o, rays_d, m: int,
 
     vis_rows_flat: caller-supplied cache rows, [N, 8] (one per ray) or
     [P, 8] with N = P * sn (one per surface point, its sn rays
-    consecutive)."""
+    consecutive).
+
+    mesh: on an active mesh (parallel/sharding.py) the rays are this
+    rank's slice of the global set and ``m`` the global budget: both
+    compactions keep what the global prefix sum keeps, so the returned
+    slots (src.shape[0] of them) are this rank's share of the global
+    ones."""
     n = rays_o.shape[0]
     dev = rays_o.device
+    n_all = n * mesh.size if mesh is not None and mesh.distributed else n
     m_cell, c_cell = _cells(pg)
     c_diag = SQRT3 * c_cell
     hit_eps_m = 0.75 * m_cell
@@ -681,8 +688,9 @@ def sphere_trace_budget(pg: PackedSDFGrid, rays_o, rays_d, m: int,
     # ---- phase A1: coarse classification of the un-certified rays ----
     zero = torch.zeros((), dtype=rays_o.dtype, device=dev)
     if use_cache:
-        ma = budget_slots(n, a1_budget)
-        srcA, maskA, destA = compact_indices(need, ma)
+        srcA, maskA, destA = compact_indices_mesh(
+            need, budget_slots(n_all, a1_budget), mesh)
+        ma = srcA.shape[0]
         tc0 = torch.maximum(t0, t_enter)
         payA = torch.cat([rays_o, rays_d, tc0[:, None], t_exit[:, None]], -1)
         pA = torch.index_select(payA, 0, torch.clamp(srcA, 0, n - 1))
@@ -708,7 +716,8 @@ def sphere_trace_budget(pg: PackedSDFGrid, rays_o, rays_d, m: int,
         t = torch.where(cand0, zero, t)
 
     # ---- compact candidates into the refinement budget ----
-    src, slot_mask, dest = compact_indices(cand, m)
+    src, slot_mask, dest = compact_indices_mesh(cand, m, mesh)
+    m = src.shape[0]
     payload = torch.cat([rays_o, rays_d, t[:, None], t_exit[:, None]], -1)
     pm = torch.index_select(payload, 0, torch.clamp(src, 0, n - 1))  # [M,8]
     om, dm = pm[:, 0:3], pm[:, 3:6]

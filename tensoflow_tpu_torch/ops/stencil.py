@@ -421,12 +421,25 @@ def _n_sm(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def check_current_device(t, what):
+    """The ctypes launchers run on the CUDA runtime's current device (and
+    the kernels' per-process occupancy caches belong to it): a tensor on
+    another card must not be launched on, a rank sets its own card current
+    first (parallel/sharding.py)."""
+    if t.device.index is not None \
+            and t.device.index != torch.cuda.current_device():
+        raise ValueError(f'{what}: tensors on {t.device} but the current '
+                         f'device is cuda:{torch.cuda.current_device()} '
+                         '(torch.cuda.set_device first)')
+
+
 def _check_cuda(ts, what):
     for t in ts:
         if t.device.type != 'cuda':
             raise ValueError(f'{what}: all tensors must be on the card')
         if not t.is_contiguous():
             raise ValueError(f'{what}: tensors must be contiguous')
+    check_current_device(ts[0], what)
 
 
 def _check_shapes(S, B, C, n, E, H, O, pp, lp, fr, rot, w0_parts, b0):

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .stencil import check_current_device
 
 LAUNCHES = {'row_gather_tile': 0, 'row_gather_grid': 0,
             'lane_gather_tile': 0, 'row_gather_tile_bf16': 0}
@@ -72,6 +73,7 @@ def _check(name, table, idx, dtype):
                          f'{tuple(table.shape)} {table.dtype}')
     if idx.dtype != torch.int32:
         raise ValueError(f'{name}: idx must be int32, got {idx.dtype}')
+    check_current_device(table, name)
 
 
 def _row_gather_cuda(name, table, idx, dtype, grid_y=None):

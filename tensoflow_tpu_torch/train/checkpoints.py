@@ -24,6 +24,17 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def named_leaves(tree, path=()):
+    """[(path tuple, tensor)] of a nested dict/list parameter tree."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, path + (i,))]
+    return [(path, tree)]
+
+
 def _to_host(x):
     return x.detach().cpu() if isinstance(x, torch.Tensor) else x
 

@@ -25,7 +25,14 @@ and its cosine factor rebased at that step.  ``render_image`` renders a
 full view in chunks without gradients; ``validate`` scores the held-out
 views.  As in the JAX package, render_image does not pass the alpha mask.
 
-Not ported yet (see ROADMAP.md): the multi-device mesh.
+``mesh=`` (parallel/sharding.py) trains one rank of a ray-sharded data
+mesh: params, Adam state and occupancy state are replicated from rank 0;
+every rank draws the global batch and the global noise from the same seed
+and takes its slice; the renderer's batch-wide statistics are global; the
+gradients and the logged terms are summed in one all-reduce before Adam,
+so the params stay identical on every rank.  Only rank 0 writes
+checkpoints (the others wait at a barrier); every rank validates its
+share of the held-out views.
 """
 from __future__ import annotations
 
@@ -44,7 +51,9 @@ from ..fields import shading as shading_mod
 from ..fields import tenso_sdf
 from ..models import shape_renderer as sr
 from ..ops import grid as grid_mod
+from ..parallel import sharding
 from . import checkpoints, losses, metrics_vis
+from .checkpoints import named_leaves
 
 # the images render_image returns
 EVAL_KEYS = ('ray_rgb', 'normal', 'normal_vis', 'acc', 'depth', 'albedo',
@@ -68,13 +77,11 @@ def build_shape_config(cfg: Dict[str, Any], grid_size, n_levels: int
         init_radius=float(cfg.get('init_radius', 0.2)),
         gather_dtype=cfg.get('gather_dtype', 'float32'),
         stencil_impl=cfg.get('stencil_impl', 'auto'))
-    tenso_sdf.stencil_route(sdf_cfg)        # an unknown value raises here
-    # the photographer light of a custom capture: shader_config.human_light
-    # of the shape configs, as the reference reads it (the JAX package's
-    # trainer leaves that key unread)
-    shader_config = cfg.get('shader_config') or {}
+    # shader_config (the photographer light of the reference's custom
+    # captures) stays unread, as in the JAX package's build_shape_config:
+    # a caller turns the light on in code (ShapeTrainer(configure=
+    # with_human_light)) before params are built
     shading_cfg = shading_mod.ShadingConfig(
-        human_light=bool(shader_config.get('human_light', False)),
         app_feats_dim=cfg['app_dim'],
         has_radiance_field=cfg['has_radiance_field'],
         radiance_field_step=cfg['radiance_field_step'],
@@ -126,17 +133,6 @@ def param_group_label(path) -> str:
     if 'envlight' in path:
         return 'env'
     return 'net'
-
-
-def named_leaves(tree, path=()):
-    """[(path tuple, tensor)] of a nested dict/list parameter tree."""
-    if isinstance(tree, dict):
-        return [x for k, v in tree.items()
-                for x in named_leaves(v, path + (k,))]
-    if isinstance(tree, (list, tuple)):
-        return [x for i, v in enumerate(tree)
-                for x in named_leaves(v, path + (i,))]
-    return [(path, tree)]
 
 
 class ScheduledAdam:
@@ -207,6 +203,18 @@ class ScheduledAdam:
                                  'exp_avg': m, 'exp_avg_sq': v}
 
 
+def all_reduce_step(mesh, params, terms: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """On a mesh, sum the gradients of ``params`` and this rank's loss
+    terms over the ranks in one all-reduce; returns the global terms."""
+    if not sharding.active(mesh):
+        return terms
+    vals = torch.stack([v.detach().float().reshape(()) for v in
+                        terms.values()])
+    summed = sharding.all_reduce_grads(mesh, params, vals)
+    return dict(zip(terms, summed.unbind(0)))
+
+
 def _batch_to_device(batch: Dict[str, np.ndarray], device):
     """The ray batch in one host-to-device copy (each copy waits for the
     device to run what is queued before it)."""
@@ -218,11 +226,22 @@ def _batch_to_device(batch: Dict[str, np.ndarray], device):
     return {k: t.view(a.shape) for (k, a), t in zip(arrs.items(), parts)}
 
 
+def with_human_light(rcfg: sr.ShapeRendererConfig
+                     ) -> sr.ShapeRendererConfig:
+    """``rcfg`` with stage 1's human light on (no config key reads it)."""
+    return rcfg._replace(shading=rcfg.shading._replace(human_light=True))
+
+
 class ShapeTrainer:
     """End-to-end stage-1 training (geometry reconstruction)."""
 
-    def __init__(self, cfg: Dict[str, Any], device=None):
-        self.device = resolve_device(device)
+    def __init__(self, cfg: Dict[str, Any], device=None, mesh=None,
+                 configure=None):
+        """``configure`` (rcfg -> rcfg, e.g. with_human_light) edits the
+        renderer config before the parameters are built."""
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if mesh is not None and device is None else device)
         self.cfg = cfg
         self.init_gen = torch.Generator().manual_seed(cfg['random_seed'])
         self.gen = torch.Generator(device=self.device).manual_seed(
@@ -231,6 +250,8 @@ class ShapeTrainer:
         n0 = self.n_voxel_list.pop(0)
         grid_size = config_mod.n_to_reso(n0, cfg['aabb'])
         self.rcfg = build_shape_config(cfg, grid_size, cfg['max_levels'])
+        if configure is not None:
+            self.rcfg = configure(self.rcfg)
         params = sr.init_shape_renderer(self.init_gen, self.rcfg, self.device)
         self.occ_cfg = grid_mod.OccGridConfig(resolution=cfg['occ_grid_reso'])
         self.occ_state = grid_mod.init_occ_grid(self.occ_cfg, self.device)
@@ -243,7 +264,9 @@ class ShapeTrainer:
 
     def set_params(self, params, reset_step: int = 0):
         """Install a parameter tree (e.g. convert.params_from_jax) and a
-        fresh optimizer rebased at ``reset_step``."""
+        fresh optimizer rebased at ``reset_step``; on a mesh, rank 0's
+        tree is broadcast to every rank."""
+        sharding.replicate_tree(self.mesh, params)
         for _, t in named_leaves(params):
             t.requires_grad_(True)
         self.params = params
@@ -279,6 +302,18 @@ class ShapeTrainer:
         return sr.draw_noise(self.gen, self.rcfg, self.cfg['train_ray_num'],
                              self.device)
 
+    def shard_noise(self, noise):
+        """This rank's slice of the per-ray draws; ``occ_score`` stays the
+        global draw (the renderer takes the scores of its global slots)."""
+        if not sharding.active(self.mesh):
+            return noise
+        out = dict(noise)
+        lo, hi = sharding.shard_range(self.mesh, self.cfg['train_ray_num'])
+        for k in ('sample_jitter', 'bg_jitter'):
+            if k in out:
+                out[k] = out[k][lo:hi]
+        return out
+
     def occ_jitter(self, step: int) -> torch.Tensor:
         """Uniform [R^3, 3] draws jittering the occ-update cell centers."""
         r = self.occ_cfg.resolution
@@ -305,19 +340,24 @@ class ShapeTrainer:
                    weights: Dict[str, float], noise, radiance_on: bool,
                    occ_on: bool) -> Dict[str, torch.Tensor]:
         """Forward, backward and one Adam step; returns the detached loss
-        terms (``loss`` = their sum), psnr, std and sample_num."""
+        terms (``loss`` = their sum), psnr, std and sample_num.  On a mesh
+        the batch and noise are this rank's (shard_noise) and everything
+        returned is global."""
         self.opt.zero_grad()
         p = self.params
         mips = light_mod.build_mips(p['shading']['envlight'],
                                     self.rcfg.shading.env)
         outputs = sr.train_step_outputs(p, self.rcfg, mips, self.occ_state,
                                         batch, step, noise, radiance_on,
-                                        occ_on, alpha_mask=self.alpha_mask)
-        total, terms = losses.total_loss_shape(outputs, weights)
+                                        occ_on, alpha_mask=self.alpha_mask,
+                                        mesh=self.mesh)
+        total, terms = losses.total_loss_shape(outputs, weights, self.mesh)
         total.backward()
+        terms = all_reduce_step(self.mesh, self.opt.params,
+                                {**terms, 'loss': total})
         self.opt.step()
         aux = {'psnr': outputs['psnr'], 'std': outputs['std'],
-               'sample_num': outputs['sample_num'], **terms, 'loss': total}
+               'sample_num': outputs['sample_num'], **terms}
         return {k: v.detach() for k, v in aux.items()}
 
     # ------------------------------------------------------------------
@@ -395,6 +435,13 @@ class ShapeTrainer:
     # checkpointing
     # ------------------------------------------------------------------
     def save(self, path: str):
+        """Write the checkpoint (on a mesh: rank 0 writes, every rank
+        waits for it)."""
+        if self.mesh is None or self.mesh.is_main:
+            self._write(path)
+        sharding.barrier(self.mesh)
+
+    def _write(self, path: str):
         checkpoints.save_checkpoint(path, {
             'step': self.start_step,
             'best_para': self.best_para,
@@ -451,11 +498,14 @@ class ShapeTrainer:
             self.maybe_set_march_stride(step)
             if self.rcfg.use_occ_grid and step % self.occ_update_interval == 0:
                 self.occ_update(step, prune=step >= self.occ_warmup_steps())
-            batch = _batch_to_device(self.batcher.next_batch(), self.device)
+            batch = _batch_to_device(
+                sharding.shard_batch(self.mesh, self.batcher.next_batch()),
+                self.device)
             weights = losses.schedule_weights(self.cfg, step)
             radiance_on, occ_on = self.phase_flags(step)
             aux = self.train_step(step, batch, weights,
-                                  self.step_noise(step), radiance_on, occ_on)
+                                  self.shard_noise(self.step_noise(step)),
+                                  radiance_on, occ_on)
             if (step + 1) % log_every == 0 or step == self.start_step:
                 vals = torch.stack([v.float() for v in aux.values()])
                 host = dict(zip(aux, vals.tolist()))   # one device read
@@ -515,24 +565,28 @@ class ShapeTrainer:
                  downsample: Optional[float] = None) -> float:
         """Mean PSNR over the held-out split (ref: trainer_inv.py:217-237),
         every view by default; writes each view's diagnostic tile where
-        cv2 imports (metrics_vis.eval_and_dump)."""
-        psnrs = []
+        cv2 imports (metrics_vis.eval_and_dump).  On a mesh rank r
+        renders views r, r + size, ... and every rank gets the mean over
+        all of them (one all-reduce), so no rank waits out another's
+        renders in a collective."""
+        vids = self.test_ids if max_views is None else \
+            self.test_ids[:max_views]
+        return sharding.global_mean(self.mesh, [
+            self._view_psnr(vid, downsample)
+            for vid in sharding.rank_share(self.mesh, vids)])
+
+    def _view_psnr(self, vid, downsample) -> float:
         ds = downsample if downsample is not None else (
             self.cfg['downsample_ratio'] if self.cfg['test_downsample_ratio']
             else 1.0)
-        vids = self.test_ids if max_views is None else \
-            self.test_ids[:max_views]
-        for vid in vids:
-            gt = self.database.get_image(vid).astype(np.float32) / 255.0
-            K = np.asarray(self.database.get_K(vid), np.float32).copy()
-            pose = self.database.get_pose(vid)
-            h, w = gt.shape[:2]
-            if ds != 1.0:
-                h, w = int(h * ds), int(w * ds)
-                gt = metrics_vis.resize_linear(gt, h, w)
-                K = np.diag([ds, ds, 1.0]).astype(np.float32) @ K
-            out = self.render_image(pose, K, h, w)
-            res = metrics_vis.eval_and_dump(gt, out, self.cfg['name'],
-                                            self.start_step, vid)
-            psnrs.append(res['psnr'])
-        return float(np.mean(psnrs))
+        gt = self.database.get_image(vid).astype(np.float32) / 255.0
+        K = np.asarray(self.database.get_K(vid), np.float32).copy()
+        pose = self.database.get_pose(vid)
+        h, w = gt.shape[:2]
+        if ds != 1.0:
+            h, w = int(h * ds), int(w * ds)
+            gt = metrics_vis.resize_linear(gt, h, w)
+            K = np.diag([ds, ds, 1.0]).astype(np.float32) @ K
+        out = self.render_image(pose, K, h, w)
+        return metrics_vis.eval_and_dump(gt, out, self.cfg['name'],
+                                         self.start_step, vid)['psnr']

@@ -21,7 +21,13 @@ tensoflow_tpu/train/trainer_mat.py).
 Entry points run on the card: ``MaterialTrainer(cfg, path)`` means CUDA and
 raises when CUDA is absent; the CPU runs only with ``device='cpu'``.
 
-Not ported yet (see ROADMAP.md): the multi-device mesh.
+``mesh=`` (parallel/sharding.py) trains one rank of a data mesh: the hit
+batch is sharded; params, flow copies, the baked SDF grid and the frozen
+geometry are replicated (every rank traces the same hits in
+``init_dataset``); the shader's slot budgets come from the global ray
+count and its trace rates are global; gradients and logged terms are
+summed in one all-reduce before Adam.  Only rank 0 writes checkpoints;
+every rank validates its share of the held-out views.
 """
 from __future__ import annotations
 
@@ -31,12 +37,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel import sharding
 from ..data import database as db_mod
 from ..data import rays as rays_mod
 from ..fields import mc_shading, tenso_sdf
 from ..models import material_renderer as mr
 from . import checkpoints, losses, metrics_vis
-from .trainer import ScheduledAdam, _batch_to_device, named_leaves
+from .checkpoints import named_leaves
+from .trainer import ScheduledAdam, _batch_to_device, all_reduce_step
 
 # adaptive secondary-trace budget: the trainer re-buckets the slot budget
 # to the measured candidate rate, so that compaction cost tracks the
@@ -84,7 +92,6 @@ def build_material_config(cfg: Dict[str, Any], geo_kwargs: Dict[str, Any]
         sdf_multires=geo_kwargs.get('sdf_multires', 3),
         gather_dtype=cfg.get('gather_dtype', 'float32'),
         stencil_impl=cfg.get('stencil_impl', 'auto'))
-    tenso_sdf.stencil_route(sdf_cfg)        # an unknown value raises here
     return mr.MaterialRendererConfig(
         shader=shader, sdf=sdf_cfg,
         aabb=tuple(tuple(x) for x in geo_kwargs['aabb']),
@@ -104,8 +111,11 @@ def _clone_tree(tree):
 
 
 class MaterialTrainer:
-    def __init__(self, cfg: Dict[str, Any], geo_ckpt_path: str, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, cfg: Dict[str, Any], geo_ckpt_path: str, device=None,
+                 mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if mesh is not None and device is None else device)
         self.cfg = cfg
         self.init_gen = torch.Generator().manual_seed(cfg['random_seed'])
         self.gen = torch.Generator(device=self.device).manual_seed(
@@ -127,7 +137,9 @@ class MaterialTrainer:
 
     def set_params(self, params, reset_step: int = 0):
         """Install a parameter tree (e.g. convert.params_from_jax) and a
-        fresh optimizer rebased at ``reset_step``."""
+        fresh optimizer rebased at ``reset_step``; on a mesh, rank 0's
+        tree is broadcast to every rank."""
+        sharding.replicate_tree(self.mesh, params)
         for _, t in named_leaves(params):
             t.requires_grad_(True)
         self.params = params
@@ -230,27 +242,39 @@ class MaterialTrainer:
             self.gen, self.rcfg.shader, self.cfg['train_ray_num'], phase,
             self.device)
 
+    def shard_noise(self, noise):
+        """This rank's slice of the step's draws (each has the points'
+        axis first)."""
+        if not sharding.active(self.mesh):
+            return noise
+        lo, hi = sharding.shard_range(self.mesh, self.cfg['train_ray_num'])
+        return {k: v[lo:hi] for k, v in noise.items()}
+
     def train_step(self, step: int, batch: Dict[str, torch.Tensor],
                    weights: Dict[str, float], noise, phase
                    ) -> Dict[str, torch.Tensor]:
         """Forward, backward and one Adam step; returns the detached loss
         terms (``loss`` = their sum), psnr, variance and the trace
-        rates, all still on the device."""
+        rates, all still on the device.  On a mesh the batch and noise
+        are this rank's and everything returned is global."""
         self.opt.zero_grad()
         outputs = mr.train_step_outputs(
             self.params, self.rcfg, self.grid, batch, phase, noise, step,
             self.flow_copies.get('diffuse'),
-            self.flow_copies.get('specular'))
-        total, terms = losses.total_loss_material(outputs, weights)
+            self.flow_copies.get('specular'), mesh=self.mesh)
+        total, terms = losses.total_loss_material(outputs, weights,
+                                                  self.mesh)
         total.backward()
+        terms = all_reduce_step(self.mesh, self.opt.params,
+                                {**terms, 'loss': total})
         self.opt.step()
         aux = {'psnr': outputs['psnr'], 'variance': outputs['variance'],
-               **terms}
+               **{k: v for k, v in terms.items() if k != 'loss'}}
         for k in ('secondary_cand_rate', 'secondary_hit_rate',
                   'secondary_a1_rate'):
             if k in outputs:
                 aux[k] = outputs[k]
-        aux['loss'] = total
+        aux['loss'] = terms['loss']
         return {k: v.detach() for k, v in aux.items()}
 
     # ------------------------------------------------------------------
@@ -265,11 +289,13 @@ class MaterialTrainer:
             self.update_flow_copies(step)
             phase = self.phase(step)
             host_batch = self.batcher.next_batch()
-            batch = _batch_to_device(
-                {k: host_batch[k] for k in self.step_keys()}, self.device)
+            batch = _batch_to_device(sharding.shard_batch(
+                self.mesh, {k: host_batch[k] for k in self.step_keys()}),
+                self.device)
             weights = losses.schedule_weights(self.cfg, step)
-            aux = self.train_step(step, batch, weights,
-                                  self.step_noise(step, phase), phase)
+            aux = self.train_step(
+                step, batch, weights,
+                self.shard_noise(self.step_noise(step, phase)), phase)
             if ((step + 1) % SEC_BUDGET_INTERVAL == 0
                     and 'secondary_cand_rate' in aux):
                 # the JAX step hands its trainer the candidate and hit
@@ -385,31 +411,42 @@ class MaterialTrainer:
         """Mean PSNR over the held-out split at full resolution by default
         (ref: trainer_mat.py validate), of ``rgb_pr_nis`` with the white
         background added once the flow copies exist, else of ``rgb_pr``;
-        max_views / downsample subsample it."""
-        psnrs = []
+        max_views / downsample subsample it.  On a mesh rank r renders
+        views r, r + size, ... and every rank gets the mean over all of
+        them (one all-reduce)."""
         vids = self.test_ids if max_views is None else \
             self.test_ids[:max_views]
-        for vid in vids:
-            gt = self.database.get_image(vid).astype(np.float32) / 255.0
-            K = np.asarray(self.database.get_K(vid), np.float32).copy()
-            pose = self.database.get_pose(vid)
-            h, w = gt.shape[:2]
-            if downsample != 1.0:
-                h, w = int(h * downsample), int(w * downsample)
-                gt = metrics_vis.resize_linear(gt, h, w)
-                K = np.diag([downsample, downsample, 1.0]).astype(
-                    np.float32) @ K
-            out = self.render_image(pose, K, h, w)
-            key = 'rgb_pr_nis' if 'rgb_pr_nis' in out else 'rgb_pr'
-            pr = out[key]
-            if key == 'rgb_pr_nis':
-                pr = pr + (1.0 - out['hit_mask'])
-            mse = float(np.mean((pr - gt) ** 2))
-            psnrs.append(-10.0 * np.log10(max(mse, 1e-10)))
-        return float(np.mean(psnrs))
+        return sharding.global_mean(self.mesh, [
+            self._view_psnr(vid, downsample)
+            for vid in sharding.rank_share(self.mesh, vids)])
+
+    def _view_psnr(self, vid, downsample) -> float:
+        gt = self.database.get_image(vid).astype(np.float32) / 255.0
+        K = np.asarray(self.database.get_K(vid), np.float32).copy()
+        pose = self.database.get_pose(vid)
+        h, w = gt.shape[:2]
+        if downsample != 1.0:
+            h, w = int(h * downsample), int(w * downsample)
+            gt = metrics_vis.resize_linear(gt, h, w)
+            K = np.diag([downsample, downsample, 1.0]).astype(
+                np.float32) @ K
+        out = self.render_image(pose, K, h, w)
+        key = 'rgb_pr_nis' if 'rgb_pr_nis' in out else 'rgb_pr'
+        pr = out[key]
+        if key == 'rgb_pr_nis':
+            pr = pr + (1.0 - out['hit_mask'])
+        mse = float(np.mean((pr - gt) ** 2))
+        return float(-10.0 * np.log10(max(mse, 1e-10)))
 
     # ------------------------------------------------------------------
     def save(self, path: str):
+        """Write the checkpoint (on a mesh: rank 0 writes, every rank
+        waits for it)."""
+        if self.mesh is None or self.mesh.is_main:
+            self._write(path)
+        sharding.barrier(self.mesh)
+
+    def _write(self, path: str):
         checkpoints.save_checkpoint(path, {
             'step': self.start_step,
             'best_para': self.best_para,

@@ -4,10 +4,11 @@ blend and its 'human_light' intermediate, render_rays carrying each ray's
 pose to its samples (the compacted occupancy-grid path and the dense
 path), and a 2-step stage-1 run with the light on.
 
-The JAX trainer reads no shader_config: its run gets the light by
+Neither trainer reads shader_config: the JAX run gets the light by
 replacing its renderer config and adding the predictor's parameters; the
-port's trainer takes ``shader_config.human_light=true`` as the reference
-does.  Tolerances: single calls rtol 1e-5 / atol 2e-6 and gradients to
+port's trainer gets it by having its renderer config replaced before the
+parameters are built (``ShapeTrainer(configure=with_human_light)``).
+Tolerances: single calls rtol 1e-5 / atol 2e-6 and gradients to
 1e-4 of their largest magnitude; the training run at the tolerances of
 tests/test_torch_train_step.py.
 """
@@ -29,7 +30,7 @@ from tensoflow_tpu_torch.convert import occ_state_from_jax, params_from_jax
 from tensoflow_tpu_torch.fields import light as plight
 from tensoflow_tpu_torch.fields import shading as pshading
 from tensoflow_tpu_torch.models import shape_renderer as psr
-from tensoflow_tpu_torch.train.trainer import named_leaves
+from tensoflow_tpu_torch.train.trainer import named_leaves, with_human_light
 
 from test_torch_train_step import (CFG_PATH, OVERRIDES, _JaxDrawsTrainer,
                                    _jax_run)
@@ -37,7 +38,6 @@ from test_torch_train_step import (CFG_PATH, OVERRIDES, _JaxDrawsTrainer,
 # a sphere-like initial field (radius 0.5, no PE: the tiny widths' PE
 # init has no zero crossing), so that renders meet a surface
 SPHERE = ['sdf_multires=0', 'init_radius=0.5']
-HUMAN = ['shader_config.human_light=true']
 
 
 def _t(x, grad=False):
@@ -194,9 +194,8 @@ def _jax_trainer_with_light(extra=()):
 
 
 def _port_trainer_like(jt, extra=()):
-    cfg = pconfig.load_config(CFG_PATH,
-                              overrides=OVERRIDES + list(extra) + HUMAN)
-    pt = _JaxDrawsTrainer(cfg, jt.rng)
+    cfg = pconfig.load_config(CFG_PATH, overrides=OVERRIDES + list(extra))
+    pt = _JaxDrawsTrainer(cfg, jt.rng, configure=with_human_light)
     assert pt.rcfg.shading.human_light
     assert 'human_light' in pt.params['shading']
     pt.set_params(params_from_jax(jax.tree.map(np.asarray, jt.params)))

@@ -394,9 +394,9 @@ def test_no_not_implemented_for_options_the_jax_package_accepts():
 
 def test_stencil_impl_routes_and_unknown_raises(monkeypatch):
     """'auto' and 'pallas' reach ops/stencil.stencil_head (whose CPU
-    tensors take the plain version), 'xla' does not; an unknown value
-    raises in sdf_with_grad_hessian and when a trainer builds its
-    config."""
+    tensors take the plain version), 'xla' does not; any other value
+    takes the split route too, as in the JAX package, in
+    sdf_with_grad_hessian and when a trainer builds its config."""
     from tensoflow_tpu_torch import config as pconfig
     from tensoflow_tpu_torch.fields import tenso_sdf
     from tensoflow_tpu_torch.ops import stencil
@@ -418,29 +418,34 @@ def test_stencil_impl_routes_and_unknown_raises(monkeypatch):
         calls.clear()
         tenso_sdf.sdf_with_grad_hessian(params, cfg, xyz, aabb)
         assert len(calls) == n, impl
-    with pytest.raises(ValueError, match='stencil_impl'):
-        tenso_sdf.sdf_with_grad_hessian(
-            params, cfg._replace(stencil_impl='cuda'), xyz, aabb)
-    bad = pconfig.load_config(
+    calls.clear()
+    tenso_sdf.sdf_with_grad_hessian(
+        params, cfg._replace(stencil_impl='cuda'), xyz, aabb)
+    assert calls == []
+    other = pconfig.load_config(
         os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml'),
         overrides=SMALL_SHAPE + ['stencil_impl=fused'])
-    with pytest.raises(ValueError, match='stencil_impl'):
-        ShapeTrainer(bad, device='cpu')
+    trainer = ShapeTrainer(other, device='cpu')
+    assert tenso_sdf.stencil_route(trainer.rcfg.sdf) == 'split'
 
 
-@pytest.mark.parametrize('extra', [['shader_config.human_light=true'],
-                                   ['stencil_impl=xla']])
+@pytest.mark.parametrize('extra', [[], ['stencil_impl=xla']])
 def test_option_step_copies_only_the_batch_to_the_device(extra):
     """The rule of test_training_step_copies_only_the_batch_to_the_device
-    with the human light on (each sample's pose is gathered from the
-    batch on the device) and on the split stencil route."""
+    with the human light on (no override: the light is turned on in the
+    renderer config before the parameters are built; each sample's pose
+    is gathered from the batch on the device) and on the split stencil
+    route."""
     from torch.overrides import TorchFunctionMode
     from tensoflow_tpu_torch import config as pconfig
-    from tensoflow_tpu_torch.train.trainer import ShapeTrainer
+    from tensoflow_tpu_torch.train import trainer as trainer_mod
     cfg = pconfig.load_config(
         os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml'),
         overrides=SMALL_SHAPE + extra)
-    trainer = ShapeTrainer(cfg, device='cpu')
+    trainer = trainer_mod.ShapeTrainer(
+        cfg, device='cpu',
+        configure=None if extra else trainer_mod.with_human_light)
+    assert trainer.rcfg.shading.human_light == (not extra)
     trainer.train(n_steps=1, log_every=1)
     made = []
 

@@ -56,8 +56,8 @@ class _JaxDrawsTrainer(ShapeTrainer):
     """The port's trainer drawing its noise from a JAX key chain that
     mirrors JaxShapeTrainer.train's splits."""
 
-    def __init__(self, cfg, key):
-        super().__init__(cfg, device='cpu')
+    def __init__(self, cfg, key, configure=None):
+        super().__init__(cfg, device='cpu', configure=configure)
         self.key = key
 
     def occ_jitter(self, step):
