@@ -4,9 +4,9 @@
 
 Phases (any failure exits nonzero; no phase's failure is caught; the
 training phases (3, 5, 3b, 3c, 3d, in this order), the relight phase 3e,
-the variants phase 3f and the sharded phase 3g run before the kernel
-phases, and their profiled steps last, because running the profiler slows every later
-launch of the process):
+the variants phase 3f, the sharded phase 3g and the convergence phase 3h
+run before the kernel phases, and their profiled steps last, because
+running the profiler slows every later launch of the process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
                (one nvcc per source, started together) and print the seconds.
   2. kernels — hold the stencil-head fwd and bwd kernels to their plain
@@ -149,6 +149,16 @@ launch of the process):
                ranks on the card.  Then one NCCL rank: both steps' ms/step
                sharded beside unsharded in one process, the gradient
                buffer's bytes and its all-reduce time.
+  3h. convergence — the evidence scripts (tensoflow_tpu_torch/scripts/):
+               the float32 stencil kernels at their widths (C=16 at N=49,152,
+               B=1 and B=2; C=12 at N=24,576; H=128, O=65) against the
+               plain version in float64 at TOL; then each script's run
+               function at toy step counts with the launch counts reset
+               just before: convergence_run 40 steps (upsamples at 10 / 20,
+               two marks, Chamfer at 64^3), convergence_mat and ab_material
+               20 stage-1 + 20 stage-2 steps (NIS sampling from step 5);
+               each artifact must carry every key of the JAX artifact in
+               data/convergence/, finite values only and this card's name.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions at every shape of the gather probes
                (exact equality), timed beside the byte bound and
@@ -192,8 +202,8 @@ figures, the shape of 80 % of a published run, and their launches in
 phase 3c, the other instantiations and the launches of phase 3b, of
 phase 5's render, of phase 3d's from-disk training, of phase 3e's
 800x800 relit view, of phase 3f's human-light steps and stage-2
-variants, and of phase 3g's two ranks' sharded stage-1 steps beside
-them),
+variants, of phase 3g's two ranks' sharded stage-1 steps and of phase
+3h's evidence runs beside them),
 and as the last line
 {"ok": true, "device": {...}}.  Without CUDA, or outside the repo, it
 exits nonzero and prints no result.
@@ -269,9 +279,11 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
 # phase 2: kernels against the plain version
 # ---------------------------------------------------------------------------
 
-def head_inputs(n, S, B, cd, seed):
-    """Slice-shaped stencil-head inputs made on the card from a seed."""
+def head_inputs(n, S, B, cd, seed, widths=(C, H, O)):
+    """Slice-shaped stencil-head inputs made on the card from a seed, at
+    ``widths`` (C, H, O): the published ones by default."""
     from tensoflow_tpu_torch.ops.tensor_field import FRAC_STRIDE as FS
+    C, H, O = widths
     g = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
 
@@ -2814,6 +2826,88 @@ def phase_sharded(card, geo):
     return sharded_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: the evidence scripts at toy step counts
+# ---------------------------------------------------------------------------
+
+# (C, H, O, N, mip branches) of the scripts' stencil heads: convergence_run's
+# field (sdf_n_comp 16, sdf_dim 128, app_dim 64; 512 rays x 96 samples; two
+# branches after its first upsample) and the material scripts' stage 1
+# (sdf_n_comp 12; 512 rays x (24 + 24) samples)
+CONV_HEADS = ((16, 128, 65, 512 * 96, (1, 2)), (12, 128, 65, 512 * 48, (1,)))
+# convergence_run cut to 40 steps: upsamples at 10 / 20, the occ-grid
+# warmup, occ loss, radiance field and anneal moved inside the run
+CONV_RUN = dict(total=40, marks=(20, 40), upsample_list=(10, 20),
+                chamfer_res=64,
+                extra={'occ_warmup_steps': 8, 'occ_loss_step': 12,
+                       'radiance_field_step': 15, 'anneal_end': 20})
+# the material scripts cut to 20 + 20 steps, the flows sampling from step 5
+CONV_MAT = dict(steps=20, shape_steps=20, mat_extra={'shader_cfg': {
+    'nis_start_iter': 5, 'nis_loss_iter': 3, 'nis_update_interval': 5}})
+
+
+def phase_convergence(card):
+    """The float32 stencil kernels at the evidence scripts' widths against
+    their plain version (float64) at TOL; then the three scripts' own run
+    functions at toy step counts (convergence_run 40 steps across both
+    upsamples with a Chamfer at 64^3; convergence_mat and ab_material 20
+    stage-1 + 20 stage-2 steps, NIS sampling from step 5, no extra seed),
+    with the launch counts reset just before: every artifact must carry
+    every key of the JAX artifact in data/convergence/, finite values only
+    and this card's name.  Returns the launches of the runs and the
+    kernels' worst (fwd, bwd) error."""
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.scripts import (ab_material, convergence_mat,
+                                             convergence_run, record)
+    t_phase = time.perf_counter()
+    errs = (0.0, 0.0)
+    for c, h, o, n, branches in CONV_HEADS:
+        for b in branches:
+            e = check_inputs(
+                f'f32 S=7 B={b} N={n} C={c} H={h} O={o}',
+                head_inputs(n, 7, b, torch.float32, seed=23, widths=(c, h, o)),
+                7, torch.float32)
+            errs = (max(errs[0], e[0]), max(errs[1], e[1]))
+    out = os.path.join(_root(), 'build', 'smoke_convergence')
+    st.reset_launches()
+    runs = {
+        'blobs_convergence': convergence_run.run(
+            os.path.join(out, 'blobs_convergence.json'), **CONV_RUN),
+        'toy_material_convergence': convergence_mat.run(
+            os.path.join(out, 'toy_material_convergence.json'), **CONV_MAT),
+        'toy_material_ab': ab_material.run(
+            os.path.join(out, 'toy_material_ab.json'), seeds=(), **CONV_MAT),
+    }
+    launches = dict(st.LAUNCHES)
+    for name, got in runs.items():
+        with open(os.path.join(_root(), 'data', 'convergence',
+                               name + '.json')) as f:
+            ref = json.load(f)
+        missing = record.missing_keys(ref, got)
+        bad = record.nonfinite(got)
+        if missing or bad or got['card'] != card:
+            raise AssertionError(f'{name}: keys missing {missing}, values '
+                                 f'not finite {bad}, card {got["card"]!r}')
+        print(f'[convergence] {name}: every key of the JAX artifact, all '
+              f'values finite; wall clock by phase {got["phase_wall_s"]}',
+              flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f'the evidence runs launched {launches}')
+    blobs = runs['blobs_convergence']['chamfer']
+    mat = runs['toy_material_convergence']
+    arms = runs['toy_material_ab']['arms']
+    print(f'[convergence] convergence_run 40 steps: grids '
+          f'{[m["grid"][0] for m in blobs]}, val PSNR '
+          f'{[round(m["val_psnr"], 2) for m in blobs]}, Chamfer '
+          f'{[round(m["chamfer"], 4) for m in blobs]}; convergence_mat '
+          f'stage-1 PSNR {mat["stage1_psnr"]}, stage-2 PSNR '
+          f'{[round(r["psnr"], 2) for r in mat["trajectory"]]}; A/B val '
+          f'PSNR {[round(a["val_psnr"], 2) for a in arms.values()]}; '
+          f'stencil launches {launches}; phase '
+          f'{time.perf_counter() - t_phase:.1f} s on {card}', flush=True)
+    return launches, errs
+
+
 def sub_main(argv):
     """The subprocess entries of phase 3g."""
     import argparse
@@ -3547,6 +3641,7 @@ def main():
         card, mat_trainer, geo)
     var = phase_variants(card, geo, hier_trainer, mat_phase_ms)
     sharded_launches = phase_sharded(card, geo)
+    conv_launches, conv_errs = phase_convergence(card)
     kinds = phase_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
@@ -3576,7 +3671,8 @@ def main():
     for k in TPU_KERNELS:
         row = dict(kinds['f32', 2][k])
         row['max_abs_err'] = max(row['max_abs_err'],
-                                 hier_errs[k == 'stencil_head_bwd'])
+                                 hier_errs[k == 'stencil_head_bwd'],
+                                 conv_errs[k == 'stencil_head_bwd'])
         stencil.append({
             'name': k, 'route': 'cuda',
             'source': f'tensoflow_tpu_torch/csrc/{k}.cu',
@@ -3591,7 +3687,8 @@ def main():
                                      var['light_launches'][k],
                                  'stage2_variants':
                                      var['mat_launches'][k],
-                                 'sharded_f32': sharded_launches[k]},
+                                 'sharded_f32': sharded_launches[k],
+                                 'convergence': conv_launches[k]},
             'other_rows': {f'{t} B={b}': kinds[t, b][k]
                            for t, b in kinds if (t, b) != ('f32', 2)}})
     print(json.dumps({'kernels': stencil + [

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,9 +20,10 @@ import torch
 QUERY_CHUNK = 262144
 
 
-def sdf_query(params, rcfg, device, blend: float):
+def sdf_query(params, rcfg, device, blend: Optional[float]):
     """numpy points [N, 3] -> numpy SDF [N] of the checkpoint's field at
-    mip level ``blend``, computed on ``device`` chunk by chunk."""
+    mip level ``blend`` (None: level 0 alone, as sdf_only takes it without
+    a level), computed on ``device`` chunk by chunk."""
     from tensoflow_tpu_torch.fields import tenso_sdf
     from tensoflow_tpu_torch.models.shape_renderer import aabb_tensor
     aabb = aabb_tensor(rcfg, device)
@@ -32,7 +34,8 @@ def sdf_query(params, rcfg, device, blend: float):
         out = []
         for i in range(0, len(pts_np), QUERY_CHUNK):
             pts = torch.as_tensor(pts_np[i:i + QUERY_CHUNK], device=device)
-            lv = torch.full((pts.shape[0], 1), blend, device=device)
+            lv = None if blend is None else torch.full(
+                (pts.shape[0], 1), blend, device=device)
             out.append(tenso_sdf.sdf_only(params['sdf'], rcfg.sdf, pts, aabb,
                                           lv, packed=packed)[:, 0].cpu())
         return torch.cat(out).numpy()

@@ -10,7 +10,8 @@
     raises NotImplementedError for none of them.
   * No silent CPU: an entry point without an explicit device (both
     trainers, the microbench, the training, mesh, material-,
-    geometry-evaluation and relighting CLIs) means the card and raises
+    geometry-evaluation and relighting CLIs, the evidence scripts) means
+    the card and raises
     where CUDA is absent; eval_orb_shape and eval_orb_relight run on the
     host only and take no device.
   * The marching-tetrahedra library is built from the port's own copy of
@@ -186,6 +187,11 @@ def test_clis_without_device_need_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         relight_orb.main(['--cfg', os.path.join(
             ROOT, 'configs/mat/syn/compressor.yaml'), '--hdr', 'env.hdr'])
+    from tensoflow_tpu_torch.scripts import (ab_material, convergence_mat,
+                                             convergence_run)
+    for script in (convergence_run, convergence_mat, ab_material):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            script.main(['--out', str(tmp_path / 'artifact.json')])
     # the Chamfer and relight-metric CLIs are host numpy / scipy: no
     # device to fall back from
     for name in ('eval_orb_shape.py', 'eval_orb_relight.py'):

@@ -316,6 +316,17 @@ def test_three_step_loss_trace_crosses_the_three_phases(runs):
         assert not t.requires_grad and id(t) not in opt_ids
 
 
+def test_estimator_variance_matches_jax_in_each_nis_phase(runs):
+    """The MC estimator's variance, the metric of the NIS A/B
+    (tensoflow_tpu_torch/scripts/ab_material.py), in each of the three
+    phases, the step that samples from the frozen flow copies included."""
+    for step, ((jt, _, _), pl) in enumerate(zip(runs['jruns'],
+                                                runs['plogs'])):
+        np.testing.assert_allclose(pl['variance'], jt['variance'],
+                                   rtol=2e-3, atol=1e-7,
+                                   err_msg=f'step {step}')
+
+
 def test_material_checkpoint_resume_flow_semantics(runs, tmp_path):
     """Resume as the reference has it: flow params restart from a fresh
     init (with zero moments) and the frozen copies are cleared;
