@@ -13,11 +13,15 @@ config, seed and data, differing in exactly one switch:
 
 The whole run (stage 1 and the three arms) is made at the config's
 ``random_seed`` (6033), then again at each of ``--seeds`` (6034 and 6035 by
-default), recorded under ``seeds`` as evidence of the spread.
+default), recorded under ``seeds`` as evidence of the spread. With
+``--no-config-seed`` only ``--seeds`` run: each seed's entry then carries
+its own ``card`` and ``git_commit``, and an existing ``--out`` keeps the
+seeds it holds (the ten-seed NIS record,
+toy_material_ab_seeds_h100.json, is gathered so, one seed a call).
 
     python -m tensoflow_tpu_torch.scripts.ab_material [--steps N] \\
-        [--shape-steps N] [--seeds S ...] [--out PATH] [--device cpu] \\
-        [--git-commit SHA]
+        [--shape-steps N] [--seeds S ...] [--no-config-seed] [--out PATH] \\
+        [--device cpu] [--git-commit SHA]
 
 It runs on the card; ``--device cpu`` runs the plain PyTorch path.
 tests/test_torch_convergence_artifact.py holds the committed artifact
@@ -27,6 +31,7 @@ tests/test_torch_convergence_artifact.py holds the committed artifact
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import tempfile
 import time
@@ -40,6 +45,7 @@ from tensoflow_tpu_torch.scripts import record as rec
 
 OUT = os.path.join(rec.ROOT, 'tensoflow_tpu_torch', 'assets', 'convergence',
                    'toy_material_ab_h100.json')
+SEEDS_OUT = os.path.join(os.path.dirname(OUT), 'toy_material_ab_seeds_h100.json')
 ARMS = (('budgeted_nis', True, True),
         ('budgeted_nis_off', False, True),
         ('dense_nis', True, False))
@@ -136,28 +142,39 @@ def run(out: str = OUT, steps: int = 1500, shape_steps: int = 500,
         seeds: Sequence[int] = SEEDS, device=None,
         shape_extra: Optional[Dict[str, Any]] = None,
         mat_extra: Optional[Dict[str, Any]] = None,
-        commit: Optional[str] = None) -> Dict[str, Any]:
-    """The three arms at the config's seed, then at each of ``seeds``; the
-    JSON is written after each seed."""
+        commit: Optional[str] = None,
+        config_seed: bool = True) -> Dict[str, Any]:
+    """The three arms at the config's seed (unless ``config_seed`` is
+    False), then at each of ``seeds``; the JSON is written after each
+    seed."""
     from tensoflow_tpu_torch import resolve_device
     device = resolve_device(device)
-    card = rec.card_name(device)
-    main_seed = cm.shape_config(extra=shape_extra)['random_seed']
-    res = run_seed(None, steps, shape_steps, device, shape_extra, mat_extra)
-    record = {
+    info = {'card': rec.card_name(device), 'device': str(device),
+            'git_commit': commit if commit else rec.git_commit()}
+    head = {
         'generated': 'python -m tensoflow_tpu_torch.scripts.ab_material',
         'database': f'{cm.DATABASE} (procedural, hermetic)',
         'mat_steps': steps,
-        'random_seed': main_seed,
-        **res,
-        'card': card, 'device': str(device),
-        'git_commit': commit if commit else rec.git_commit(),
-        'seeds': {},
     }
-    rec.write_json(out, record)
+    if config_seed:
+        record = {**head,
+                  'random_seed': cm.shape_config(
+                      extra=shape_extra)['random_seed'],
+                  **run_seed(None, steps, shape_steps, device, shape_extra,
+                             mat_extra),
+                  **info, 'seeds': {}}
+        rec.write_json(out, record)
+    elif os.path.exists(out):
+        with open(out) as f:
+            record = json.load(f)
+        assert record['mat_steps'] == steps, (out, record['mat_steps'])
+    else:
+        record = {**head, 'seeds': {}}
     for seed in seeds:
-        record['seeds'][str(seed)] = run_seed(seed, steps, shape_steps,
-                                              device, shape_extra, mat_extra)
+        res = run_seed(seed, steps, shape_steps, device, shape_extra,
+                       mat_extra)
+        # a record without the config's run says per seed where each ran
+        record['seeds'][str(seed)] = res if config_seed else {**res, **info}
         rec.write_json(out, record)
     print(f'wrote {out}', flush=True)
     return record
@@ -170,15 +187,23 @@ def main(argv=None):
     ap.add_argument('--seeds', type=int, nargs='*', default=list(SEEDS),
                     help='the seeds run after the config\'s own, recorded '
                          'under "seeds"')
-    ap.add_argument('--out', type=str, default=OUT)
+    ap.add_argument('--no-config-seed', dest='config_seed',
+                    action='store_false',
+                    help="run --seeds only, not the config's own seed")
+    ap.add_argument('--out', type=str, default=None,
+                    help='default: toy_material_ab_h100.json, or '
+                         'toy_material_ab_seeds_h100.json with '
+                         '--no-config-seed')
     ap.add_argument('--device', type=str, default=None,
                     help="'cpu' for the plain path (default: the card)")
     ap.add_argument('--git-commit', type=str, default=None,
                     help='the commit recorded in the artifact (default: '
                          "the checkout's HEAD)")
     args = ap.parse_args(argv)
-    return run(args.out, args.steps, args.shape_steps, args.seeds,
-               device=args.device, commit=args.git_commit)
+    out = args.out or (OUT if args.config_seed else SEEDS_OUT)
+    return run(out, args.steps, args.shape_steps, args.seeds,
+               device=args.device, commit=args.git_commit,
+               config_seed=args.config_seed)
 
 
 if __name__ == '__main__':

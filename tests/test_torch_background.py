@@ -30,6 +30,10 @@ from tensoflow_tpu_torch.train.trainer import named_leaves
 from test_torch_hierarchical import (_jax_leaves, compare_logs, jax_train,
                                      trainer_pair)
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHOE = os.path.join(ROOT, 'configs/shape/custom/shoe.yaml')
 

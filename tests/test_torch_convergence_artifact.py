@@ -12,7 +12,10 @@ at the JAX scripts' defaults) to
     PSNR of its last 5 logs within 3 dB; each A/B arm's val PSNR within
     2 dB;
   * the run's record: every key of the JAX artifact, the card (an NVIDIA
-    card), the JAX scripts' step counts and seeds.
+    card), the JAX scripts' step counts and seeds;
+  * the NIS A/B over ten seeds a side (6033-6042): the port's ratio of the
+    two arms' tail variances against the JAX script's, by a two-sided
+    Mann-Whitney U test of log r at alpha 0.05.
 
 Reads only JSON: no training runs here.
 """
@@ -30,6 +33,8 @@ JAX_DIR = os.path.join(ROOT, 'data', 'convergence')
 ART = os.path.join(ART_DIR, 'blobs_convergence_h100.json')
 MAT_ART = os.path.join(ART_DIR, 'toy_material_convergence_h100.json')
 AB_ART = os.path.join(ART_DIR, 'toy_material_ab_h100.json')
+AB_SEEDS_ART = os.path.join(ART_DIR, 'toy_material_ab_seeds_h100.json')
+TEN_SEEDS = list(range(6033, 6043))
 # port artifact -> the JAX artifact it answers
 JAX_OF = {ART: 'blobs_convergence.json',
           MAT_ART: 'toy_material_convergence.json',
@@ -169,6 +174,79 @@ def test_material_ab_nis_and_budget_bounds(bound):
     bound(t)
 
 
+def _jax_seed_files():
+    """{seed: path} of the JAX A/B script's runs on the CPU
+    (tests/jax_ab_seed.py), as committed."""
+    pre, suf = 'toy_material_ab_jax_cpu_seed', '.json'
+    return {int(n[len(pre):-len(suf)]): os.path.join(ART_DIR, n)
+            for n in os.listdir(ART_DIR)
+            if n.startswith(pre) and n.endswith(suf)}
+
+
+def _ten_seed_runs():
+    """The A/B runs at TEN_SEEDS, each side: the port's 6033 arms and
+    6034-6035 (toy_material_ab_h100.json), the rest on the card
+    (toy_material_ab_seeds_h100.json); JAX's 6033 (its CPU artifact) and
+    the JAX script's runs at the rest."""
+    ab = _load(AB_ART)
+    port = {ab['random_seed']: ab,
+            **{int(s): r for s, r in ab['seeds'].items()},
+            **{int(s): r for s, r in _load(AB_SEEDS_ART)['seeds'].items()}}
+    jax = {6033: _jax(AB_ART),
+           **{s: _load(p) for s, p in _jax_seed_files().items()}}
+    return port, jax
+
+
+def _nis_ratio(run):
+    return (_tail_mean(run, 'budgeted_nis', 'variance')
+            / _tail_mean(run, 'budgeted_nis_off', 'variance'))
+
+
+def _ten_seeds_each_side():
+    port, jax = _ten_seed_runs()
+    assert sorted(port) == TEN_SEEDS and sorted(jax) == TEN_SEEDS
+    assert sorted(_jax_seed_files()) == TEN_SEEDS[1:]
+    t = _load(AB_SEEDS_ART)
+    assert sorted(t['seeds']) == [str(s) for s in TEN_SEEDS[3:]]
+    assert t['mat_steps'] == 1500
+    want = {k: _jax(AB_ART)[k] for k in ('arms', 'material_map_mean_abs_delta')}
+    for seed, run in t['seeds'].items():
+        assert not record.missing_keys(want, run), seed
+        assert run['card'].startswith('NVIDIA H100') and \
+            run['card'].endswith(' W'), (seed, run['card'])
+        assert run['device'].startswith('cuda') and run['git_commit'], seed
+        assert all(v > 0 for v in run['phase_wall_s'].values()), seed
+    for seed, run in jax.items():
+        assert run['mat_steps'] == 1500, seed
+        assert run['arms'].keys() == want['arms'].keys(), seed
+
+
+def _ratio_distributions_agree():
+    from scipy.stats import mannwhitneyu
+    from tensoflow_tpu_torch.scripts import summary
+    port, jax = _ten_seed_runs()
+    lp = np.log([_nis_ratio(port[s]) for s in TEN_SEEDS])
+    lj = np.log([_nis_ratio(jax[s]) for s in TEN_SEEDS])
+    assert np.isfinite(lp).all() and np.isfinite(lj).all()
+    p = mannwhitneyu(lp, lj, alternative='two-sided').pvalue
+    # the figure scripts/summary.py prints, and PERF.md states
+    assert summary.nis_decision(np.exp(lp), np.exp(lj))['p'] == \
+        pytest.approx(p, rel=1e-12)
+    assert p >= 0.05, (p, np.exp(lp), np.exp(lj))
+
+
+@pytest.mark.parametrize('check', [_ten_seeds_each_side,
+                                   _ratio_distributions_agree],
+                         ids=['ten_seeds', 'mann_whitney'])
+def test_nis_ratio_distribution_against_jax(check):
+    """The NIS A/B's ratio r (the NIS arm's tail variance over the arm
+    without NIS, logged steps >= 600) at the ten seeds 6033-6042 on each
+    side, recomputed from the committed files: the port's (on the card)
+    and the JAX script's (on a CPU) are not told apart by a two-sided
+    Mann-Whitney U test of log r at alpha 0.05."""
+    check()
+
+
 def _band_blobs(t, j):
     val, ref = t['chamfer'][-1], j['chamfer'][-1]
     assert abs(val['val_psnr'] - ref['val_psnr']) <= 2.0, (val, ref)
@@ -240,7 +318,8 @@ def test_artifact_records_the_run(path, defaults):
 def test_summary_reads_every_artifact(capsys):
     """python -m tensoflow_tpu_torch.scripts.summary, which PERF.md's
     figures of these runs come from, reads the port's and the JAX
-    artifacts and the JAX A/B runs at seeds 6034 / 6035."""
+    artifacts, the A/B runs at seeds 6034-6042 on both sides, and prints
+    the ten ratios a side with the Mann-Whitney p and its interval."""
     from tensoflow_tpu_torch.scripts import summary
     summary.main([])
     out = capsys.readouterr().out
@@ -250,6 +329,18 @@ def test_summary_reads_every_artifact(capsys):
         assert f'{name} (JAX CPU artifact;' in out
     for seed in ('6033', '6034', '6035'):
         assert f'seed {seed}: val PSNR' in out
-    for seed in ('6034', '6035'):
+    for seed in map(str, TEN_SEEDS[1:]):
         assert f'toy_material_ab (JAX CPU run, seed {seed};' in out
+    for seed in map(str, TEN_SEEDS[3:]):
+        assert f'seed {seed}: val PSNR' in out
+    assert 'toy_material_ab (port, seeds; NVIDIA H100' in out
+    port, jax = _ten_seed_runs()
+    for side, runs in (('port', port), ('jax', jax)):
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith(f'  {side}: 6033 '))
+        for seed in TEN_SEEDS:
+            assert f'{seed} {_nis_ratio(runs[seed]):.3f}' in line, \
+                (side, seed)
+    assert 'Mann-Whitney U of log r, two-sided: p = ' in out
+    assert '95 % bootstrap interval [' in out
     assert '3,600 steps: ' in out and 'rays/s' in out

@@ -36,6 +36,10 @@ from tensoflow_tpu_torch.scripts import (ab_material, convergence_mat,
 from tensoflow_tpu_torch.train.trainer import ShapeTrainer
 from tensoflow_tpu_torch.train.trainer_mat import build_material_config
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -228,3 +232,32 @@ def test_scripts_run_end_to_end_at_toy_size(name, tmp_path, monkeypatch):
     elif name == 'toy_material_ab':
         assert list(got['seeds']) == ['7']
         assert got['seeds']['7']['arms'].keys() == got['arms'].keys()
+
+
+def test_ab_material_seeds_only_runs_add_to_their_record(tmp_path,
+                                                         monkeypatch):
+    """ab_material --no-config-seed, one seed a call as the ten-seed NIS
+    record is gathered: the config's own seed does not run, each call adds
+    its seed to the record at --out, and each seed's entry says where it
+    ran."""
+    monkeypatch.chdir(tmp_path)
+    out = str(tmp_path / 'seeds.json')
+    for seed in (7, 8):
+        ab_material.run(out, steps=4, shape_steps=2, seeds=(seed,),
+                        device='cpu', shape_extra=TOY_MAT_SHAPE,
+                        mat_extra=TOY_MAT, commit='abc', config_seed=False)
+    with open(out) as f:
+        got = json.load(f)
+    assert 'arms' not in got and 'random_seed' not in got
+    assert got['mat_steps'] == 4 and list(got['seeds']) == ['7', '8']
+    with open(os.path.join(ROOT, 'data', 'convergence',
+                           'toy_material_ab.json')) as f:
+        ref = json.load(f)
+    want = {k: ref[k] for k in ('arms', 'material_map_mean_abs_delta')}
+    for seed, run in got['seeds'].items():
+        assert record.missing_keys(want, run) == [], seed
+        assert record.nonfinite(run) == [], seed
+        assert (run['card'], run['device'], run['git_commit']) == \
+            (None, 'cpu', 'abc'), seed
+        assert run['phase_wall_s'] and run['launches'], seed
+    assert got['seeds']['7']['arms'] != got['seeds']['8']['arms']

@@ -32,6 +32,10 @@ from tensoflow_tpu_torch.ops import mesh as pmesh
 from tensoflow_tpu_torch.train import metrics_vis as pvis
 from tensoflow_tpu_torch.train.trainer import EVAL_KEYS, ShapeTrainer
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_PATH = os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml')
 RENDER = [

@@ -29,6 +29,10 @@ from tensoflow_tpu_torch.ops import mesh as pmesh
 from tensoflow_tpu_torch.train.trainer import ShapeTrainer
 from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import eval_orb_relight as jeval_orb_relight  # noqa: E402

@@ -23,6 +23,10 @@ from tensoflow_tpu_torch.ops import brdf as pbrdf
 from tensoflow_tpu_torch.ops import samplers as psamp
 from tensoflow_tpu_torch.ops import tensor_field as ptf
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 AABB = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
 JCFG = jflow.FlowConfig(grid_size=(16, 16, 16))

@@ -19,6 +19,10 @@ from tensoflow_tpu.fields import flow as jflow
 from tensoflow_tpu_torch.convert import params_from_jax
 from tensoflow_tpu_torch.fields import flow as pflow
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-5
 AABB = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
 FLOW_TYPES = ('pwquad', 'pwlinear', 'realnvp')

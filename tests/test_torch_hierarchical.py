@@ -51,6 +51,10 @@ from tensoflow_tpu_torch.train import checkpoints as pckpt
 from tensoflow_tpu_torch.train import trainer as ptrainer
 from tensoflow_tpu_torch.train.trainer import EVAL_KEYS, named_leaves
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_PATH = os.path.join(ROOT, 'configs/shape/syn/compressor.yaml')
 SMALL = ['database_name=toy/sphere_32_4', 'sdf_n_comp=4', 'sdf_dim=32',

@@ -35,6 +35,10 @@ from tensoflow_tpu_torch.train.trainer import named_leaves, with_human_light
 from test_torch_train_step import (CFG_PATH, OVERRIDES, _JaxDrawsTrainer,
                                    _jax_run)
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 # a sphere-like initial field (radius 0.5, no PE: the tiny widths' PE
 # init has no zero crossing), so that renders meet a surface
 SPHERE = ['sdf_multires=0', 'init_radius=0.5']

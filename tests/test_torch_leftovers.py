@@ -24,6 +24,10 @@ from tensoflow_tpu_torch import run_colmap
 from tensoflow_tpu_torch.fields import shading as pshading
 from tensoflow_tpu_torch.models import secondary as psecondary
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

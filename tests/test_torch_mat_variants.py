@@ -25,6 +25,10 @@ from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
 
 from test_torch_port_rules import SMALL_MAT, _small_geo_checkpoint
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 SCHED = dict(nis_start_iter=2, nis_update_interval=3, nis_loss_iter=1,
              grid_size=(8, 8, 8), mat_n_comp=2, diffuse_sample_num=8,
              specular_sample_num=4, light_reso=8)

@@ -20,6 +20,10 @@ from tensoflow_tpu.ops import samplers as jsamp
 from tensoflow_tpu_torch.ops import math as pm
 from tensoflow_tpu_torch.ops import samplers as psamp
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 AABB = np.array([[-1.0, -0.5, -2.0], [1.0, 1.5, 2.0]], np.float32)
 
 

@@ -23,6 +23,10 @@ from tensoflow_tpu_torch.convert import (packed_sdf_grid_from_jax,
                                          params_from_jax, sdf_grid_from_jax)
 from tensoflow_tpu_torch.fields import mc_shading as pmc
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 LOBE_CENTERS = np.asarray([[-0.3, 0.0, 0.0], [0.3, 0.0, 0.0]], np.float32)
 LOBE_RADIUS = 0.45
 RES = 32

@@ -36,6 +36,10 @@ from tensoflow_tpu_torch.ops import math as pmath
 from tensoflow_tpu_torch.ops import tensor_field as ptf
 from tensoflow_tpu_torch.train import losses as plosses
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

@@ -46,6 +46,10 @@ from tensoflow_tpu_torch.convert import (packed_sdf_grid_from_jax,
 from tensoflow_tpu_torch.fields import mc_shading as pmc
 from tensoflow_tpu_torch.ops import math as pmath
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 SMALL = dict(diffuse_sample_num=16, specular_sample_num=8,
              nis_diffuse_sample_num=4, nis_specular_sample_num=4,
              grid_size=(16, 16, 16), light_reso=8, mat_n_comp=4,

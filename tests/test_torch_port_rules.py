@@ -37,6 +37,10 @@ import sys
 import pytest
 import torch
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'tensoflow_tpu_torch')
 BANNED = ('jax', 'jaxlib', 'optax', 'tensoflow_tpu')

@@ -18,6 +18,10 @@ from tensoflow_tpu_torch.fields import mc_shading
 from tensoflow_tpu_torch.ops.math import safe_normalize
 from tensoflow_tpu_torch.ops.samplers import direction_to_angle
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 FIX = os.path.join(os.path.dirname(__file__), 'fixtures',
                    'ref_renderer.npz')
 NIS_FIX = os.path.join(os.path.dirname(__file__), 'fixtures',

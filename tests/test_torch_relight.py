@@ -35,6 +35,10 @@ from tensoflow_tpu_torch.fields import mc_shading as pmc
 from tensoflow_tpu_torch.ops import cubemap as pcm
 from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 CUBE_TOL = 1e-6
 COLOUR_TOL = 1e-4
 VIS_FLIPS = 1

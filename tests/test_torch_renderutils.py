@@ -19,6 +19,10 @@ from tensoflow_tpu_torch.models import secondary
 from tensoflow_tpu_torch.ops import math as math_mod
 from tensoflow_tpu_torch.ops import renderutils_compat as pru
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 FIX = os.path.join(os.path.dirname(__file__), 'fixtures', 'ref_oracles.npz')
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -30,6 +30,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if __name__ == '__main__':
     sys.path.insert(0, ROOT)

@@ -15,6 +15,10 @@ import torch
 from tensoflow_tpu.ops import pallas_stencil as ps
 from tensoflow_tpu_torch.ops import stencil as pst
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-6, 2e-6
 
 

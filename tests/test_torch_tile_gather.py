@@ -13,6 +13,10 @@ import torch
 from tensoflow_tpu_torch.bench import microbench_r3
 from tensoflow_tpu_torch.ops import tile_gather as tg
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 CASES = microbench_r3.gather_cases(small=True)
 
 

@@ -37,6 +37,10 @@ from tensoflow_tpu_torch.train import checkpoints as pckpt
 from tensoflow_tpu_torch.train.trainer import ShapeTrainer, named_leaves
 from tensoflow_tpu_torch.train.trainer_mat import MaterialTrainer
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 GEO = {'name': 'parity_geo', 'database_name': 'toy/sphere_32_4',
        'dataset_dir': 'unused', 'nerfDataType': True, 'train_ray_num': 64,
        'sdf_n_comp': 4, 'sdf_dim': 32, 'app_dim': 16,

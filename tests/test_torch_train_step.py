@@ -29,6 +29,10 @@ from tensoflow_tpu_torch import config as pconfig
 from tensoflow_tpu_torch.convert import occ_state_from_jax, params_from_jax
 from tensoflow_tpu_torch.train.trainer import ShapeTrainer, named_leaves
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 OVERRIDES = [
     'database_name=toy/sphere_32_4', 'sdf_n_comp=4', 'sdf_dim=32',
     'app_dim=16', 'N_voxel_init=4096', 'N_voxel_final=4096',

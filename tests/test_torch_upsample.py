@@ -39,6 +39,10 @@ from tensoflow_tpu_torch.fields import tenso_sdf as psdf
 from tensoflow_tpu_torch.ops import tensor_field as ptf
 from tensoflow_tpu_torch.train.trainer import ShapeTrainer, named_leaves
 
+# one intra-op thread: the suite runs six workers on the CPU, and
+# more threads each oversubscribe the cores and stall in their barriers
+torch.set_num_threads(1)
+
 AABB = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
 CFG_PATH = 'configs/shape/syn/compressor_occ.yaml'
 
