@@ -160,9 +160,12 @@ running the profiler slows every later launch of the process):
                each artifact must carry every key of the JAX artifact in
                data/convergence/, finite values only and this card's name.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
-               their plain versions at every shape of the gather probes
-               (exact equality), timed beside the byte bound and
-               torch.index_select / torch.gather; then the microbench entry
+               their plain versions and torch.index_select / torch.gather
+               at every shape of the gather probes and at the ragged
+               shapes of microbench_r3.ragged_gather_cases (exact
+               equality); at the probe shapes timed beside the byte bound,
+               the library call and the launch floor (a one-element fill_
+               in the same profiled window); then the microbench entry
                point tensoflow_tpu_torch.bench.microbench_r3 in-process,
                with the launch counts reset just before.
   5. stage 2 — small: one stage-2 step of a small float32 configuration
@@ -212,6 +215,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -259,6 +263,18 @@ def card_line() -> str:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(lines):
+    """Each kernel's registers, shared memory and spills from nvcc's
+    -Xptxas -v output, under the kernel's mangled entry name."""
+    kernel = None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        elif kernel and ('registers' in line or 'spill' in line):
+            yield f'{kernel}: {line.split(":", 1)[-1].strip()}'
 
 
 def cuda_ms(fn, iters=10, warmup=2) -> float:
@@ -2933,11 +2949,13 @@ def sub_main(argv):
 # ---------------------------------------------------------------------------
 
 def phase_probes(card):
-    """Each gather kernel against its plain version at every probe shape
-    (exact equality: a gather copies bits), its device time, the plain
-    version's and the one-call library version's time, and the byte bound
-    (table + indices read once, output written once); then the microbench
-    entry point, whose launches are the ones counted."""
+    """Each gather kernel against its plain version and the one-call
+    library version at every probe shape and at the ragged shapes (exact
+    equality: a gather copies bits); at the probe shapes its device time,
+    the plain and library versions' times, the byte bound (table + indices
+    read once, output written once) and the launch floor (the device time
+    of a one-element fill_, read in the same profiled window); then the
+    microbench entry point, whose launches are the ones counted."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from tensoflow_tpu_torch.bench import microbench_r3
@@ -2945,7 +2963,10 @@ def phase_probes(card):
     dev = torch.device('cuda')
     rng = np.random.RandomState(0)
     rows = {}
-    for case in microbench_r3.gather_cases():
+    probes = microbench_r3.gather_cases()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    one = torch.zeros(1, device=dev)
+    for i, case in enumerate(probes + microbench_r3.ragged_gather_cases()):
         name, fn, plain = case[:3]
         table, idx = microbench_r3.make_case(case, rng, dev)
         lane = name.startswith('lane_gather')
@@ -2962,6 +2983,14 @@ def phase_probes(card):
         if not torch.equal(got, library()):
             raise AssertionError(f'{name}: plain version differs from the '
                                  'library call')
+        geometry = (tg.lane_gather_geometry(*table.shape) if lane else
+                    tg.row_gather_geometry(idx.shape[0], table.shape[1]
+                                           * table.element_size(), n_sm))
+        if i >= len(probes):
+            print(f'[probes] {name}: exact (geometry {geometry})',
+                  flush=True)
+            del got, table, idx, idx64
+            continue
         nbytes = (table.numel() * table.element_size() + idx.numel() * 4
                   + got.numel() * got.element_size())
         del got
@@ -2977,18 +3006,21 @@ def phase_probes(card):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn(table, idx)
+                one.fill_(1.0)
             torch.cuda.synchronize()
         dev_ms = _device_ms(prof, ['row_gather_kernel', 'lane_gather_kernel'],
                             iters)
+        floor = _device_ms(prof, ['FillFunctor'], iters)
         k_ms = dev_ms if dev_ms > 0 else t['kernel']
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f'[probes] {name}: exact; kernel {k_ms:.4f} ms (wrapper '
-              f'{t["kernel"]:.4f}), plain {t["plain"]:.4f} ms, library '
-              f'{t["library"]:.4f} ms, bound {bound:.5f} ms '
-              f'({nbytes / 1e6:.2f} MB) on {card}', flush=True)
+        print(f'[probes] {name}: exact; kernel {k_ms:.5f} ms (wrapper '
+              f'{t["kernel"]:.4f}), launch floor {floor:.5f} ms, bound '
+              f'{bound:.5f} ms ({nbytes / 1e6:.2f} MB), plain '
+              f'{t["plain"]:.4f} ms, library {t["library"]:.4f} ms; '
+              f'geometry {geometry} on {card}', flush=True)
         rows[name] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=t['plain'],
                           bound_ms=bound, bound_by='bytes',
-                          library_ms=t['library'])
+                          library_ms=t['library'], floor_ms=floor)
         del table, idx, idx64
     # the entry point a user would call; its launches are the counted ones
     tg.reset_launches()
@@ -3621,9 +3653,8 @@ def main():
         if not os.path.exists(log):      # built by an earlier run
             continue
         with open(log, errors='replace') as f:
-            for line in f:
-                if 'registers' in line or 'spill' in line:
-                    print(f'[build] {name}: {line.strip()}')
+            for line in ptxas_report(f):
+                print(f'[build] {name}: {line}')
     # the training phases come first and their profiled steps last: once a
     # torch.profiler session has run in a process, every later kernel
     # launch of that process costs the host several microseconds more

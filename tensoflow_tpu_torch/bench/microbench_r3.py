@@ -4,8 +4,10 @@
     python -m tensoflow_tpu_torch.bench.microbench_r3            # the card
     python -m tensoflow_tpu_torch.bench.microbench_r3 --device cpu --small
 
-  1. gathers from a tile staged in shared memory (ops/tile_gather.py, the
-     four hand-written kernels): row gather in one tile at three widths,
+  1. the gathers of the Pallas probes (ops/tile_gather.py, the four
+     hand-written kernels: the row gather reads the L2-resident table in
+     512-byte chunks a warp over every SM, the lane gather stages one row
+     a block in shared memory): row gather in one tile at three widths,
      the gridded row gather (512 tiles x [256, 1280]), the lane gather at
      two widths, the bfloat16 row gather.  Each is checked against its
      plain version (exact equality: a gather copies bits) and timed.
@@ -79,6 +81,39 @@ def gather_cases(small: bool = False):
     return cases
 
 
+def ragged_gather_cases():
+    """Cases in the same form at shapes the probes do not run: 16-byte
+    rows, rows that are not a multiple of 512 bytes (and, for the lane
+    gather, not of 16), row counts that are a multiple of no block's rows,
+    tables of more rows (up to 1,000) than 227 KB of shared memory holds
+    at 512 bytes a row (454), and all-repeated indices (index range 1:
+    every row is row 0)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    row, grid, lane, row16 = (tg.row_gather_tile, tg.row_gather_grid,
+                              tg.lane_gather_tile, tg.row_gather_tile_bf16)
+    rp, lp = tg.row_gather_plain, tg.lane_gather_plain
+    return [
+        ('row_gather_tile 16B rows', row, rp, (256, 4), f32, (257, 1), 256),
+        ('row_gather_tile [1000,100]', row, rp, (1000, 100), f32, (777, 1),
+         1000),
+        ('row_gather_tile repeated', row, rp, (256, 1280), f32, (256, 1), 1),
+        ('row_gather_grid [600,1288]', grid, rp, (600, 1288), f32,
+         (4099, 1), 600),
+        ('row_gather_tile_bf16 [517,40]', row16, rp, (517, 40), bf16,
+         (333, 1), 517),
+        ('row_gather_tile_bf16 16B rows', row16, rp, (100, 8), bf16,
+         (61, 1), 100),
+        ('lane_gather_tile 16B rows', lane, lp, (256, 4), f32, (256, 4), 4),
+        ('lane_gather_tile [257,100]', lane, lp, (257, 100), f32,
+         (257, 100), 100),
+        ('lane_gather_tile [33,37]', lane, lp, (33, 37), f32, (33, 37), 37),
+        ('lane_gather_tile [600,1100]', lane, lp, (600, 1100), f32,
+         (600, 1100), 1100),
+        ('lane_gather_tile repeated', lane, lp, (256, 512), f32, (256, 512),
+         1),
+    ]
+
+
 def make_case(case, rng, device):
     _, _, _, tshape, dtype, ishape, hi = case
     table = torch.as_tensor(rng.randn(*tshape).astype(np.float32)).to(
@@ -89,7 +124,7 @@ def make_case(case, rng, device):
 
 
 def section_gathers(device, rng, small, out):
-    print('== gathers from a tile in shared memory ==', flush=True)
+    print('== gathers of the Pallas probes ==', flush=True)
     for case in gather_cases(small):
         name, fn, plain = case[:3]
         table, idx = make_case(case, rng, device)

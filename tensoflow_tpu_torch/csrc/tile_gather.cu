@@ -1,122 +1,152 @@
-// Gathers from a tile staged in shared memory.
+// Row and lane gathers: the card's counterparts of the four Pallas probes
+// of scripts/microbench_r3.py.
 //
-// Replaces the four Pallas probes of scripts/microbench_r3.py (kern :68,
-// kern_g :98, kern2 :126, kern3 :155), which asked whether a gather can run
-// INSIDE a kernel on a tile that sits in fast memory, as groundwork for
-// moving the stencil head's row gather into the head.  The counterpart on
-// this card stages the table (or a column slab of it) in shared memory and
-// gathers from there.
+//    kernel              probe (microbench_r3.py)
+//    row_gather_kernel   kern :68 (f32 row gather in one tile), kern_g :98
+//                        (the same over many tiles), kern3 :155 (bf16)
+//    lane_gather_kernel  kern2 :126 (f32 lane gather)
 //
-// Bound: bytes only (a gather does no arithmetic): table + indices read
-// once, output written once, over the HBM rate.
+// The probes asked whether a gather can run INSIDE a kernel on a tile that
+// sits in the TPU's VMEM.  On this card the tile needs no staging: the
+// H100's 50 MB L2 holds the probes' 1.31 MB table and serves every
+// repeated row.
 //
-//  * tile_row_gather: out[r, :] = table[idx[r], :].  A gather copies bits,
-//    so the kernel is blind to the element type and moves 16-byte words:
-//    the same code serves the float32 and the bfloat16 probe.  A
-//    [256, 1280] float32 table (1.31 MB) does not fit a block's 227 KB of
-//    shared memory, so the table is cut into column slabs of 512 bytes a
-//    row ([256, 512 B] = 128 KB), one slab per block.  The grid is
-//    (slabs, row groups); a block loads its slab ONCE and then walks all
-//    the rows of its group, one warp per output row: lane l copies the
-//    16-byte word l of slab row idx[r], so a warp reads 512 contiguous
-//    bytes of shared memory (no bank conflict) and writes 512 contiguous
-//    bytes of the output.  Indices are not checked (the probes' are in
-//    range; the plain version raises on one that is not).
-//  * tile_lane_gather: out[r, c] = table[r, idx[r, c]] on 4-byte words.
-//    One warp per table row: the row goes to shared memory, idx[r, :] is
-//    read coalesced, and each lane reads row_s[idx] (bank conflicts on
-//    random indices are the expected cost).
+// Bound.  Bytes: table + indices read once, output written once, over the
+// HBM rate (a gather does no arithmetic).  A single 256-row tile moves
+// 0.26-2.6 MB: about what the card must keep in flight to reach its rate
+// at all (3.35 TB/s x ~0.7 us of DRAM latency ~ 2.3 MB), so a tile is
+// bound by latency, two dependent loads (the index, then the row), and by
+// the launch floor, not by bandwidth.  The gridded probe (131,072 rows,
+// 671 MB written) is bound by the HBM write rate.
+//
+//  * row_gather_kernel: out[r, :] = table[idx[r], :].  A gather copies
+//    bits, so the kernel moves 16-byte words whatever the element type.
+//    A unit is one row x one 512-byte column chunk, moved by one warp:
+//    lane 0 loads the row index and a shuffle broadcasts it, every lane
+//    loads its 16-byte word of the row and stores it streaming (__stcs:
+//    nobody reads the output again).  Block b serves chunk b % chunks, so
+//    neighbouring blocks write neighbouring chunks of the same rows.  The
+//    geometry (ops/tile_gather.row_gather_geometry) gives every SM work
+//    at every probe shape: a block holds at most 8 warps, and fewer where
+//    that leaves fewer blocks than SMs, and the grid covers every row in
+//    one pass.  Loads in flight come from the warps resident on every SM,
+//    not from several rows a warp: measured on an NVIDIA H100 80GB HBM3 at
+//    700 W (PERF.md §6), 2-4 rows a warp were slower at a tile and no
+//    faster on the gridded probe, and persistent grids that walk the rows
+//    were slower still.  The kernel still walks the rows in a grid-stride
+//    loop, so any grid of a multiple of the chunks is right.  Indices are
+//    not checked (the probes' are in range; the plain version raises on
+//    one that is not).
+//  * lane_gather_kernel: out[r, c] = table[r, idx[r, c]] on 4-byte words.
+//    One table row a block (256 rows give every SM work), its columns
+//    split over the block's threads: a thread reads its four indices as
+//    one int4 before the row is in, stages four columns of the row in
+//    shared memory with one 16-byte load, then gathers four values from
+//    shared memory and stores them as one 16-byte word.  Random indices
+//    make bank conflicts in that read: they are the expected cost.  A
+//    width that is not a multiple of four (rows not 16-byte aligned)
+//    takes the same steps one word at a time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int SLAB16 = 32;          // 16-byte words per slab row (512 B)
-constexpr int ROW_THREADS = 1024;   // 32 warps: enough stores in flight
-constexpr int LANE_WARPS = 8;       // table rows per block (lane gather)
-constexpr int MAX_SMEM = 232448;    // 227 KB
+constexpr int CHUNK16 = 32;           // 16-byte words of a chunk (512 B)
+constexpr int ROW_THREADS = 256;      // at most, row gather (8 warps)
+constexpr int LANE_THREADS = 256;     // at most, lane gather
+constexpr int LANE_SMEM = 48 * 1024;  // static limit: no attribute call
 
 __global__ void __launch_bounds__(ROW_THREADS)
 row_gather_kernel(const uint4* __restrict__ table,
                   const int* __restrict__ idx, uint4* __restrict__ out,
-                  int table_rows, int w16, int n_rows, int rows_per_block) {
-  extern __shared__ uint4 slab[];   // [table_rows][SLAB16]
-  const int c0 = blockIdx.x * SLAB16;
-  const int cw = min(SLAB16, w16 - c0);
-  for (int i = threadIdx.x; i < table_rows * SLAB16; i += blockDim.x) {
-    const int r = i / SLAB16, c = i % SLAB16;
-    if (c < cw) slab[i] = __ldg(table + (size_t)r * w16 + c0 + c);
-  }
-  __syncthreads();
+                  int w16, int n_rows, int chunks) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int r_begin = blockIdx.y * rows_per_block;
-  const int r_end = min(n_rows, r_begin + rows_per_block);
-  if (lane >= cw) return;
-  for (int r = r_begin + warp; r < r_end; r += n_warps) {
-    const int src = __ldg(idx + r);
-    out[(size_t)r * w16 + c0 + lane] = slab[src * SLAB16 + lane];
+  const int warps = blockDim.x >> 5;
+  const int c = (blockIdx.x % chunks) * CHUNK16 + lane;
+  const bool live = c < w16;  // the last chunk may be narrower
+  const int stride = gridDim.x / chunks * warps;
+  for (int r = blockIdx.x / chunks * warps + (threadIdx.x >> 5); r < n_rows;
+       r += stride) {
+    const int src = __shfl_sync(0xffffffffu, lane == 0 ? __ldg(idx + r) : 0,
+                                0);
+    if (live) __stcs(out + (size_t)r * w16 + c,
+                     __ldg(table + (size_t)src * w16 + c));
   }
 }
 
-__global__ void __launch_bounds__(LANE_WARPS * 32)
+template <bool VEC>
+__global__ void __launch_bounds__(LANE_THREADS)
 lane_gather_kernel(const uint32_t* __restrict__ table,
                    const int* __restrict__ idx, uint32_t* __restrict__ out,
-                   int n_rows, int width) {
-  extern __shared__ uint32_t rows_s[];   // [LANE_WARPS][width]
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * LANE_WARPS + warp;
-  if (r >= n_rows) return;               // whole warps leave together
-  uint32_t* row_s = rows_s + (size_t)warp * width;
-  const size_t base = (size_t)r * width;
-  for (int c = lane; c < width; c += 32) row_s[c] = __ldg(table + base + c);
-  __syncwarp();
-  for (int c = lane; c < width; c += 32)
-    out[base + c] = row_s[__ldg(idx + base + c)];
+                   int width) {
+  extern __shared__ uint4 row_s4[];   // [width] 4-byte words
+  const uint32_t* row_s = reinterpret_cast<const uint32_t*>(row_s4);
+  const size_t base = (size_t)blockIdx.x * width;
+  const int t = threadIdx.x;
+  if (VEC) {
+    const int w4 = width >> 2;
+    const uint4* t4 = reinterpret_cast<const uint4*>(table + base);
+    const int4* i4 = reinterpret_cast<const int4*>(idx + base);
+    uint4* o4 = reinterpret_cast<uint4*>(out + base);
+    int4 j = t < w4 ? __ldg(i4 + t) : make_int4(0, 0, 0, 0);
+    for (int c = t; c < w4; c += blockDim.x) row_s4[c] = __ldg(t4 + c);
+    __syncthreads();
+    for (int c = t; c < w4; c += blockDim.x) {
+      if (c != t) j = __ldg(i4 + c);
+      __stcs(o4 + c, make_uint4(row_s[j.x], row_s[j.y], row_s[j.z],
+                                row_s[j.w]));
+    }
+  } else {
+    uint32_t* rs = reinterpret_cast<uint32_t*>(row_s4);
+    for (int c = t; c < width; c += blockDim.x)
+      rs[c] = __ldg(table + base + c);
+    __syncthreads();
+    for (int c = t; c < width; c += blockDim.x)
+      __stcs(out + base + c, row_s[__ldg(idx + base + c)]);
+  }
 }
+
+bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
 
 }  // namespace
 
-// table [table_rows, row_bytes], idx [n_rows] int32, out [n_rows,
-// row_bytes]; row_bytes a multiple of 16, all pointers 16-byte aligned.
-// grid_y: number of row groups (each block loads its slab once and walks
-// ceil(n_rows / grid_y) rows).
+// table [*, row_bytes], idx [n_rows] int32, out [n_rows, row_bytes];
+// row_bytes a multiple of 16, table and out 16-byte aligned.  blocks and
+// warps (a block, at most 8) as ops/tile_gather.row_gather_geometry gives
+// them; blocks a multiple of the row's 512-byte chunks.
 extern "C" int tile_row_gather(const void* table, const int* idx, void* out,
-                               int table_rows, int row_bytes, int n_rows,
-                               int grid_y, void* stream) {
-  const size_t smem = (size_t)table_rows * SLAB16 * sizeof(uint4);
-  if (row_bytes <= 0 || row_bytes % 16 != 0 || table_rows <= 0 ||
-      n_rows <= 0 || grid_y <= 0 || grid_y > 65535 || smem > MAX_SMEM)
+                               int row_bytes, int n_rows, int blocks,
+                               int warps, void* stream) {
+  if (row_bytes <= 0 || row_bytes % 16 != 0 || n_rows <= 0 || blocks <= 0 ||
+      warps < 1 || warps * 32 > ROW_THREADS || misaligned(table) ||
+      misaligned(out))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      row_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int w16 = row_bytes / 16;
-  const int slabs = (w16 + SLAB16 - 1) / SLAB16;
-  const int rows_per_block = (n_rows + grid_y - 1) / grid_y;
-  row_gather_kernel<<<dim3(slabs, grid_y), ROW_THREADS, smem,
-                      (cudaStream_t)stream>>>(
-      (const uint4*)table, idx, (uint4*)out, table_rows, w16, n_rows,
-      rows_per_block);
+  const int chunks = (w16 + CHUNK16 - 1) / CHUNK16;
+  if (blocks % chunks != 0) return (int)cudaErrorInvalidValue;
+  row_gather_kernel<<<blocks, warps * 32, 0, (cudaStream_t)stream>>>(
+      (const uint4*)table, idx, (uint4*)out, w16, n_rows, chunks);
   return (int)cudaGetLastError();
 }
 
-// table, out [n_rows, width] of 4-byte words, idx [n_rows, width] int32.
+// table, out [n_rows, width] of 4-byte words, idx [n_rows, width] int32;
+// one block a row of `threads` threads (ops/tile_gather.lane_gather_geometry);
+// vec: width a multiple of 4 and every pointer 16-byte aligned.
 extern "C" int tile_lane_gather(const void* table, const int* idx, void* out,
-                                int n_rows, int width, void* stream) {
-  const size_t smem = (size_t)LANE_WARPS * width * sizeof(uint32_t);
-  if (n_rows <= 0 || width <= 0 || smem > MAX_SMEM)
+                                int n_rows, int width, int threads, int vec,
+                                void* stream) {
+  const size_t smem = (size_t)width * sizeof(uint32_t);
+  if (n_rows <= 0 || width <= 0 || threads < 32 || threads > LANE_THREADS ||
+      smem > LANE_SMEM ||
+      (vec && (width % 4 != 0 || misaligned(table) || misaligned(idx) ||
+               misaligned(out))))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      lane_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_rows + LANE_WARPS - 1) / LANE_WARPS;
-  lane_gather_kernel<<<blocks, LANE_WARPS * 32, smem,
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)table, idx, (uint32_t*)out, n_rows, width);
+  const auto s = (cudaStream_t)stream;
+  if (vec)
+    lane_gather_kernel<true><<<n_rows, threads, smem, s>>>(
+        (const uint32_t*)table, idx, (uint32_t*)out, width);
+  else
+    lane_gather_kernel<false><<<n_rows, threads, smem, s>>>(
+        (const uint32_t*)table, idx, (uint32_t*)out, width);
   return (int)cudaGetLastError();
 }

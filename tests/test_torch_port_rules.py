@@ -518,13 +518,15 @@ def test_stage2_step_copies_only_the_batch_to_the_device(tmp_path):
 @pytest.mark.cuda
 def test_tile_gather_kernels_match_plain_on_the_card():
     """The four gather kernels against their plain versions (exact), at
-    the probes' shapes cut to four row tiles."""
+    the probes' shapes cut to four row tiles and at the ragged shapes
+    (16-byte rows, tables of more than 454 rows, repeated indices)."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA card (run: python3 chip_smoke.py)')
     import numpy as np
     from tensoflow_tpu_torch.bench import microbench_r3
     rng = np.random.RandomState(0)
-    for case in microbench_r3.gather_cases(small=True):
+    for case in (microbench_r3.gather_cases(small=True)
+                 + microbench_r3.ragged_gather_cases()):
         table, idx = microbench_r3.make_case(case, rng, torch.device('cuda'))
         assert torch.equal(case[1](table, idx), case[2](table, idx)), case[0]
 
