@@ -4,9 +4,10 @@
 
 Phases (any failure exits nonzero; no phase's failure is caught; the
 training phases (3, 5, 3b, 3c, 3d, in this order), the relight phase 3e,
-the variants phase 3f, the sharded phase 3g and the convergence phase 3h
-run before the kernel phases, and their profiled steps last, because
-running the profiler slows every later launch of the process):
+the variants phase 3f, the sharded phase 3g, the convergence phase 3h and
+the general-width phase 3i run before the kernel phases (2, then 2b), and
+their profiled steps last, because running the profiler slows every later
+launch of the process):
   1. build   — compile the hand-written kernels from tensoflow_tpu_torch/csrc
                (one nvcc per source, started together) and print the seconds.
   2. kernels — hold the stencil-head fwd and bwd kernels to their plain
@@ -26,6 +27,15 @@ running the profiler slows every later launch of the process):
                cuBLAS float32 at the three large products' shapes as a
                yardstick; and point_head (S=1, bf16) at the occupancy
                update's chunk of 131,072 points.
+  2b. general kernels — csrc/stencil_head_general.cu, the route of the
+               widths the fast kernels are not built for (ops/stencil.py
+               head_route), fwd and bwd against the plain version at
+               GEN_CASES: NeuS's widths (C=36, E=39, H=256, O=257), a wider
+               head (C=48, H=512) and a bf16 head with C % 4 != 0 (C=18,
+               E=21), S in {1, 7}, B in {1, 2}, N = 131,072 and 1,003;
+               two bit-identical backward runs in each dtype; times at
+               N = 131,072, B=1 and B=2, float32, beside the plain version
+               and the bound.
   3. slice   — first a small float32 configuration trained for 2 steps on
                the card and on the CPU (plain versions) from the same
                parameters, batches and noise, loss terms compared; then
@@ -159,6 +169,18 @@ running the profiler slows every later launch of the process):
                20 stage-1 + 20 stage-2 steps (NIS sampling from step 5);
                each artifact must carry every key of the JAX artifact in
                data/convergence/, finite values only and this card's name.
+  3i. general — the widths past the fast kernels through the user's entry
+               points: 2 steps card vs CPU at NeuS's head widths on a small
+               hierarchical config, and on the small occupancy-grid config
+               without compaction (compact_samples_per_ray 0);
+               compressor.yaml with sdf_multires 6 and app_dim 256 over
+               phase 3c's cut schedule (six steps, 128^3 -> 512^3, the
+               general kernels' launches counted from zero), 5 timed
+               512^3 steps beside phase 3c's, the kernels on a step's own
+               inputs, a rendered view, the mesh at 128^3; stage 2 on a
+               checkpoint at these widths (2 steps card vs CPU, a render, a
+               relight_view chunk); compressor_occ.yaml without compaction
+               at these widths, 2 + 4 timed steps at 128^3.
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions and torch.index_select / torch.gather
                at every shape of the gather probes and at the ragged
@@ -200,7 +222,9 @@ running the profiler slows every later launch of the process):
                and one profiled render chunk.  The cuts are the database
                and the NIS schedule, both printed.
 Then it prints the card's name and power limit, one JSON line listing
-every hand-written kernel (the stencil kernels with their float32 B=2
+every hand-written kernel (the general-width stencil kernels with their
+float32 B=2 figures at NeuS's widths and their launches in phase 3i; the
+stencil kernels with their float32 B=2
 figures, the shape of 80 % of a published run, and their launches in
 phase 3c, the other instantiations and the launches of phase 3b, of
 phase 5's render, of phase 3d's from-disk training, of phase 3e's
@@ -254,7 +278,8 @@ GATHER_KERNELS = {
     'row_gather_tile_bf16': ('scripts/microbench_r3.py:155',
                              'row_gather_tile_bf16 lanes=1280'),
 }
-SOURCES = ('stencil_head_fwd', 'stencil_head_bwd', 'tile_gather')
+SOURCES = ('stencil_head_fwd', 'stencil_head_bwd', 'stencil_head_general',
+           'tile_gather')
 
 
 def card_line() -> str:
@@ -295,11 +320,13 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
 # phase 2: kernels against the plain version
 # ---------------------------------------------------------------------------
 
-def head_inputs(n, S, B, cd, seed, widths=(C, H, O)):
+def head_inputs(n, S, B, cd, seed, widths=(C, H, O), e=E):
     """Slice-shaped stencil-head inputs made on the card from a seed, at
-    ``widths`` (C, H, O): the published ones by default."""
+    ``widths`` (C, H, O) and PE width ``e``: the published ones by
+    default."""
     from tensoflow_tpu_torch.ops.tensor_field import FRAC_STRIDE as FS
     C, H, O = widths
+    E = e
     g = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
 
@@ -383,10 +410,13 @@ def _as_f64(d):
     return out
 
 
-def check_case(name, n, S, B, cd, seed):
+def check_case(name, n, S, B, cd, seed, widths=(C, E, H, O)):
     """Kernel fwd + bwd vs the plain version on random inputs made from a
-    seed; raises beyond TOL.  Returns (max abs err fwd, bwd)."""
-    return check_inputs(name, head_inputs(n, S, B, cd, seed), S, cd)
+    seed, at ``widths`` (C, E, H, O); raises beyond TOL.  Returns (max abs
+    err fwd, bwd)."""
+    c, e, h, o = widths
+    return check_inputs(name, head_inputs(n, S, B, cd, seed, (c, h, o), e),
+                        S, cd)
 
 
 def check_inputs(name, d, S, cd):
@@ -424,9 +454,11 @@ def check_inputs(name, d, S, cd):
     return fa, ba
 
 
-def head_bytes_ops(n, S, B, cd):
-    """Least bytes moved and operations for one fwd / bwd call."""
+def head_bytes_ops(n, S, B, cd, widths=(C, E, H, O)):
+    """Least bytes moved and operations for one fwd / bwd call at
+    ``widths`` (C, E, H, O)."""
     from tensoflow_tpu_torch.ops.stencil import vw
+    C, E, H, O = widths
     es = 2 if cd == torch.bfloat16 else 4
     K = 3 * C + E
     weights = (K * H + H * O) * es + H * 4
@@ -459,13 +491,22 @@ def _device_ms(prof, name_parts, calls):
     return total_us / 1e3 / calls
 
 
-def time_head(n, S, B, cd, seed):
+# the device kernels of a fwd / bwd call by route (profiler name parts)
+KERNEL_NAMES = {'fast': (['stencil_fwd_'], ['stencil_bwd_']),
+                'general': (['stencil_gen_fwd'],
+                            ['stencil_gen_bwd_rows', 'stencil_gen_atb',
+                             'stencil_gen_colsum'])}
+
+
+def time_head(n, S, B, cd, seed, widths=(C, E, H, O)):
     """ms per call, fwd and bwd, at the main shape: the plain version and
     the kernel wrappers by CUDA events, in turns plain, kernel, kernel,
     plain (best of the two turns), and the kernels' own device time by
     torch.profiler (None where the profiler shows no device time)."""
     from tensoflow_tpu_torch.ops import stencil as st
-    d = head_inputs(n, S, B, cd, seed)
+    c, e, h, o = widths
+    d = head_inputs(n, S, B, cd, seed, (c, h, o), e)
+    names = KERNEL_NAMES[st.head_route(cd, S, B, c, e, h, o)]
     out = {}
     for kernel in (False, True, True, False):
         leaves = [t.detach().clone().requires_grad_(True)
@@ -498,8 +539,8 @@ def time_head(n, S, B, cd, seed):
                     o = fwd()
                     torch.autograd.grad(o, ins, (d['g_c'], d['g_off']))
                 torch.cuda.synchronize()
-            dev = (_device_ms(prof, ['stencil_fwd_'], 3),
-                   _device_ms(prof, ['stencil_bwd_'], 3))
+            dev = (_device_ms(prof, names[0], 3),
+                   _device_ms(prof, names[1], 3))
             out['device'] = tuple(x if x > 0 else None for x in dev)
         del oc, oo
     return out
@@ -594,19 +635,21 @@ def f32_kernel_info():
     return out
 
 
-def check_bwd_deterministic(n, S, B, seed):
-    """Two float32 backward launches on the same inputs give bit-identical
+def check_bwd_deterministic(n, S, B, seed, widths=(C, E, H, O),
+                            cd=torch.float32):
+    """Two backward launches on the same inputs give bit-identical
     weight gradients (dW0, db0, dW1 with dw1row in its column 0): no
     atomics, every sum over rows in a fixed order."""
-    d = head_inputs(n, S, B, torch.float32, seed)
+    c, e, h, o = widths
+    d = head_inputs(n, S, B, cd, seed, (c, h, o), e)
     grads = [run_head(d, S, kernel=True)[1] for _ in range(2)]
     names = ('w0a', 'w0b', 'w0c', 'w0pe', 'pe', 'b0', 'w1')   # after pp, lp
     same = {nm: bool(torch.equal(grads[0][6 * B + k], grads[1][6 * B + k]))
             for k, nm in enumerate(names) if nm != 'pe'}
-    print(f'[kernels] f32 S={S} B={B} N={n}: two backward launches give '
-          f'bit-identical weight gradients: {same}', flush=True)
+    print(f'[kernels] {cd} S={S} B={B} N={n} widths {widths}: two backward '
+          f'launches give bit-identical weight gradients: {same}', flush=True)
     if not all(same.values()):
-        raise AssertionError(f'float32 backward is not deterministic: {same}')
+        raise AssertionError(f'backward is not deterministic: {same}')
 
 
 def cublas_yardstick(card, n=N_MAIN):
@@ -666,6 +709,67 @@ def phase_kernels(card):
         report_f32(card, B, rows['f32', B], info)
     cublas_yardstick(card)
     time_point_head(card)
+    return rows
+
+
+# the general-width kernels (csrc/stencil_head_general.cu) on the card:
+# NeuS's widths, a wider head, and a bf16 head the wgmma kernels refuse
+# for its C % 4 != 0; (S, B, N, widths (C, E, H, O)), both dtypes unless
+# the widths are BF18's (the float32 fast kernels take those)
+GEN_NEUS, GEN_WIDE, GEN_BF18 = ((36, 39, 256, 257), (48, 39, 512, 257),
+                                (18, 21, 256, 129))
+GEN_CASES = ((7, 1, N_MAIN, GEN_NEUS), (7, 2, N_MAIN, GEN_NEUS),
+             (1, 2, 1003, GEN_NEUS), (7, 2, 1003, GEN_NEUS),
+             (1, 1, N_MAIN, GEN_WIDE), (7, 1, 1003, GEN_WIDE),
+             (7, 1, N_MAIN, GEN_BF18), (1, 2, 1003, GEN_BF18))
+GEN_SOURCE = 'tensoflow_tpu_torch/csrc/stencil_head_general.cu'
+
+
+def phase_general_kernels(card):
+    """The general kernels, fwd + bwd, against the plain version at
+    GEN_CASES (float32 against float64 at TOL, bf16 against bf16), two
+    bit-identical backward runs in each dtype, and their times at
+    N_MAIN, B=1 and B=2, at the NeuS widths in float32 (the compressor
+    configs' gather dtype) beside the plain version and the bound.
+    Returns the kernels line's figures by B."""
+    from tensoflow_tpu_torch.ops import stencil as st
+    t0 = time.perf_counter()
+    errs = {}
+    for cd in (torch.float32, torch.bfloat16):
+        tag = 'bf16' if cd == torch.bfloat16 else 'f32'
+        for S, B, n, w in GEN_CASES:
+            if w == GEN_BF18 and cd == torch.float32:
+                continue
+            if st.head_route(cd, S, B, *w) != 'general':
+                raise AssertionError(f'{w} {cd}: not the general route')
+            errs[tag, S, B, n, w] = check_case(
+                f'general S={S} B={B} {tag} N={n} (C, E, H, O) = {w}', n, S,
+                B, cd, seed=S + 3 * B + n % 97, widths=w)
+        check_bwd_deterministic(N_MAIN, 7, 2, 12, widths=GEN_NEUS, cd=cd)
+    rows = {}
+    for B in (1, 2):
+        t = time_head(N_MAIN, 7, B, torch.float32, seed=5, widths=GEN_NEUS)
+        (fb, fo), (bb, bo) = head_bytes_ops(N_MAIN, 7, B, torch.float32,
+                                            widths=GEN_NEUS)
+        err = errs.get(('f32', 7, B, N_MAIN, GEN_NEUS))
+        row = {}
+        for i, (k, nb, no) in enumerate((('stencil_head_general_fwd', fb, fo),
+                                         ('stencil_head_general_bwd', bb,
+                                          bo))):
+            bound, by = bound_ms(nb, no, torch.float32)
+            ms = t['device'][i] if t['device'][i] is not None \
+                else t['kernel'][i]
+            row[k] = dict(max_abs_err=err[i], ms=ms, plain_ms=t['plain'][i],
+                          bound_ms=bound, bound_by=by)
+            print(f'[kernels] general B={B} N={N_MAIN} f32 (C, E, H, O) = '
+                  f'{GEN_NEUS} {k} on {card}: {ms:.3f} ms (wrapper '
+                  f'{t["kernel"][i]:.3f}), plain {t["plain"][i]:.3f} ms, '
+                  f'bound {bound:.4f} ms ({by}: {nb / 1e9:.3f} GB, '
+                  f'{no / 1e9:.1f} GFLOP), share of bound '
+                  f'{bound / ms:.3f}', flush=True)
+        rows[B] = row
+    print(f'[kernels] general kernels phase in {time.perf_counter() - t0:.1f}'
+          ' s', flush=True)
     return rows
 
 
@@ -891,15 +995,15 @@ class HeadSpy:
     ``capture_at``), a copy of that call's inputs; it wraps
     StencilHead.apply and launches nothing itself."""
 
-    def __init__(self, capture_at=None):
+    def __init__(self, capture_at=None, fn='StencilHead'):
         from tensoflow_tpu_torch.ops import stencil as st
-        self.st = st
+        self.fn = getattr(st, fn)     # or GeneralStencilHead
         self.bs, self.dtypes = [], []
         self.capture_next, self.captured = False, None
         self.capture_at = capture_at
 
     def __enter__(self):
-        orig = self.st.StencilHead.apply
+        orig = self.fn.apply
 
         def apply(static, *args):
             if self.capture_next or self.capture_at == len(self.bs):
@@ -908,11 +1012,11 @@ class HeadSpy:
             self.bs.append(static[1])
             self.dtypes.append(static[3])
             return orig(static, *args)
-        self.st.StencilHead.apply = apply
+        self.fn.apply = apply
         return self
 
     def __exit__(self, *exc):
-        del self.st.StencilHead.apply        # the inherited classmethod
+        del self.fn.apply                    # the inherited classmethod
 
 
 def _captured_inputs(captured, b1, seed=11):
@@ -2924,6 +3028,221 @@ def phase_convergence(card):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: widths past the fast kernels, and the dense occupancy route
+# ---------------------------------------------------------------------------
+
+# NeuS's published SDF network (confs/womask.conf, sdf_network: multires 6,
+# d_hidden 256, d_out 257) on compressor.yaml's C = 36 and H = 256: E = 3 +
+# 6 * 6 = 39 PE columns (3C+E = 147) and O = 1 + 256 head columns, past
+# the fast kernels' 3C+E < 144 and O <= 144: the general kernels' path
+NEUS_WIDTHS = ['sdf_multires=6', 'app_dim=256']
+NEUS_SMALL = HIER_SMALL + ['sdf_n_comp=36', 'sdf_dim=256'] + NEUS_WIDTHS
+# the occupancy-grid sampler without compaction: every one of its
+# occ_max_samples (192) a ray through the field, dense compositing
+OCC_DENSE = ['compact_samples_per_ray=0']
+OCC_DENSE_CUTS = ['database_name=toy/sphere_128_12', 'split_manul=false']
+
+
+def _launches():
+    from tensoflow_tpu_torch.ops import stencil as st
+    return {**st.LAUNCHES, **st.GENERAL_LAUNCHES}
+
+
+def _expect_route(launches, route, fwd, bwd, what):
+    """launches (fast and general) of a path: fwd / bwd on ``route``
+    ('' for the fast kernels, 'general_'), none on the other."""
+    want = {k: 0 for k in launches}
+    want[f'stencil_head_{route}fwd'] = fwd
+    want[f'stencil_head_{route}bwd'] = bwd
+    if launches != want:
+        raise AssertionError(f'{what}: launches {launches}, expected {want}')
+
+
+def phase_general(card, hier_ms, timed_steps=5, occ_steps=4):
+    """The widths the fast kernels refuse, through the user's entry
+    points.  (a) card_vs_cpu at NeuS_SMALL (hierarchical sampler, the
+    full NeuS head widths) and at the small dense occupancy-grid config;
+    (b) compressor.yaml with NEUS_WIDTHS over phase 3c's schedule cut to
+    six steps (128^3 -> 512^3), launches counted from zero, then
+    ``timed_steps`` steps at 512^3 (B=2) beside phase 3c's published
+    widths, the general kernels on a 512^3 step's own inputs, a rendered
+    view and the mesh at 128^3 (its SDF query, sdf_only, takes the field's
+    plain head: no stencil); (c) stage 2 on a checkpoint at these widths
+    (card vs CPU, a render and a relight_view chunk); (d)
+    compressor_occ.yaml without compaction at NEUS_WIDTHS: an occupancy
+    update, then ``occ_steps`` timed steps at 128^3.  Returns the
+    general kernels' launches on (b)'s main path and its errors."""
+    import numpy as np
+    from tensoflow_tpu_torch import extract_mesh, relight_orb
+    from tensoflow_tpu_torch.models import shape_renderer as sr
+    from tensoflow_tpu_torch.ops import mesh as mesh_mod
+    from tensoflow_tpu_torch.ops import stencil as st
+    from tensoflow_tpu_torch.train import metrics_vis
+    from tensoflow_tpu_torch.train.trainer import EVAL_KEYS, ShapeTrainer
+    t_phase = time.perf_counter()
+    # (a) card vs CPU
+    st.reset_launches()
+    _, logs, worst = card_vs_cpu(_load_cfg(NEUS_SMALL, HIER_YAML),
+                                 'NeuS widths (hierarchical)')
+    _expect_route(_launches(), 'general_', 2, 2, 'NeuS widths small')
+    print(f'[general] NeuS head widths (C=36, E=39, H=256, O=257) on a small '
+          f'hierarchical config: 2 steps on the card (general kernels) match '
+          f'the CPU plain path (worst loss-term rel err {worst:.2e}); '
+          f'{_losses(logs)}', flush=True)
+    st.reset_launches()
+    runs, logs, worst = card_vs_cpu(_load_cfg(SMALL_OVERRIDES + OCC_DENSE),
+                                    'dense occupancy route')
+    _expect_route(_launches(), '', 2, 2, 'dense occupancy small')
+    sn = sr.n_route_samples(runs['cuda'].rcfg)
+    print(f'[general] occupancy grid without compaction (small config, '
+          f'{sn} samples a ray through the field): 2 steps on the card match '
+          f'the CPU (worst loss-term rel err {worst:.2e}); {_losses(logs)}',
+          flush=True)
+    del runs
+
+    # (b) the NeuS widths at 512^3 through the published schedule's cuts
+    cfg = _load_cfg(HIER_CUTS + NEUS_WIDTHS, HIER_YAML)
+    trainer = ShapeTrainer(cfg)
+    trainer.init_dataset()
+    sdf = trainer.rcfg.sdf
+    widths = (sdf.n_comp, 3 + 6 * sdf.sdf_multires, sdf.sdf_dim,
+              1 + sdf.app_dim)
+    if widths != (36, 39, 256, 257) or st.head_route(
+            torch.float32, 7, 2, *widths) != 'general':
+        raise AssertionError(f'NeuS widths: {widths}')
+    logs = []
+    st.reset_launches()
+    with HeadSpy(fn='GeneralStencilHead') as spy:
+        for step in range(6):
+            spy.capture_next = step == 5
+            logs += trainer.train(n_steps=1, log_every=1)
+        torch.cuda.synchronize()
+        launches = _launches()
+    _expect_route(launches, 'general_', 6, 6, 'NeuS widths schedule')
+    if spy.bs != [1, 1, 1, 2, 2, 2]:
+        raise AssertionError(f'mip branches per step {spy.bs}')
+    _check_finite(logs)
+    print(f'[general] compressor.yaml + {NEUS_WIDTHS} (C, E, H, O = '
+          f'{widths}; cuts {HIER_CUTS}): loss per step ' + ', '.join(
+              f'{r["loss"]:.6f}' for r in logs) + f'; launches {launches}; '
+          f'mip branches per step {spy.bs}', flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = trainer.train(n_steps=timed_steps, log_every=timed_steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
+    _check_finite(timed)
+    rays = cfg['train_ray_num']
+    print(f'[general] {timed_steps} steps at 512^3 (B=2) at the NeuS widths '
+          f'on {card}: {step_ms:.1f} ms/step = {rays / (step_ms / 1e3):.0f} '
+          f'rays/s, beside {hier_ms:.1f} ms/step at the published widths '
+          f'(phase 3c, fast kernels); loss {timed[-1]["loss"]:.6f}',
+          flush=True)
+    d = _captured_inputs(spy.captured, trainer.params['sdf']['mlp'][1]['b'])
+    spy.captured = None
+    n = d['fr'].shape[0]
+    errs = check_inputs(f'general S=7 B=2 dynamic f32 N={n} (a 512^3 step\'s '
+                        'own inputs at the NeuS widths)', d, 7, torch.float32)
+    del d
+    (vid,) = trainer.test_ids
+    db = trainer.database
+    ds = cfg['downsample_ratio']
+    gt = db.get_image(vid).astype(np.float32) / 255.0
+    h, w = int(gt.shape[0] * ds), int(gt.shape[1] * ds)
+    gt = metrics_vis.resize_linear(gt, h, w)
+    K = np.diag([ds, ds, 1.0]).astype(np.float32) @ db.get_K(vid)
+    st.reset_launches()
+    t0 = time.perf_counter()
+    out = trainer.render_image(db.get_pose(vid), K, h, w, chunk=1024)
+    render_s = time.perf_counter() - t0
+    _expect_route(_launches(), 'general_', 2 * -(-h * w // 1024), 0,
+                  'NeuS widths render_image')
+    bad = [k for k in EVAL_KEYS if not np.isfinite(out[k]).all()]
+    if bad or set(out) != set(EVAL_KEYS):
+        raise AssertionError(f'render_image: non-finite or missing {bad}')
+    res = metrics_vis.eval_and_dump(gt, out, cfg['name'], trainer.start_step,
+                                    vid, vis_dir=os.path.join(_root(),
+                                                              'build'))
+    st.reset_launches()
+    t0 = time.perf_counter()
+    query = extract_mesh.sdf_query(trainer.params, trainer.rcfg,
+                                   torch.device('cuda'),
+                                   float(cfg['blend_ratio']))
+    verts, tris = mesh_mod.extract_geometry(
+        np.array([-1.0, -1, -1]), np.array([1.0, 1, 1]), 128, 0.0, query)
+    mesh_s = time.perf_counter() - t0
+    mesh_launches = _launches()
+    # the SDF query is sdf_only: the field's plain head, no stencil
+    if not np.isfinite(verts).all() or len(tris) and len(verts) == 0:
+        raise AssertionError(f'mesh: {len(verts)} verts, {len(tris)} tris')
+    print(f'[general] render_image of view {vid} at {h}x{w} in '
+          f'{render_s:.2f} s: PSNR {res["psnr"]:.3f} dB, all {len(out)} '
+          f'images finite (general forward, 2 a chunk); mesh at 128^3 in '
+          f'{mesh_s:.1f} s: {len(verts)} vertices, {len(tris)} triangles '
+          f'(sdf_only: the field\'s plain head, stencil launches '
+          f'{mesh_launches})', flush=True)
+    del trainer, out
+    torch.cuda.empty_cache()
+
+    # (c) stage 2 on a checkpoint at these widths
+    st.reset_launches()
+    card_t, ref_t = check_stage2_small('NeuS widths', geo_over=NEUS_WIDTHS)
+    s2 = _launches()          # the training step traces the baked grid
+    if s2['stencil_head_fwd'] or s2['stencil_head_bwd']:
+        raise AssertionError(f'stage 2 at the NeuS widths: launches {s2}')
+    check_render_small(card_t, ref_t, kernel='stencil_head_general_fwd')
+    env = os.path.join(_root(), 'build', 'smoke_general_sky.hdr')
+    write_hdr(env, relight_env())
+    db, vid = ref_t.database, ref_t.train_ids[0]
+    K = np.diag([0.5, 0.5, 1.0]).astype(np.float32) @ db.get_K(vid)
+    rolls = [torch.rand((256, 1, 1), generator=torch.Generator().manual_seed(3))]
+    st.reset_launches()
+    gpu = relight_orb.relight_view(card_t, relight_orb.load_env_cube(
+        env, 'cuda'), db.get_pose(vid), K, 16, 16, rolls=rolls)
+    rl = _launches()
+    _expect_route(rl, 'general_', 1, 0, 'relight_view chunk')
+    ref = relight_orb.relight_view(ref_t, relight_orb.load_env_cube(
+        env, 'cpu'), db.get_pose(vid), K, 16, 16, rolls=rolls)
+    both = gpu['hit'] & ref['hit']
+    if not np.isfinite(gpu['rgb']).all() or both.sum() < 8:
+        raise AssertionError(f'relight_view: {int(both.sum())} shared hits')
+    print(f'[general] stage 2 on a checkpoint at the NeuS widths: launches '
+          f'{s2} over the small card steps (they trace the baked grid), one '
+          f'general forward in the render; a 16x16 relight_view chunk on the '
+          f'card ({rl}) vs the CPU: hits {int(gpu["hit"].sum())} / '
+          f'{int(ref["hit"].sum())}, max |colour diff| on shared hits '
+          f'{float(np.abs(gpu["rgb"][both] - ref["rgb"][both]).max()):.3e}',
+          flush=True)
+    del card_t, ref_t
+
+    # (d) the dense occupancy-grid route at the NeuS widths, 128^3
+    occ = ShapeTrainer(_load_cfg(OCC_DENSE_CUTS + OCC_DENSE + NEUS_WIDTHS))
+    occ.init_dataset()
+    sn = sr.n_route_samples(occ.rcfg)
+    st.reset_launches()
+    warm = occ.train(n_steps=2, log_every=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = occ.train(n_steps=occ_steps, log_every=occ_steps)
+    torch.cuda.synchronize()
+    occ_ms = (time.perf_counter() - t0) / occ_steps * 1e3
+    _check_finite(warm + timed)
+    _expect_route(_launches(), 'general_', 2 + occ_steps, 2 + occ_steps,
+                  'dense occupancy route')
+    print(f'[general] compressor_occ.yaml + {OCC_DENSE + NEUS_WIDTHS} (cuts '
+          f'{OCC_DENSE_CUTS}): {occ.cfg["train_ray_num"]} rays x {sn} '
+          f'samples, grid {occ.rcfg.sdf.grid_size}: {occ_steps} timed steps '
+          f'{occ_ms:.1f} ms/step on {card}; live-sample share '
+          f'{timed[-1]["sample_num"] / sn:.4f}; loss {timed[-1]["loss"]:.6f}',
+          flush=True)
+    del occ
+    torch.cuda.empty_cache()
+    print(f'[general] phase in {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return {k: launches[k] for k in st.GENERAL_LAUNCHES}, errs, step_ms
+
+
 def sub_main(argv):
     """The subprocess entries of phase 3g."""
     import argparse
@@ -3059,7 +3378,7 @@ def _mat_cfg(extra):
                                   extra=extra)
 
 
-def check_stage2_small(variant=None, over=None):
+def check_stage2_small(variant=None, over=None, geo_over=()):
     """One stage-2 training step in its last phase (NIS loss + sampling
     from frozen flow copies) on the card against the same step on the CPU
     at a small float32 configuration: same initial parameters (both
@@ -3070,8 +3389,9 @@ def check_stage2_small(variant=None, over=None):
     at the second: Adam's first update is sign(g) * lr, so tiny gradients
     may step either way, and the estimator's few samples with a small pdf
     carry that into the colours.  ``over``: the shader options of a
-    variant (phase 3f); the render check runs for the published options
-    only."""
+    variant (phase 3f); ``geo_over``: stage-1 options of the geometry
+    (phase 3i's widths); the render check runs for the published options
+    only.  Returns the card and CPU trainers."""
     from tensoflow_tpu_torch.data import rays as rays_mod
     from tensoflow_tpu_torch.fields import mc_shading
     from tensoflow_tpu_torch.ops.sdf_trace import PackedSDFGrid
@@ -3085,9 +3405,10 @@ def check_stage2_small(variant=None, over=None):
                 phase, 'cpu')
             return {k: v.to(self.device) for k, v in noise.items()}
 
-    geo = os.path.join(_root(), 'build', 'smoke_geo_small.pt')
-    ShapeTrainer(_load_cfg(SMALL_OVERRIDES + ['init_radius=0.5']),
-                 device='cpu').save(geo)
+    geo = os.path.join(_root(), 'build', 'smoke_geo_small'
+                       + ('_widths' if geo_over else '') + '.pt')
+    ShapeTrainer(_load_cfg(SMALL_OVERRIDES + ['init_radius=0.5']
+                           + list(geo_over)), device='cpu').save(geo)
     cfg = _mat_cfg({'database_name': 'toy/sphere_32_4', 'train_ray_num': 64,
                     'bake_resolution': 32,
                     'shader_cfg': {**SMALL_SHADER, **(over or {})}})
@@ -3136,6 +3457,7 @@ def check_stage2_small(variant=None, over=None):
           flush=True)
     if variant is None:
         check_render_small(card, ref)
+    return card, ref
 
 
 # render_image, card against CPU: pixels whose primary hit may differ (a
@@ -3147,7 +3469,7 @@ RENDER_HIT_ALLOWANCE = 3
 RENDER_TOL = {'max': 5e-2, 'mean': 1e-3}
 
 
-def check_render_small(card, ref):
+def check_render_small(card, ref, kernel='stencil_head_fwd'):
     """render_image of a 16x16 view (the 32x32 toy view through a K scaled
     by 1/2) on the card (the stencil forward kernel in the primary trace's
     normal) and on the CPU (its plain version), with the same parameters
@@ -3163,7 +3485,7 @@ def check_render_small(card, ref):
     st.reset_launches()
     out = card.render_image(db.get_pose(vid), K, 16, 16)
     torch.cuda.synchronize()
-    launches = dict(st.LAUNCHES)
+    launches = {**st.LAUNCHES, **st.GENERAL_LAUNCHES}
     want = ref.render_image(db.get_pose(vid), K, 16, 16)
     hc, hr = out['hit_mask'][..., 0] > 0.5, want['hit_mask'][..., 0] > 0.5
     both = hc & hr
@@ -3185,7 +3507,7 @@ def check_render_small(card, ref):
             for a, m in errs.values()):
         raise AssertionError(f'render_image: card disagrees with the CPU: '
                              f'{diff} hit pixels differ, errors {errs}')
-    if launches['stencil_head_fwd'] != 1:
+    if launches[kernel] != 1 or sum(launches.values()) != 1:
         raise AssertionError(f'render_image: launches {launches}')
 
 
@@ -3673,7 +3995,9 @@ def main():
     var = phase_variants(card, geo, hier_trainer, mat_phase_ms)
     sharded_launches = phase_sharded(card, geo)
     conv_launches, conv_errs = phase_convergence(card)
+    gen_launches, gen_errs, gen_step_ms = phase_general(card, hier_ms)
     kinds = phase_kernels(card)
+    gen_rows = phase_general_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
     profile_step(shape_trainer, card, shape_ms)
     profile_step(mat_trainer, card, mat_ms, tag='stage2')
@@ -3722,6 +4046,19 @@ def main():
                                  'convergence': conv_launches[k]},
             'other_rows': {f'{t} B={b}': kinds[t, b][k]
                            for t, b in kinds if (t, b) != ('f32', 2)}})
+    # the general kernels: the float32 B=2 figures at the NeuS widths,
+    # their launches on phase 3i's NeuS-width schedule (its main path)
+    for k in ('stencil_head_general_fwd', 'stencil_head_general_bwd'):
+        row = dict(gen_rows[2][k])
+        row['max_abs_err'] = max(row['max_abs_err'],
+                                 gen_errs[k.endswith('bwd')])
+        stencil.append({
+            'name': k, 'route': 'cuda', 'source': GEN_SOURCE,
+            'replaces': TPU_KERNELS[k.replace('general_', '')],
+            'launches': gen_launches[k], 'library_ms': None, **row,
+            'dtype': 'float32', 'B': 2, 'widths_CEHO': list(GEN_NEUS),
+            'step_ms_512': gen_step_ms,
+            'other_rows': {'f32 B=1': gen_rows[1][k]}})
     print(json.dumps({'kernels': stencil + [
         {'name': k, 'route': 'cuda',
          'source': 'tensoflow_tpu_torch/csrc/tile_gather.cu',

@@ -4,8 +4,10 @@ TensoSDF field, on either sampler of the JAX package.
 
   * the occupancy grid (``use_occ_grid``): a fixed per-ray budget of
     candidates, compacted globally to ``compact_samples_per_ray`` slots a
-    ray, composited in compact space; the occ loss marches the SDF baked
-    into the occupancy state;
+    ray, composited in compact space (with ``compact_samples_per_ray``
+    0: every candidate through the field and dense compositing, as on
+    the hierarchical sampler); the occ loss marches the SDF baked into
+    the occupancy state;
   * the NeuS hierarchical sampler: a stratified lattice plus
     ``up_sample_steps`` rounds of importance upsampling, every
     ``[rays, samples]`` sample through the field (culled ones masked, as
@@ -140,6 +142,24 @@ def n_dense_samples(cfg: ShapeRendererConfig) -> int:
     return cfg.n_samples
 
 
+def n_route_samples(cfg: ShapeRendererConfig) -> int:
+    """Samples a ray takes through the field on the route that runs:
+    its compaction slots on the compacted occupancy-grid route, the
+    occupancy sampler's budget (at most its march steps) on the dense
+    one, the hierarchical sampler's count off the grid."""
+    if not cfg.use_occ_grid:
+        return n_dense_samples(cfg)
+    if cfg.compact_samples_per_ray > 0:
+        return cfg.compact_samples_per_ray
+    return min(cfg.occ_max_samples, n_occ_candidates(cfg))
+
+
+def n_occ_candidates(cfg: ShapeRendererConfig) -> int:
+    """March steps a ray takes on the occupancy grid at the current
+    march stride."""
+    return -(-n_march_candidates(cfg) // max(int(cfg.march_stride), 1))
+
+
 def draw_noise(gen: torch.Generator, cfg: ShapeRendererConfig, rn: int,
                device):
     """The step's random draws, the shapes the JAX step draws: the
@@ -147,8 +167,7 @@ def draw_noise(gen: torch.Generator, cfg: ShapeRendererConfig, rn: int,
     scores, one per evaluated sample (k_occ), and with predict_BG the
     background's inverse-radius jitter [rn, n_bg_samples]
     (fold_in(rng, 7))."""
-    sn = (cfg.compact_samples_per_ray if cfg.use_occ_grid
-          else n_dense_samples(cfg))
+    sn = n_route_samples(cfg)
     noise = {'sample_jitter': torch.rand((rn, 1), generator=gen,
                                          device=device),
              'occ_score': torch.rand((rn * sn,), generator=gen,
@@ -313,17 +332,16 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
     br = base_radii(cfg)
     near, far = near_far_from_sphere(rays_o, dirs)
 
-    compact = cfg.use_occ_grid
-    if compact:
-        if cfg.compact_samples_per_ray <= 0:
-            raise NotImplementedError('the occupancy-grid sampler runs with '
-                                      'sample compaction only')
-        stride = max(int(cfg.march_stride), 1)
-        ss = step_size(cfg) * stride
-        n_cand = -(-n_march_candidates(cfg) // stride)
+    # the occupancy-grid sampler's samples are compacted into
+    # compact_samples_per_ray slots a ray; with 0 they are rendered
+    # densely, as the hierarchical sampler's are
+    compact = cfg.use_occ_grid and cfg.compact_samples_per_ray > 0
+    if cfg.use_occ_grid:
+        ss = step_size(cfg) * max(int(cfg.march_stride), 1)
         t_starts, t_ends, valid = grid_mod.occ_grid_sampling(
             occ_state, grid_mod.OccGridConfig(resolution=cfg.occ_grid_reso),
-            rays_o, dirs, near, far, ss, n_cand, cfg.occ_max_samples,
+            rays_o, dirs, near, far, ss, n_occ_candidates(cfg),
+            cfg.occ_max_samples,
             noise['sample_jitter'] if is_train else None)
         packed = None
     else:

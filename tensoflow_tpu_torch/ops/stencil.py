@@ -21,6 +21,10 @@ sdf column only at the 6 offset points.
     ``pack_weights_bf16``); anything else the float32 kernels
     (register-blocked FMAs over weights streamed through shared memory,
     zero padded by ``pack_weights_f32``).
+  * ``GeneralStencilHead`` — the same on csrc/stencil_head_general.cu,
+    for the widths the fast kernels are not built for (``head_route``:
+    3C+E >= 144, H > 256, O > 144, and in bf16 C % 4 != 0 or E > 32),
+    any width up to 3C+E <= 2048, H <= 4096, O <= 4096.
   * ``stencil_head`` / ``point_head`` — the public wrappers: the plain
     version for CPU tensors, the kernels for CUDA tensors (no fallback).
 
@@ -43,13 +47,17 @@ _PVAR_SIGN = ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1))
 _LVAR_SIGN = (0, 1, -1)
 _STENCIL = ((None, 0), (0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
 
-# launches of each kernel wrapper (read by chip_smoke.py)
+# launches of each kernel wrapper (read by chip_smoke.py): the fast
+# kernels', and beside them the general-width kernels'
 LAUNCHES = {'stencil_head_fwd': 0, 'stencil_head_bwd': 0}
+GENERAL_LAUNCHES = {'stencil_head_general_fwd': 0,
+                    'stencil_head_general_bwd': 0}
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, GENERAL_LAUNCHES):
+        for k in d:
+            d[k] = 0
 
 
 def _stencil_mapping():
@@ -245,6 +253,129 @@ def workspace_bytes_f32(S: int, n_sm: int, n: int,
               f32_splits(n_sm, rows * S)[0] * part,
               f32_splits(n_sm, rows)[0] * part]
     return sum(-(-p // 256) * 256 for p in pieces)
+
+
+# The general-width kernels (csrc/stencil_head_general.cu): X rows a
+# thread at most (16 row groups a block), rows of a staged operand chunk, columns
+# of a product tile, row pitch of the dz chunk; rows of the head's input a
+# tile at most (by S); rows a weight-gradient partial sums at most; the
+# widths they take.
+GEN_RMAX, GEN_KC, GEN_NC, GEN_NCP = 8, 32, 64, 68
+GEN_TRMAX = {1: 128, 7: 16}
+GEN_AKMAX = 1024
+GEN_KMAX, GEN_HMAX, GEN_OMAX = 2048, 4096, 4096
+PEW = 32             # PE columns the bf16 backward keeps in float32
+
+
+def _r4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def fast_takes(bf16: bool, C: int, E: int, H: int, O: int) -> bool:
+    """Whether the fast kernels are built for these widths (bf16: the
+    wgmma kernels; otherwise the float32 FMA kernels)."""
+    k0 = 3 * C + E
+    if bf16:
+        return C % 4 == 0 and k0 < XP and E <= PEW and H <= HP and O <= OP
+    return k0 < F32_XP and H <= F32_HP and O <= F32_OP
+
+
+def head_route(dtype, S: int, B: int, C: int, E: int, H: int,
+               O: int) -> str:
+    """The kernels a stencil head of these widths launches on the card:
+    'fast' (stencil_head_fwd / _bwd.cu, built for the published widths)
+    or 'general' (stencil_head_general.cu, any width up to 3C+E <=
+    GEN_KMAX, H <= GEN_HMAX, O <= GEN_OMAX).  Raises past those."""
+    if S not in (1, 7) or B not in (1, 2):
+        raise ValueError(f'stencil head: S={S}, B={B} (S in 1, 7; B in 1, 2)')
+    if fast_takes(dtype == torch.bfloat16, C, E, H, O):
+        return 'fast'
+    k0 = 3 * C + E
+    if k0 <= GEN_KMAX and H <= GEN_HMAX and O <= GEN_OMAX:
+        return 'general'
+    raise ValueError(f'stencil head: 3C+E={k0} must be <= {GEN_KMAX}, '
+                     f'H={H} <= {GEN_HMAX}, O={O} <= {GEN_OMAX} (the '
+                     'general kernels\' limits)')
+
+
+def gen_dims(C: int, E: int, H: int, O: int):
+    """(K, K4, XP, H4, O4) of the general kernels: X columns 3C+E, the
+    workspace's X row width (a ones column at K, whose dW0 row is db0),
+    the X row pitch in shared memory, hidden and layer-1 widths rounded up
+    to 4 (the padded weights' widths)."""
+    k = 3 * C + E
+    k4 = _r4(k + 1)
+    return k, k4, k4 + 4, _r4(H), _r4(O)
+
+
+def gen_smem_bytes(kind: str, S: int, C: int, E: int, H: int, O: int,
+                   tr: int) -> int:
+    """Shared memory of a general kernel's block at tr rows a tile, as
+    stencil_head_general.cu lays it out: fwd X [S tr, XP], the centre h
+    [tr, H4 + 4], a staged chunk [KC, NC]; bwd X and dX [S tr, XP], the
+    centre cotangent [tr, O4 + 4], one chunk's dz [S tr, NCP], a staged
+    chunk and the dw1row terms [16, NC]."""
+    _, _, xp, h4, o4 = gen_dims(C, E, H, O)
+    m = S * tr
+    if kind == 'fwd':
+        floats = m * xp + tr * (h4 + 4) + GEN_KC * GEN_NC
+    else:
+        floats = (2 * m * xp + tr * (o4 + 4) + m * GEN_NCP
+                  + GEN_KC * GEN_NC + 16 * GEN_NC)
+    return 4 * floats
+
+
+def gen_tile_rows(kind: str, S: int, C: int, E: int, H: int, O: int) -> int:
+    """Rows of the head's input a general kernel's tile takes: the most
+    (up to GEN_TRMAX[S]) whose block fits one SM's shared memory."""
+    tr = GEN_TRMAX[S]
+    while tr > 1 and gen_smem_bytes(kind, S, C, E, H, O, tr) > SMEM_PER_BLOCK:
+        tr -= 1
+    return tr
+
+
+def gen_splits(k: int):
+    """(splits, rows a split) of a general weight-gradient product over k
+    rows: at most GEN_AKMAX rows a split, a multiple of 32."""
+    n0 = -(-k // GEN_AKMAX)
+    chunk = -(-(-(-k // n0)) // 32) * 32
+    return -(-k // chunk), chunk
+
+
+def gen_workspace_bytes(S: int, C: int, E: int, H: int, O: int, n: int,
+                        tr: int) -> int:
+    """Bytes of the general backward's workspace, as
+    stencil_head_general.cu lays it out: X [tiles S tr, K4], dz
+    [tiles S tr, H4], the centre h [tiles tr, H4] and cotangent
+    [tiles tr, O4], one dw1row partial [H4] a tile, the split partials of
+    dW0 [splits, K4, H4] and dW1 [splits, H4, O4]; each piece padded to
+    256 bytes."""
+    _, k4, _, h4, o4 = gen_dims(C, E, H, O)
+    tiles = -(-n // tr)
+    r0, r1 = tiles * S * tr, tiles * tr
+    pieces = [r0 * k4, r0 * h4, r1 * h4, r1 * o4, tiles * h4,
+              gen_splits(r0)[0] * k4 * h4, gen_splits(r1)[0] * h4 * o4]
+    return sum(-(-4 * p // 256) * 256 for p in pieces)
+
+
+def pack_weights_general(w0, b0, w1, cd):
+    """The general kernels' weight operands from W0 [3C+E, H], b0 [H] and
+    W1 [H, O], W0 and W1 rounded to the compute dtype cd: W0 [K4, H4], W0^T
+    [H4, K4], b0 [H4], W1 [H4, O4], W1^T [O4, H4] and column 0 of W1 [H4],
+    float32, zero padded (a pad column of z meets a zero row of W1 and a
+    zero w1row entry, a pad column of X a zero row of W0)."""
+    k0, h = w0.shape
+    o = w1.shape[1]
+    _, k4, _, h4, o4 = gen_dims(0, k0, h, o)
+    f = torch.float32
+    w0p = w0.new_zeros((k4, h4), dtype=f)
+    w0p[:k0, :h] = w0.to(cd).to(f)
+    w1p = w1.new_zeros((h4, o4), dtype=f)
+    w1p[:h, :o] = w1.to(cd).to(f)
+    b0p = b0.new_zeros((h4,), dtype=f)
+    b0p[:h] = b0.to(f)
+    return (w0p, w0p.t().contiguous(), b0p, w1p, w1p.t().contiguous(),
+            w1p[:, 0].contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -472,6 +603,63 @@ def _fr_with_static_sigmas(fr, sigmas):
     return fr
 
 
+def _kernel_inputs(static, fr, pe, rot, b0, w1, rest):
+    """What both kernel routes launch on: the shapes checked, patches, PE
+    and W0 in the compute dtype, fr with the static sigmas written in,
+    float32 rot, and the outputs (out_c, out_off, the saved variants V or
+    None).  Returns (pp, lp, fr32, pe_cd, rot32, w0, out_c, out_off, v)."""
+    S, B, C, cd, sigmas, save_v = static
+    pp, lp = rest[:3 * B], rest[3 * B:6 * B]
+    w0_parts = rest[6 * B:]
+    n, E = pe.shape
+    H, O = w1.shape
+    dev = fr.device
+    _check_shapes(S, B, C, n, E, H, O, pp, lp, fr, rot, w0_parts, b0)
+    out_c = torch.empty((n, O), dtype=torch.float32, device=dev)
+    out_off = torch.empty((max(S - 1, 1), n), dtype=torch.float32,
+                          device=dev)
+    v = (torch.empty((n, vw(S, C)), dtype=cd, device=dev) if save_v
+         else None)
+    return ([p.to(cd).contiguous() for p in pp],
+            [l.to(cd).contiguous() for l in lp],
+            _fr_with_static_sigmas(fr, sigmas), pe.to(cd).contiguous(),
+            rot.float().contiguous(),
+            torch.cat([w.to(cd) for w in w0_parts], dim=0), out_c, out_off, v)
+
+
+def _cotangents(S, g_c, g_off, n, O, dev):
+    """The output cotangents as the kernels read them: float32, zeros for
+    an output that got none."""
+    f32 = torch.float32
+    g_c = (torch.zeros((n, O), dtype=f32, device=dev)
+           if g_c is None else g_c.float().contiguous())
+    if S > 1 and g_off is not None:
+        g_off = g_off.float().contiguous()
+    else:
+        g_off = torch.zeros((max(S - 1, 1), n), dtype=f32, device=dev)
+    return g_c, g_off
+
+
+def _grads_out(S, meta, dpe, db0, dw0, dw1, dw1row, dP, dL):
+    """backward's return: dw1row added into dW1's column 0 (S = 7), dW0
+    split back into its row parts, each gradient in its input's dtype."""
+    pe_dtype, b0_dtype, w1_dtype, parts = meta
+    if S > 1:
+        dw1[:, 0] += dw1row
+    dw0_parts, off = [], 0
+    for rows, dt in parts:
+        dw0_parts.append(dw0[off:off + rows].to(dt))
+        off += rows
+    # fr (stop-gradient coords) and rot (static offsets) get no grads
+    return (None, None, dpe.to(pe_dtype), None, db0.to(b0_dtype),
+            dw1.to(w1_dtype), *dP, *dL, *dw0_parts)
+
+
+def _grad_meta(pe, b0, w1, w0_parts):
+    return (pe.dtype, b0.dtype, w1.dtype,
+            [(w.shape[0], w.dtype) for w in w0_parts])
+
+
 class StencilHead(torch.autograd.Function):
     """Kernel-backed stencil head (no biases): forward = stencil_head_fwd,
     backward = stencil_head_bwd.  Inputs as for stencil_head_plain."""
@@ -479,29 +667,17 @@ class StencilHead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, static, fr, pe, rot, b0, w1, *rest):
         S, B, C, cd, sigmas, save_v = static
-        pp, lp = rest[:3 * B], rest[3 * B:6 * B]
-        w0_parts = rest[6 * B:]
         n, E = pe.shape
         H, O = w1.shape
         dev = fr.device
-        _check_shapes(S, B, C, n, E, H, O, pp, lp, fr, rot, w0_parts, b0)
-        pp = [p.to(cd).contiguous() for p in pp]
-        lp = [l.to(cd).contiguous() for l in lp]
-        fr32 = _fr_with_static_sigmas(fr, sigmas)
-        pe_cd = pe.to(cd).contiguous()
-        rot32 = rot.float().contiguous()
-        w0 = torch.cat([w.to(cd) for w in w0_parts], dim=0)
+        pp, lp, fr32, pe_cd, rot32, w0, out_c, out_off, v = _kernel_inputs(
+            static, fr, pe, rot, b0, w1, rest)
         if cd == torch.bfloat16:
             xw_k = XP
             w0_op, b0f, w1_op, w1row = pack_weights_bf16(w0, b0, w1)
         else:
             xw_k = F32_XP
             w0_op, b0f, w1_op, w1row = pack_weights_f32(w0, b0, w1)
-        out_c = torch.empty((n, O), dtype=torch.float32, device=dev)
-        out_off = torch.empty((max(S - 1, 1), n), dtype=torch.float32,
-                              device=dev)
-        v = (torch.empty((n, vw(S, C)), dtype=cd, device=dev) if save_v
-             else None)
         _check_cuda(pp + lp + [fr32, pe_cd, rot32, w0_op, b0f, w1_op, w1row],
                     'stencil_head_fwd')
         lib = _lib('stencil_head_fwd', _FWD_ARGS)
@@ -519,8 +695,7 @@ class StencilHead(torch.autograd.Function):
             ctx.save_for_backward(fr32, v, pe_cd, rot32, w0_op, b0f, w1_op,
                                   w1row)
         ctx.static = static
-        ctx.meta = (pe.dtype, b0.dtype, w1.dtype, xw_k, H, O,
-                    [(w.shape[0], w.dtype) for w in w0_parts])
+        ctx.meta = (xw_k, H, O, _grad_meta(pe, b0, w1, rest[6 * B:]))
         return out_c, (out_off if S > 1 else None)
 
     @staticmethod
@@ -529,17 +704,11 @@ class StencilHead(torch.autograd.Function):
         if not save_v:
             raise RuntimeError('StencilHead: forward ran without saving V')
         fr32, v, pe_cd, rot32, w0_op, b0f, w1_op, w1row = ctx.saved_tensors
-        pe_dtype, b0_dtype, w1_dtype, xw_k, H, O, parts = ctx.meta
+        xw_k, H, O, meta = ctx.meta
         n, E = pe_cd.shape
         dev = fr32.device
         bf = cd == torch.bfloat16
-        g_c = (torch.zeros((n, O), dtype=torch.float32, device=dev)
-               if g_c is None else g_c.float().contiguous())
-        if S > 1 and g_off is not None:
-            g_off = g_off.float().contiguous()
-        else:
-            g_off = torch.zeros((max(S - 1, 1), n), dtype=torch.float32,
-                                device=dev)
+        g_c, g_off = _cotangents(S, g_c, g_off, n, O, dev)
         w0t = None
         if not bf:
             w0t = w0_op.t().contiguous()            # [F32_HP, F32_XP]
@@ -585,15 +754,107 @@ class StencilHead(torch.autograd.Function):
             db0 = dw0[F32_XP - 1, :H]
             dw0 = dw0[:, :H]
             dw1, dw1row = dw1[:O, :H].t().contiguous(), dw1row[:H]
-        if S > 1:
-            dw1[:, 0] += dw1row
-        dw0_parts, off = [], 0
-        for rows, dt in parts:
-            dw0_parts.append(dw0[off:off + rows].to(dt))
-            off += rows
-        # fr (stop-gradient coords) and rot (static offsets) get no grads
-        return (None, None, dpe.to(pe_dtype), None, db0.to(b0_dtype),
-                dw1.to(w1_dtype), *dP, *dL, *dw0_parts)
+        return _grads_out(S, meta, dpe, db0, dw0, dw1, dw1row, dP, dL)
+
+
+_GEN_FWD_ARGS = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 13
+_GEN_BWD_ARGS = ([ctypes.c_int] * 9 + [ctypes.c_void_p] * 15
+                 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4)
+
+
+def _gen_lib():
+    lib = cuda_build.load('stencil_head_general')
+    if lib.stencil_gen_fwd_launch.argtypes is None:
+        for name, args in (('stencil_gen_fwd_launch', _GEN_FWD_ARGS),
+                           ('stencil_gen_bwd_launch', _GEN_BWD_ARGS)):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
+        lib.stencil_gen_smem.argtypes = [ctypes.c_int] * 7
+        lib.stencil_gen_smem.restype = ctypes.c_longlong
+        lib.stencil_gen_bwd_workspace.argtypes = [ctypes.c_int] * 7
+        lib.stencil_gen_bwd_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+class GeneralStencilHead(torch.autograd.Function):
+    """The stencil head on the general-width kernels (no biases): forward
+    = stencil_gen_fwd, backward = stencil_gen_bwd_rows + the weight-
+    gradient products.  Inputs as for StencilHead."""
+
+    @staticmethod
+    def forward(ctx, static, fr, pe, rot, b0, w1, *rest):
+        S, B, C, cd, sigmas, save_v = static
+        n, E = pe.shape
+        H, O = w1.shape
+        dev = fr.device
+        pp, lp, fr32, pe_cd, rot32, w0, out_c, out_off, v = _kernel_inputs(
+            static, fr, pe, rot, b0, w1, rest)
+        w0p, w0t, b0p, w1p, w1t, w1row = pack_weights_general(w0, b0, w1, cd)
+        _check_cuda(pp + lp + [fr32, pe_cd, rot32, w0p, b0p, w1p, w1row],
+                    'stencil_head_general_fwd')
+        tr = gen_tile_rows('fwd', S, C, E, H, O)
+        lib = _gen_lib()
+        pa, la = _ptr_array(pp), _ptr_array(lp)
+        err = lib.stencil_gen_fwd_launch(
+            _dtype_code(cd), S, B, n, C, E, H, O, tr, ctypes.addressof(pa),
+            ctypes.addressof(la), fr32.data_ptr(), pe_cd.data_ptr(),
+            rot32.data_ptr(), w0p.data_ptr(), b0p.data_ptr(), w1p.data_ptr(),
+            w1row.data_ptr(), out_c.data_ptr(), out_off.data_ptr(),
+            v.data_ptr() if v is not None else None, _stream(dev))
+        cuda_build.check(err, 'stencil_head_general_fwd')
+        GENERAL_LAUNCHES['stencil_head_general_fwd'] += 1
+        if save_v:
+            ctx.save_for_backward(fr32, v, pe_cd, rot32, w0p, w0t, b0p, w1t,
+                                  w1row)
+        ctx.static = static
+        ctx.meta = (H, O, _grad_meta(pe, b0, w1, rest[6 * B:]))
+        return out_c, (out_off if S > 1 else None)
+
+    @staticmethod
+    def backward(ctx, g_c, g_off):
+        S, B, C, cd, sigmas, save_v = ctx.static
+        if not save_v:
+            raise RuntimeError('GeneralStencilHead: forward ran without '
+                               'saving V')
+        fr32, v, pe_cd, rot32, w0p, w0t, b0p, w1t, w1row = ctx.saved_tensors
+        H, O, meta = ctx.meta
+        n, E = pe_cd.shape
+        dev = fr32.device
+        f32 = torch.float32
+        g_c, g_off = _cotangents(S, g_c, g_off, n, O, dev)
+        K, k4, _, h4, o4 = gen_dims(C, E, H, O)
+        tr = gen_tile_rows('bwd', S, C, E, H, O)
+        dP = [torch.empty((n, 16 * C), dtype=cd, device=dev)
+              for _ in range(3 * B)]
+        dL = [torch.empty((n, 4 * C), dtype=cd, device=dev)
+              for _ in range(3 * B)]
+        dpe = torch.empty((n, E), dtype=f32, device=dev)
+        ws_bytes = gen_workspace_bytes(S, C, E, H, O, n, tr)
+        workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+        dw0 = torch.empty((k4, h4), dtype=f32, device=dev)
+        dw1 = torch.empty((h4, o4), dtype=f32, device=dev)
+        dw1row = torch.empty((h4,), dtype=f32, device=dev)
+        _check_cuda([g_c, g_off], 'stencil_head_general_bwd')
+        lib = _gen_lib()
+        pa, la = _ptr_array(dP), _ptr_array(dL)
+        err = lib.stencil_gen_bwd_launch(
+            _dtype_code(cd), S, B, n, C, E, H, O, tr, fr32.data_ptr(),
+            v.data_ptr(), pe_cd.data_ptr(), rot32.data_ptr(),
+            w0p.data_ptr(), w0t.data_ptr(), b0p.data_ptr(), w1t.data_ptr(),
+            w1row.data_ptr(), g_c.data_ptr(), g_off.data_ptr(),
+            ctypes.addressof(pa), ctypes.addressof(la), dpe.data_ptr(),
+            workspace.data_ptr(), ws_bytes, dw0.data_ptr(), dw1.data_ptr(),
+            dw1row.data_ptr(), _stream(dev))
+        cuda_build.check(err, 'stencil_head_general_bwd')
+        GENERAL_LAUNCHES['stencil_head_general_bwd'] += 1
+        db0 = dw0[K, :H]
+        dw0, dw1, dw1row = dw0[:K, :H], dw1[:H, :O], dw1row[:H]
+        if cd == torch.bfloat16:
+            # the plain version's weight gradients pass through W0.to(bf16),
+            # W1.to(bf16) and W1[:, 0].to(bf16): each is rounded there
+            dw0, dw1, dw1row = (t.to(cd).to(f32) for t in (dw0, dw1, dw1row))
+        return _grads_out(S, meta, dpe, db0, dw0, dw1.contiguous(), dw1row,
+                          dP, dL)
 
 
 def _head(S, pp, lp, fr, sigmas, pe, rot, w0_parts, b0, w1, b1):
@@ -609,8 +870,10 @@ def _head(S, pp, lp, fr, sigmas, pe, rot, w0_parts, b0, w1, b1):
     save_v = torch.is_grad_enabled() and any(t.requires_grad
                                              for t in tensors)
     static = (S, B, C, cd, tuple(sigmas), save_v)
-    out_c, out_off = StencilHead.apply(static, fr, pe, rot, b0, w1, *pp,
-                                       *lp, *w0_parts)
+    fn = (StencilHead if head_route(cd, S, B, C, pe.shape[-1], *w1.shape)
+          == 'fast' else GeneralStencilHead)
+    out_c, out_off = fn.apply(static, fr, pe, rot, b0, w1, *pp, *lp,
+                              *w0_parts)
     out_c = out_c + b1[None, :]
     return out_c, (out_off + b1[0] if out_off is not None else None)
 

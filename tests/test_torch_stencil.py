@@ -22,7 +22,11 @@ torch.set_num_threads(1)
 RTOL, ATOL = 1e-6, 2e-6
 
 
-def _inputs(S, B, dynamic, seed=0, C=4, E=5, H=8, O=3, N=16):
+def _inputs(S, B, dynamic, seed=0, C=4, E=5, H=8, O=3, N=16,
+            fan_in=False):
+    """Head inputs from a seed; with ``fan_in`` the weights are scaled by
+    their fan-in's inverse square root (as a layer's init is), which keeps
+    z and the outputs O(1) at wide heads."""
     rng = np.random.RandomState(seed)
     pp = [(rng.randn(N, 16 * C) * 0.3).astype(np.float32)
           for _ in range(3 * B)]
@@ -42,9 +46,11 @@ def _inputs(S, B, dynamic, seed=0, C=4, E=5, H=8, O=3, N=16):
                                (1.0, 1.0, 1.0))[:3])
     pe = (rng.randn(N, E) * 0.3).astype(np.float32)
     rot = (rng.randn(S, 4, E) * 0.5).astype(np.float32)
-    w0p = [(rng.randn(d, H) * 0.3).astype(np.float32) for d in (C, C, C, E)]
+    s0 = (3 * C + E) ** -0.5 if fan_in else 0.3
+    s1 = H ** -0.5 if fan_in else 0.3
+    w0p = [(rng.randn(d, H) * s0).astype(np.float32) for d in (C, C, C, E)]
     b0 = (rng.randn(H) * 0.3).astype(np.float32)
-    w1 = (rng.randn(H, O) * 0.3).astype(np.float32)
+    w1 = (rng.randn(H, O) * s1).astype(np.float32)
     b1 = (rng.randn(O) * 0.3).astype(np.float32)
     return dict(pp=pp, lp=lp, fr=fr, sigmas=tuple(sig_static), pe=pe,
                 rot=rot, w0p=w0p, b0=b0, w1=w1, b1=b1, C=C, N=N)
@@ -392,3 +398,214 @@ def test_f32_sizing_matches_the_library_on_the_card():
     assert lib.stencil_head_bwd_f32_info(1, 0, 0, buf) == 0
     assert (buf[0], buf[2], buf[3]) == (
         pst.F32_BLOCKS_PER_SM['atb'], 0, pst.f32_smem_bytes('atb'))
+
+
+# ---------------------------------------------------------------------------
+# widths past the fast kernels: the general-width kernels' route
+# ---------------------------------------------------------------------------
+
+# NeuS's SDF network at the published C = 36 (E = 3 + 6*6 = 39, 3C+E = 147)
+# with H and O just past the fast kernels' 256 and 144
+WIDE = dict(C=36, E=39, H=264, O=150, N=16)
+
+
+@pytest.mark.parametrize('S,B,dynamic', [(7, 2, True), (1, 1, False)])
+def test_plain_head_matches_jax_head_past_the_fast_widths(S, B, dynamic):
+    """The JAX Pallas head sizes its X scratch from the shapes and takes
+    any H and O: the port's plain head (what a CPU tensor takes, and what
+    the general kernels are held to on the card) matches it there too,
+    outputs and every gradient."""
+    d = _inputs(S, B, dynamic, seed=5 + S + B, fan_in=True, **WIDE)
+    assert pst.head_route(torch.float32, S, B, WIDE['C'], WIDE['E'],
+                          WIDE['H'], WIDE['O']) == 'general'
+    joc, joo, jg = _jax_head(S, B, d)
+    toc, too, tg = _torch_head(S, B, d)
+    assert toc.shape == (WIDE['N'], WIDE['O'])
+    np.testing.assert_allclose(toc.detach().numpy(), np.asarray(joc),
+                               rtol=RTOL, atol=ATOL)
+    if S == 7:
+        np.testing.assert_allclose(too.detach().numpy(), np.asarray(joo),
+                                   rtol=RTOL, atol=ATOL)
+    jl = jax.tree_util.tree_leaves(jg)
+    tl = [g for g in jax.tree_util.tree_leaves(
+        tg, is_leaf=lambda x: isinstance(x, torch.Tensor))]
+    assert len(jl) == len(tl)
+    for k, (a, b) in enumerate(zip(jl, tl)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=RTOL,
+                                   atol=ATOL, err_msg=f'grad leaf {k}')
+
+
+@pytest.mark.parametrize('C,E,H,O', [(36, 21, 256, 129), (16, 21, 128, 65),
+                                     (12, 21, 128, 65), (4, 5, 8, 3),
+                                     (4, 21, 32, 17)])
+def test_route_takes_the_fast_kernels_at_their_widths(C, E, H, O):
+    """The published widths (compressor: C=36, E=21, H=256, O=129), the
+    evidence runs' (C=16 / 12, H=128, O=65) and the toy ones keep the fast
+    kernels, in both dtypes, for every S and B."""
+    for cd in (torch.float32, torch.bfloat16):
+        for S in (1, 7):
+            for B in (1, 2):
+                assert pst.head_route(cd, S, B, C, E, H, O) == 'fast'
+    assert pst.fast_takes(True, C, E, H, O) and pst.fast_takes(False, C, E,
+                                                                 H, O)
+
+
+@pytest.mark.parametrize('cd,C,E,H,O', [
+    (torch.float32, 36, 39, 256, 257),      # NeuS: 3C+E = 147, O = 257
+    (torch.float32, 41, 21, 256, 129),      # 3C+E = 144
+    (torch.float32, 36, 21, 260, 129),      # H > 256
+    (torch.float32, 36, 21, 256, 145),      # O > 144
+    (torch.bfloat16, 36, 39, 256, 257),
+    (torch.bfloat16, 18, 21, 256, 129),     # C % 4 != 0
+    (torch.bfloat16, 4, 33, 64, 17),        # E > 32
+    (torch.bfloat16, 36, 21, 512, 129),     # H > 256
+    (torch.float32, 680, 8, 4096, 4096),    # the general kernels' corner
+])
+def test_route_sends_each_refused_width_to_the_general_kernels(cd, C, E, H,
+                                                                O):
+    for S in (1, 7):
+        for B in (1, 2):
+            assert pst.head_route(cd, S, B, C, E, H, O) == 'general'
+    # the fast packers still refuse them: they belong to the fast kernels
+    pack = pst.pack_weights_bf16 if cd == torch.bfloat16 \
+        else pst.pack_weights_f32
+    if (3 * C + E >= pst.XP or H > pst.HP or O > pst.OP):
+        with pytest.raises(ValueError):
+            pack(torch.zeros(3 * C + E, H), torch.zeros(H),
+                 torch.zeros(H, O))
+
+
+@pytest.mark.parametrize('C,E,H,O', [(683, 0, 256, 129), (36, 21, 4100, 129),
+                                     (36, 21, 256, 4097)])
+def test_route_refuses_past_the_general_limits(C, E, H, O):
+    with pytest.raises(ValueError, match='general kernels'):
+        pst.head_route(torch.float32, 7, 1, C, E, H, O)
+    with pytest.raises(ValueError):
+        pst.head_route(torch.float32, 3, 1, 36, 21, 256, 129)
+
+
+@pytest.mark.parametrize('S', [1, 7])
+@pytest.mark.parametrize('widths', [(36, 39, 256, 257), (48, 39, 512, 257),
+                                    (18, 21, 256, 129), (682, 2, 4096, 4096),
+                                    (1, 1, 1, 1)])
+def test_general_tiles_and_shared_memory_fit(S, widths):
+    """Every width the general kernels take gets a tile of at least one
+    row whose block fits the SM's shared memory, at most 128 X rows (16
+    row groups of at most 8 rows a thread), the largest such tile (one
+    row more would not fit or is past the cap); the X pitch keeps 16-byte
+    rows with room for the ones column."""
+    C, E, H, O = widths
+    k, k4, xp, h4, o4 = pst.gen_dims(*widths)
+    assert k == 3 * C + E and k4 > k and k4 % 4 == 0 and xp % 4 == 0
+    assert h4 >= H and o4 >= O and h4 % 4 == 0 and o4 % 4 == 0
+    for kind in ('fwd', 'bwd'):
+        tr = pst.gen_tile_rows(kind, S, *widths)
+        assert 1 <= tr <= pst.GEN_TRMAX[S]
+        assert S * tr <= 16 * pst.GEN_RMAX
+        assert pst.gen_smem_bytes(kind, S, *widths, tr) <= pst.SMEM_PER_BLOCK
+        if tr < pst.GEN_TRMAX[S]:
+            assert pst.gen_smem_bytes(kind, S, *widths, tr + 1) \
+                > pst.SMEM_PER_BLOCK
+    # the NeuS widths keep full tiles
+    if widths == (36, 39, 256, 257):
+        assert pst.gen_tile_rows('bwd', S, *widths) == pst.GEN_TRMAX[S] \
+            or S == 1
+
+
+@pytest.mark.parametrize('S', [1, 7])
+@pytest.mark.parametrize('n', [1, 1003, 131072])
+def test_general_workspace_sizing(S, n):
+    """The general backward's workspace holds X (with its ones column),
+    dz, the centre h and cotangent of every tile, one dw1row partial a
+    tile and the split partials of dW0 and dW1, whose splits of at most
+    1024 rows (a multiple of 32) cover every row once."""
+    widths = (36, 39, 256, 257)
+    tr = pst.gen_tile_rows('bwd', S, *widths)
+    _, k4, _, h4, o4 = pst.gen_dims(*widths)
+    tiles = -(-n // tr)
+    r0, r1 = tiles * S * tr, tiles * tr
+    for k in (r0, r1):
+        splits, chunk = pst.gen_splits(k)
+        assert chunk % 32 == 0 and chunk <= pst.GEN_AKMAX
+        assert (splits - 1) * chunk < k <= splits * chunk
+    total = pst.gen_workspace_bytes(S, *widths, n, tr)
+    assert total % 256 == 0
+    need = 4 * (r0 * (k4 + h4) + r1 * (h4 + o4) + tiles * h4
+                + pst.gen_splits(r0)[0] * k4 * h4
+                + pst.gen_splits(r1)[0] * h4 * o4)
+    assert need <= total < need + 7 * 256
+    assert pst.gen_workspace_bytes(S, *widths, n + tr, tr) > total
+
+
+@pytest.mark.parametrize('cd', [torch.float32, torch.bfloat16])
+def test_pack_weights_general_round_trips(cd):
+    """The general kernels' operands hold W0 and W1 rounded to the compute
+    dtype at their plain positions (W0^T and W1^T too), zeros elsewhere;
+    a padded X row through them gives the plain z and head outputs, and
+    its ones column turns the dW0 product into db0."""
+    C, E, H, O = 5, 7, 30, 13
+    rng = np.random.RandomState(3)
+    k0 = 3 * C + E
+    w0 = torch.tensor(rng.randn(k0, H).astype(np.float32))
+    b0 = torch.tensor(rng.randn(H).astype(np.float32))
+    w1 = torch.tensor(rng.randn(H, O).astype(np.float32))
+    w0p, w0t, b0p, w1p, w1t, w1row = pst.pack_weights_general(w0, b0, w1, cd)
+    _, k4, _, h4, o4 = pst.gen_dims(C, E, H, O)
+    assert w0p.shape == (k4, h4) and w1p.shape == (h4, o4)
+    assert torch.equal(w0t, w0p.t()) and torch.equal(w1t, w1p.t())
+    assert torch.equal(w0p[:k0, :H], w0.to(cd).float())
+    assert torch.equal(w1p[:H, :O], w1.to(cd).float())
+    assert torch.equal(w1row, w1p[:, 0]) and torch.equal(b0p[:H], b0)
+    assert float(w0p[k0:].abs().sum() + w0p[:, H:].abs().sum()) == 0
+    assert float(w1p[H:].abs().sum() + w1p[:, O:].abs().sum()) == 0
+    x = torch.tensor(rng.randn(6, k0)).double()
+    xp = torch.zeros(6, k4).double()
+    xp[:, :k0] = x
+    xp[:, k0] = 1.0
+    z = xp @ w0p.double() + b0p.double()
+    np.testing.assert_allclose(
+        z[:, :H].numpy(), (x @ w0.to(cd).double() + b0.double()).numpy(),
+        rtol=1e-12, atol=1e-12)
+    h = torch.nn.functional.softplus(z, beta=100)
+    np.testing.assert_allclose((h @ w1p.double())[:, :O].numpy(),
+                               (h[:, :H] @ w1.to(cd).double()).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    dz = torch.tensor(rng.randn(6, h4)).double()
+    np.testing.assert_allclose((xp.t() @ dz)[k0].numpy(), dz.sum(0).numpy(),
+                               rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_general_kernels_match_plain_on_the_card():
+    """The general kernels, forward and backward, against the plain version
+    on the card (the checks chip_smoke.py makes) at small N, the widths'
+    sizing as the library computes it, and two bit-identical backward
+    runs."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (run: python3 chip_smoke.py)')
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    neus, wide, b18 = (36, 39, 256, 257), (48, 39, 512, 257), \
+        (18, 21, 256, 129)
+    pst.reset_launches()
+    for cd in (torch.float32, torch.bfloat16):
+        for S, B, n, w in ((7, 1, 1003, neus), (7, 2, 4096, neus),
+                           (1, 2, 1003, wide), (7, 1, 1003, b18)):
+            chip_smoke.check_case(f'general S={S} B={B}', n, S, B, cd,
+                                  seed=S + B, widths=w)
+    assert pst.LAUNCHES == {'stencil_head_fwd': 0, 'stencil_head_bwd': 0}
+    assert pst.GENERAL_LAUNCHES['stencil_head_general_bwd'] > 0
+    chip_smoke.check_bwd_deterministic(4096, 7, 2, 12, widths=neus)
+    lib = pst._gen_lib()
+    for S in (1, 7):
+        for w in (neus, wide, b18):
+            for kind in ('fwd', 'bwd'):
+                tr = pst.gen_tile_rows(kind, S, *w)
+                assert lib.stencil_gen_smem(int(kind == 'bwd'), S, *w, tr) \
+                    == pst.gen_smem_bytes(kind, S, *w, tr)
+            for n in (1003, 131072):
+                assert lib.stencil_gen_bwd_workspace(S, n, *w, tr) \
+                    == pst.gen_workspace_bytes(S, *w, n, tr)

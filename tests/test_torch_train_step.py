@@ -42,8 +42,8 @@ OVERRIDES = [
 CFG_PATH = 'configs/shape/syn/compressor_occ.yaml'
 
 
-def _jax_trainer():
-    cfg = jconfig.load_config(CFG_PATH, overrides=OVERRIDES
+def _jax_trainer(extra=()):
+    cfg = jconfig.load_config(CFG_PATH, overrides=OVERRIDES + list(extra)
                               + ['stencil_impl=pallas', 'stencil_tile=64'])
     t = JaxShapeTrainer(cfg)
     # geometric init zeroes W0's feature rows: noise them so the
@@ -81,8 +81,8 @@ class _JaxDrawsTrainer(ShapeTrainer):
                     jax.random.uniform(k_occ, (m,))).copy())}
 
 
-def _port_trainer(jt):
-    cfg = pconfig.load_config(CFG_PATH, overrides=OVERRIDES)
+def _port_trainer(jt, extra=()):
+    cfg = pconfig.load_config(CFG_PATH, overrides=OVERRIDES + list(extra))
     pt = _JaxDrawsTrainer(cfg, jt.rng)
     pt.set_params(params_from_jax(jax.tree.map(np.asarray, jt.params)))
     pt.occ_state = occ_state_from_jax(jax.tree.map(np.asarray, jt.occ_state))
@@ -190,3 +190,35 @@ def test_three_step_loss_trace_matches_jax(runs):
                   'loss_occ', 'sample_num'):
             np.testing.assert_allclose(pl[k], jt[k], rtol=1e-3, atol=1e-7,
                                        err_msg=f'step {step} {k}')
+
+
+# NeuS's published SDF network (confs/womask.conf: multires 6, a 256-wide
+# feature) on the port's widths: E = 3 + 6*6 = 39 PE columns and an
+# appearance head of O = 1 + 256 columns, past what the fast stencil
+# kernels are built for (the general kernels take them on the card)
+NEUS_WIDTHS = ['sdf_multires=6', 'app_dim=256']
+
+
+def test_step_at_neus_widths_matches_jax():
+    """One training step at the NeuS widths (narrow C and H): loss terms
+    and every parameter gradient against the JAX step, at the tolerances
+    of the module docstring."""
+    from tensoflow_tpu_torch.ops import stencil as pst
+    jt = _jax_trainer(NEUS_WIDTHS)
+    pt = _port_trainer(jt, NEUS_WIDTHS)
+    sdf = pt.rcfg.sdf
+    C, E = sdf.n_comp, 3 + 6 * sdf.sdf_multires
+    assert pst.head_route(torch.float32, 7, 1, C, E, sdf.sdf_dim,
+                          1 + sdf.app_dim) == 'general'
+    (j_terms, j_grads), = _jax_run(jt, 1)[0]
+    p_terms, = pt.train(n_steps=1, log_every=1)
+    for k, v in j_terms.items():
+        np.testing.assert_allclose(p_terms[k], v, rtol=1e-4, atol=1e-7,
+                                   err_msg=k)
+    p_grads = {path: t.grad.numpy() for path, t in named_leaves(pt.params)}
+    assert sorted(j_grads) == sorted(p_grads)
+    assert p_grads[('sdf', 'mlp', 1, 'w')].shape == (sdf.sdf_dim, 257)
+    for path, jg in j_grads.items():
+        scale = float(np.abs(jg).max()) + 1e-12
+        np.testing.assert_allclose(p_grads[path] / scale, jg / scale,
+                                   atol=1e-3, err_msg=f'grad {path}')
