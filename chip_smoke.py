@@ -32,10 +32,13 @@ launch of the process):
                head_route), fwd and bwd against the plain version at
                GEN_CASES: NeuS's widths (C=36, E=39, H=256, O=257), a wider
                head (C=48, H=512) and a bf16 head with C % 4 != 0 (C=18,
-               E=21), S in {1, 7}, B in {1, 2}, N = 131,072 and 1,003;
-               two bit-identical backward runs in each dtype; times at
-               N = 131,072, B=1 and B=2, float32, beside the plain version
-               and the bound.
+               E=21), S in {1, 7}, B in {1, 2}, N = 131,072, 1,003 and
+               512 (a render chunk's); two bit-identical backward runs in
+               each dtype; what the card gives each general kernel
+               (blocks per SM, registers, spills, shared memory); times
+               at N = 131,072, B=1 and B=2, float32, beside the plain
+               version and the bound, and the forward's at N = 512 and
+               4,096 (a render and a relight chunk).
   3. slice   — first a small float32 configuration trained for 2 steps on
                the card and on the CPU (plain versions) from the same
                parameters, batches and noise, loss terms compared; then
@@ -180,7 +183,9 @@ launch of the process):
                inputs, a rendered view, the mesh at 128^3; stage 2 on a
                checkpoint at these widths (2 steps card vs CPU, a render, a
                relight_view chunk); compressor_occ.yaml without compaction
-               at these widths, 2 + 4 timed steps at 128^3.
+               at these widths, 2 + 4 timed steps at 128^3.  Its 512^3
+               step is profiled at the end with the others (device time,
+               the general kernels' share, idle share).
   4. probes  — the four tile-gather kernels (ops/tile_gather.py) against
                their plain versions and torch.index_select / torch.gather
                at every shape of the gather probes and at the ragged
@@ -720,9 +725,67 @@ GEN_NEUS, GEN_WIDE, GEN_BF18 = ((36, 39, 256, 257), (48, 39, 512, 257),
                                 (18, 21, 256, 129))
 GEN_CASES = ((7, 1, N_MAIN, GEN_NEUS), (7, 2, N_MAIN, GEN_NEUS),
              (1, 2, 1003, GEN_NEUS), (7, 2, 1003, GEN_NEUS),
+             (7, 2, 512, GEN_NEUS),
              (1, 1, N_MAIN, GEN_WIDE), (7, 1, 1003, GEN_WIDE),
              (7, 1, N_MAIN, GEN_BF18), (1, 2, 1003, GEN_BF18))
 GEN_SOURCE = 'tensoflow_tpu_torch/csrc/stencil_head_general.cu'
+# the forward's chunk sizes off the training step: a stage-2 render chunk
+# of 512 rays (one surface point a ray), a relight chunk of 4,096
+GEN_SMALL_N = (512, 4096)
+
+
+def gen_kernel_info(widths, kind, S=7, B=2, tr=None, dtype=0):
+    """Blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local (spill) bytes a thread and shared memory a block
+    of a general kernel at ``widths`` (C, E, H, O): kind 'fwd', 'bwd'
+    (the row kernel, at tr rows a tile: the route's own by default),
+    'atb_dw0' or 'atb_dw1' (the weight-gradient product at dW0's or
+    dW1's output shape), from the library's own entry point."""
+    import ctypes
+    from tensoflow_tpu_torch.ops import stencil as st
+    if tr is None:
+        tr = st.gen_tile_rows('fwd' if kind == 'fwd' else 'bwd', S, *widths)
+    code = {'fwd': 0, 'bwd': 1, 'atb_dw0': 2, 'atb_dw1': 3}[kind]
+    buf = (ctypes.c_int * 4)()
+    err = st._gen_lib().stencil_gen_info(code, dtype, S, B, *widths, tr, buf)
+    if err != 0:
+        raise RuntimeError(f'stencil_gen_info {kind} {widths}: CUDA error '
+                           f'{err}')
+    return dict(blocks_per_sm=buf[0], registers=buf[1], spill_bytes=buf[2],
+                smem_bytes=buf[3])
+
+
+def time_gen_fwd_small(card, n, seed=21):
+    """The general forward (float32, NeuS widths, B=2, no gradient, as a
+    render or relight chunk calls it) at n rows: its device time from the
+    profiler (20 calls) and the wrapper's by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+    from tensoflow_tpu_torch.ops import stencil as st
+    c, e, h, o = GEN_NEUS
+    d = head_inputs(n, 7, 2, torch.float32, seed, (c, h, o), e)
+
+    def call():
+        with torch.no_grad():
+            return st.stencil_head(d['pp'], d['lp'], d['fr'], d['sigmas'],
+                                   d['pe'], d['rot'], d['w0p'], d['b0'],
+                                   d['w1'], d['b1'])
+    wrapper_ms = cuda_ms(call, iters=20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    dev_ms = _device_ms(prof, KERNEL_NAMES['general'][0], 20)
+    (fb, fo), _ = head_bytes_ops(n, 7, 2, torch.float32, widths=GEN_NEUS)
+    fb -= n * st.vw(7, c) * 4          # no V is saved without a gradient
+    bound, by = bound_ms(fb, fo, torch.float32)
+    print(f'[kernels] general fwd B=2 N={n} f32 (C, E, H, O) = {GEN_NEUS} '
+          f'on {card}: kernel {dev_ms:.4f} ms (wrapper {wrapper_ms:.4f}), '
+          f'bound {bound:.4f} ms ({by}: {fb / 1e9:.4f} GB, '
+          f'{fo / 1e9:.2f} GFLOP), grid '
+          f'{st.gen_grid("fwd", st._n_sm(torch.device("cuda")), 7, *GEN_NEUS, n)}'
+          ' blocks', flush=True)
+    return dict(ms=dev_ms, wrapper_ms=wrapper_ms, bound_ms=bound,
+                bound_by=by)
 
 
 def phase_general_kernels(card):
@@ -746,6 +809,26 @@ def phase_general_kernels(card):
                 f'general S={S} B={B} {tag} N={n} (C, E, H, O) = {w}', n, S,
                 B, cd, seed=S + 3 * B + n % 97, widths=w)
         check_bwd_deterministic(N_MAIN, 7, 2, 12, widths=GEN_NEUS, cd=cd)
+    info = {k: gen_kernel_info(GEN_NEUS, k)
+            for k in ('fwd', 'bwd', 'atb_dw0', 'atb_dw1')}
+    for k, v in info.items():
+        print(f'[kernels] general {k} f32 S=7 B=2 (C, E, H, O) = {GEN_NEUS} '
+              f'on {card}: {v["blocks_per_sm"]} blocks/SM, '
+              f'{v["registers"]} registers, {v["spill_bytes"]} spill bytes, '
+              f'{v["smem_bytes"]} B smem', flush=True)
+    for kind in ('fwd', 'bwd'):
+        tr = st.gen_tile_rows(kind, 7, *GEN_NEUS)
+        want = st.gen_blocks_per_sm(kind, st.gen_smem_bytes(kind, 7,
+                                                            *GEN_NEUS, tr))
+        if info[kind]['blocks_per_sm'] < want:
+            raise AssertionError(f'general {kind}: the card holds '
+                                 f'{info[kind]["blocks_per_sm"]} blocks a '
+                                 f'SM, the grid counts on {want}')
+    occupancy = {'stencil_head_general_fwd': {'stencil_gen_fwd': info['fwd']},
+                 'stencil_head_general_bwd': {
+                     'stencil_gen_bwd_rows': info['bwd'],
+                     'stencil_gen_atb dW0': info['atb_dw0'],
+                     'stencil_gen_atb dW1': info['atb_dw1']}}
     rows = {}
     for B in (1, 2):
         t = time_head(N_MAIN, 7, B, torch.float32, seed=5, widths=GEN_NEUS)
@@ -760,7 +843,8 @@ def phase_general_kernels(card):
             ms = t['device'][i] if t['device'][i] is not None \
                 else t['kernel'][i]
             row[k] = dict(max_abs_err=err[i], ms=ms, plain_ms=t['plain'][i],
-                          bound_ms=bound, bound_by=by)
+                          bound_ms=bound, bound_by=by,
+                          occupancy=occupancy[k])
             print(f'[kernels] general B={B} N={N_MAIN} f32 (C, E, H, O) = '
                   f'{GEN_NEUS} {k} on {card}: {ms:.3f} ms (wrapper '
                   f'{t["kernel"][i]:.3f}), plain {t["plain"][i]:.3f} ms, '
@@ -768,6 +852,7 @@ def phase_general_kernels(card):
                   f'{no / 1e9:.1f} GFLOP), share of bound '
                   f'{bound / ms:.3f}', flush=True)
         rows[B] = row
+    rows['small'] = {n: time_gen_fwd_small(card, n) for n in GEN_SMALL_N}
     print(f'[kernels] general kernels phase in {time.perf_counter() - t0:.1f}'
           ' s', flush=True)
     return rows
@@ -3072,7 +3157,8 @@ def phase_general(card, hier_ms, timed_steps=5, occ_steps=4):
     (card vs CPU, a render and a relight_view chunk); (d)
     compressor_occ.yaml without compaction at NEUS_WIDTHS: an occupancy
     update, then ``occ_steps`` timed steps at 128^3.  Returns the
-    general kernels' launches on (b)'s main path and its errors."""
+    general kernels' launches on (b)'s main path, its errors, its 512^3
+    step ms and its trainer (profiled last, by main)."""
     import numpy as np
     from tensoflow_tpu_torch import extract_mesh, relight_orb
     from tensoflow_tpu_torch.models import shape_renderer as sr
@@ -3182,7 +3268,7 @@ def phase_general(card, hier_ms, timed_steps=5, occ_steps=4):
           f'{mesh_s:.1f} s: {len(verts)} vertices, {len(tris)} triangles '
           f'(sdf_only: the field\'s plain head, stencil launches '
           f'{mesh_launches})', flush=True)
-    del trainer, out
+    del out
     torch.cuda.empty_cache()
 
     # (c) stage 2 on a checkpoint at these widths
@@ -3240,7 +3326,8 @@ def phase_general(card, hier_ms, timed_steps=5, occ_steps=4):
     torch.cuda.empty_cache()
     print(f'[general] phase in {time.perf_counter() - t_phase:.1f} s',
           flush=True)
-    return {k: launches[k] for k in st.GENERAL_LAUNCHES}, errs, step_ms
+    return ({k: launches[k] for k in st.GENERAL_LAUNCHES}, errs, step_ms,
+            trainer)
 
 
 def sub_main(argv):
@@ -3995,7 +4082,8 @@ def main():
     var = phase_variants(card, geo, hier_trainer, mat_phase_ms)
     sharded_launches = phase_sharded(card, geo)
     conv_launches, conv_errs = phase_convergence(card)
-    gen_launches, gen_errs, gen_step_ms = phase_general(card, hier_ms)
+    gen_launches, gen_errs, gen_step_ms, gen_trainer = phase_general(
+        card, hier_ms)
     kinds = phase_kernels(card)
     gen_rows = phase_general_kernels(card)
     gather_kinds, gather_launches = phase_probes(card)
@@ -4012,6 +4100,9 @@ def main():
                  tag='human_light')
     profile_step(var['mat_trainer'], card, var['mat_ms'],
                  tag='stage2_all')
+    # the NeuS-width 512^3 step of phase 3i: its device time, the general
+    # kernels' share of it, and the idle share
+    profile_step(gen_trainer, card, gen_step_ms, tag='general_step')
     for k, n in gather_launches.items():
         if n <= 0:
             raise AssertionError(f'{k} was not launched by microbench_r3')
@@ -4058,7 +4149,9 @@ def main():
             'launches': gen_launches[k], 'library_ms': None, **row,
             'dtype': 'float32', 'B': 2, 'widths_CEHO': list(GEN_NEUS),
             'step_ms_512': gen_step_ms,
-            'other_rows': {'f32 B=1': gen_rows[1][k]}})
+            'other_rows': {'f32 B=1': gen_rows[1][k], **(
+                {f'f32 B=2 N={n}': r for n, r in gen_rows['small'].items()}
+                if k.endswith('fwd') else {})}})
     print(json.dumps({'kernels': stencil + [
         {'name': k, 'route': 'cuda',
          'source': 'tensoflow_tpu_torch/csrc/tile_gather.cu',

@@ -255,20 +255,28 @@ def workspace_bytes_f32(S: int, n_sm: int, n: int,
     return sum(-(-p // 256) * 256 for p in pieces)
 
 
-# The general-width kernels (csrc/stencil_head_general.cu): X rows a
-# thread at most (16 row groups a block), rows of a staged operand chunk, columns
-# of a product tile, row pitch of the dz chunk; rows of the head's input a
-# tile at most (by S); rows a weight-gradient partial sums at most; the
+# The general-width kernels (csrc/stencil_head_general.cu): threads of a
+# row block (28 row groups x 16 column groups), hidden columns a pass,
+# floats of a forward / backward ring slot, dX columns a register window;
+# rows of the head's input a tile at most (by S); rows a weight-gradient
+# partial sums at most; row blocks a SM the kernels are built for; the
 # widths they take.
-GEN_RMAX, GEN_KC, GEN_NC, GEN_NCP = 8, 32, 64, 68
-GEN_TRMAX = {1: 128, 7: 16}
+GEN_NT, GEN_HW, GEN_FSLOT, GEN_BSLOT, GEN_DXW = 448, 128, 3960, 5120, 160
+GEN_STAGE = 2                        # ring slots of both row kernels
+GEN_DHG = 4                          # K groups of the backward's dh at most
+GEN_TRMAX = {1: 112, 7: 16}
 GEN_AKMAX = 1024
+GEN_BLOCKS_PER_SM = {'fwd': 2, 'bwd': 1}
 GEN_KMAX, GEN_HMAX, GEN_OMAX = 2048, 4096, 4096
 PEW = 32             # PE columns the bf16 backward keeps in float32
 
 
 def _r4(x: int) -> int:
     return -(-x // 4) * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def fast_takes(bf16: bool, C: int, E: int, H: int, O: int) -> bool:
@@ -299,29 +307,55 @@ def head_route(dtype, S: int, B: int, C: int, E: int, H: int,
 
 
 def gen_dims(C: int, E: int, H: int, O: int):
-    """(K, K4, XP, H4, O4) of the general kernels: X columns 3C+E, the
+    """(K, K4, H4, O4) of the general kernels: X columns 3C+E, the
     workspace's X row width (a ones column at K, whose dW0 row is db0),
-    the X row pitch in shared memory, hidden and layer-1 widths rounded up
-    to 4 (the padded weights' widths)."""
+    hidden and layer-1 widths rounded up to 4 (the padded weights'
+    widths)."""
     k = 3 * C + E
-    k4 = _r4(k + 1)
-    return k, k4, k4 + 4, _r4(H), _r4(O)
+    return k, _r4(k + 1), _r4(H), _r4(O)
+
+
+def gen_plan(S: int, C: int, E: int, H: int, O: int, tr: int) -> dict:
+    """What the widths decide in the general kernels at tr rows a tile, as
+    stencil_head_general.cu make_plan computes it: X rows m = S tr, the
+    backward's X^T pitch ms and the forward's msf, tr rounded to 4; the
+    forward's layer-1 split (g1 K groups of 4x8 units over owp = 8 cgp
+    columns a pass, n1pass passes); the backward's dh split (gd groups)
+    and dX windows (nwin)."""
+    k, k4, h4, o4 = gen_dims(C, E, H, O)
+    m = S * tr
+    ms, trp = _r4(m) + 4, _r4(tr)
+    rg1 = trp // 4
+    cg1 = _cdiv(o4, 8)
+    cgmax = min(GEN_NT // rg1, GEN_FSLOT // 32)
+    n1pass = _cdiv(cg1, cgmax)
+    cgp = _cdiv(cg1, n1pass)
+    owp = 8 * cgp
+    g1 = min(GEN_NT // (rg1 * cgp), GEN_FSLOT // (4 * owp))
+    gd = min(GEN_NT // (trp // 4 * 16), ms // trp, GEN_DHG)
+    return dict(K=k, K4=k4, H4=h4, O4=o4, TR=tr, M=m, MS=ms, MSF=_r4(m),
+                TRP=trp,
+                npass=_cdiv(h4, GEN_HW), rg1=rg1, cgp=cgp, owp=owp,
+                n1pass=n1pass, g1=g1, kq1=GEN_FSLOT // (owp * g1), gd=gd,
+                kqd=GEN_BSLOT // (GEN_HW * gd), nwin=_cdiv(k4, GEN_DXW),
+                r0f=max(k4 * _r4(m), (g1 - 1) * trp * owp))
 
 
 def gen_smem_bytes(kind: str, S: int, C: int, E: int, H: int, O: int,
                    tr: int) -> int:
     """Shared memory of a general kernel's block at tr rows a tile, as
-    stencil_head_general.cu lays it out: fwd X [S tr, XP], the centre h
-    [tr, H4 + 4], a staged chunk [KC, NC]; bwd X and dX [S tr, XP], the
-    centre cotangent [tr, O4 + 4], one chunk's dz [S tr, NCP], a staged
-    chunk and the dw1row terms [16, NC]."""
-    _, _, xp, h4, o4 = gen_dims(C, E, H, O)
-    m = S * tr
+    stencil_head_general.cu lays it out: fwd X^T [K4, MSF] (afterwards the
+    layer-1 partials), a two-slot ring, the centre h^T [H4, TRP]; bwd X^T
+    [K4, MS] (afterwards dX^T, for one dX window), one pass's dz^T
+    [HW, MS], a two-slot ring, the centre cotangent^T [O4, TRP], one
+    pass's dh [TRP, HW] and each warp's dw1row terms [NW, HW]."""
+    p = gen_plan(S, C, E, H, O, tr)
     if kind == 'fwd':
-        floats = m * xp + tr * (h4 + 4) + GEN_KC * GEN_NC
+        floats = p['r0f'] + GEN_STAGE * GEN_FSLOT + p['H4'] * p['TRP']
     else:
-        floats = (2 * m * xp + tr * (o4 + 4) + m * GEN_NCP
-                  + GEN_KC * GEN_NC + 16 * GEN_NC)
+        floats = (p['K4'] * p['MS'] + GEN_HW * p['MS']
+                  + GEN_STAGE * GEN_BSLOT + p['O4'] * p['TRP']
+                  + p['TRP'] * GEN_HW + GEN_NT // 32 * GEN_HW)
     return 4 * floats
 
 
@@ -334,6 +368,23 @@ def gen_tile_rows(kind: str, S: int, C: int, E: int, H: int, O: int) -> int:
     return tr
 
 
+def gen_blocks_per_sm(kind: str, smem: int) -> int:
+    """Row blocks of a general kernel a SM holds: what it is built for
+    (GEN_BLOCKS_PER_SM, its registers' bound) unless shared memory holds
+    fewer (1 KB of it reserved a block)."""
+    return max(1, min(GEN_BLOCKS_PER_SM[kind],
+                      SMEM_PER_SM // (smem + 1024)))
+
+
+def gen_grid(kind: str, n_sm: int, S: int, C: int, E: int, H: int, O: int,
+             n: int) -> int:
+    """Persistent blocks of a general row kernel ('fwd' or 'bwd') over n
+    rows: one per tile, at most gen_blocks_per_sm a SM."""
+    tr = gen_tile_rows(kind, S, C, E, H, O)
+    per_sm = gen_blocks_per_sm(kind, gen_smem_bytes(kind, S, C, E, H, O, tr))
+    return min(_cdiv(n, tr), per_sm * n_sm)
+
+
 def gen_splits(k: int):
     """(splits, rows a split) of a general weight-gradient product over k
     rows: at most GEN_AKMAX rows a split, a multiple of 32."""
@@ -343,17 +394,20 @@ def gen_splits(k: int):
 
 
 def gen_workspace_bytes(S: int, C: int, E: int, H: int, O: int, n: int,
-                        tr: int) -> int:
-    """Bytes of the general backward's workspace, as
+                        tr: int, grid: int) -> int:
+    """Bytes of the general backward's workspace at grid row blocks, as
     stencil_head_general.cu lays it out: X [tiles S tr, K4], dz
     [tiles S tr, H4], the centre h [tiles tr, H4] and cotangent
-    [tiles tr, O4], one dw1row partial [H4] a tile, the split partials of
-    dW0 [splits, K4, H4] and dW1 [splits, H4, O4]; each piece padded to
-    256 bytes."""
-    _, k4, _, h4, o4 = gen_dims(C, E, H, O)
+    [tiles tr, O4], one dw1row partial [H4] a block, past one dX window a
+    dX^T scratch [K4, MS] a block, the split partials of dW0
+    [splits, K4, H4] and dW1 [splits, H4, O4]; each piece padded to 256
+    bytes."""
+    p = gen_plan(S, C, E, H, O, tr)
+    k4, h4, o4 = p['K4'], p['H4'], p['O4']
     tiles = -(-n // tr)
     r0, r1 = tiles * S * tr, tiles * tr
-    pieces = [r0 * k4, r0 * h4, r1 * h4, r1 * o4, tiles * h4,
+    pieces = [r0 * k4, r0 * h4, r1 * h4, r1 * o4, grid * h4,
+              grid * k4 * p['MS'] if p['nwin'] > 1 else 0,
               gen_splits(r0)[0] * k4 * h4, gen_splits(r1)[0] * h4 * o4]
     return sum(-(-4 * p // 256) * 256 for p in pieces)
 
@@ -366,7 +420,7 @@ def pack_weights_general(w0, b0, w1, cd):
     zero w1row entry, a pad column of X a zero row of W0)."""
     k0, h = w0.shape
     o = w1.shape[1]
-    _, k4, _, h4, o4 = gen_dims(0, k0, h, o)
+    _, k4, h4, o4 = gen_dims(0, k0, h, o)
     f = torch.float32
     w0p = w0.new_zeros((k4, h4), dtype=f)
     w0p[:k0, :h] = w0.to(cd).to(f)
@@ -757,8 +811,8 @@ class StencilHead(torch.autograd.Function):
         return _grads_out(S, meta, dpe, db0, dw0, dw1, dw1row, dP, dL)
 
 
-_GEN_FWD_ARGS = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 13
-_GEN_BWD_ARGS = ([ctypes.c_int] * 9 + [ctypes.c_void_p] * 15
+_GEN_FWD_ARGS = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 13
+_GEN_BWD_ARGS = ([ctypes.c_int] * 10 + [ctypes.c_void_p] * 15
                  + [ctypes.c_longlong] + [ctypes.c_void_p] * 4)
 
 
@@ -771,8 +825,10 @@ def _gen_lib():
             getattr(lib, name).restype = ctypes.c_int
         lib.stencil_gen_smem.argtypes = [ctypes.c_int] * 7
         lib.stencil_gen_smem.restype = ctypes.c_longlong
-        lib.stencil_gen_bwd_workspace.argtypes = [ctypes.c_int] * 7
+        lib.stencil_gen_bwd_workspace.argtypes = [ctypes.c_int] * 8
         lib.stencil_gen_bwd_workspace.restype = ctypes.c_longlong
+        lib.stencil_gen_info.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.stencil_gen_info.restype = ctypes.c_int
     return lib
 
 
@@ -793,10 +849,12 @@ class GeneralStencilHead(torch.autograd.Function):
         _check_cuda(pp + lp + [fr32, pe_cd, rot32, w0p, b0p, w1p, w1row],
                     'stencil_head_general_fwd')
         tr = gen_tile_rows('fwd', S, C, E, H, O)
+        grid = gen_grid('fwd', _n_sm(dev), S, C, E, H, O, n)
         lib = _gen_lib()
         pa, la = _ptr_array(pp), _ptr_array(lp)
         err = lib.stencil_gen_fwd_launch(
-            _dtype_code(cd), S, B, n, C, E, H, O, tr, ctypes.addressof(pa),
+            _dtype_code(cd), S, B, n, C, E, H, O, tr, grid,
+            ctypes.addressof(pa),
             ctypes.addressof(la), fr32.data_ptr(), pe_cd.data_ptr(),
             rot32.data_ptr(), w0p.data_ptr(), b0p.data_ptr(), w1p.data_ptr(),
             w1row.data_ptr(), out_c.data_ptr(), out_off.data_ptr(),
@@ -822,14 +880,15 @@ class GeneralStencilHead(torch.autograd.Function):
         dev = fr32.device
         f32 = torch.float32
         g_c, g_off = _cotangents(S, g_c, g_off, n, O, dev)
-        K, k4, _, h4, o4 = gen_dims(C, E, H, O)
+        K, k4, h4, o4 = gen_dims(C, E, H, O)
         tr = gen_tile_rows('bwd', S, C, E, H, O)
+        grid = gen_grid('bwd', _n_sm(dev), S, C, E, H, O, n)
         dP = [torch.empty((n, 16 * C), dtype=cd, device=dev)
               for _ in range(3 * B)]
         dL = [torch.empty((n, 4 * C), dtype=cd, device=dev)
               for _ in range(3 * B)]
         dpe = torch.empty((n, E), dtype=f32, device=dev)
-        ws_bytes = gen_workspace_bytes(S, C, E, H, O, n, tr)
+        ws_bytes = gen_workspace_bytes(S, C, E, H, O, n, tr, grid)
         workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
         dw0 = torch.empty((k4, h4), dtype=f32, device=dev)
         dw1 = torch.empty((h4, o4), dtype=f32, device=dev)
@@ -838,7 +897,7 @@ class GeneralStencilHead(torch.autograd.Function):
         lib = _gen_lib()
         pa, la = _ptr_array(dP), _ptr_array(dL)
         err = lib.stencil_gen_bwd_launch(
-            _dtype_code(cd), S, B, n, C, E, H, O, tr, fr32.data_ptr(),
+            _dtype_code(cd), S, B, n, C, E, H, O, tr, grid, fr32.data_ptr(),
             v.data_ptr(), pe_cd.data_ptr(), rot32.data_ptr(),
             w0p.data_ptr(), w0t.data_ptr(), b0p.data_ptr(), w1t.data_ptr(),
             w1row.data_ptr(), g_c.data_ptr(), g_off.data_ptr(),

@@ -484,32 +484,89 @@ def test_route_refuses_past_the_general_limits(C, E, H, O):
         pst.head_route(torch.float32, 3, 1, 36, 21, 256, 129)
 
 
+GEN_WIDTHS = [(36, 39, 256, 257), (48, 39, 512, 257), (18, 21, 256, 129),
+              (682, 2, 4096, 4096), (1, 1, 1, 1), (36, 21, 260, 145),
+              (53, 1, 300, 1000)]
+
+
 @pytest.mark.parametrize('S', [1, 7])
-@pytest.mark.parametrize('widths', [(36, 39, 256, 257), (48, 39, 512, 257),
-                                    (18, 21, 256, 129), (682, 2, 4096, 4096),
-                                    (1, 1, 1, 1)])
+@pytest.mark.parametrize('widths', GEN_WIDTHS[:5])
 def test_general_tiles_and_shared_memory_fit(S, widths):
     """Every width the general kernels take gets a tile of at least one
-    row whose block fits the SM's shared memory, at most 128 X rows (16
-    row groups of at most 8 rows a thread), the largest such tile (one
-    row more would not fit or is past the cap); the X pitch keeps 16-byte
-    rows with room for the ones column."""
+    row whose block fits the SM's shared memory, at most 112 X rows (28
+    row groups of 4 rows), the largest such tile (one row more would not
+    fit or is past the cap); the padded widths keep 16-byte rows with room
+    for the ones column."""
     C, E, H, O = widths
-    k, k4, xp, h4, o4 = pst.gen_dims(*widths)
-    assert k == 3 * C + E and k4 > k and k4 % 4 == 0 and xp % 4 == 0
+    k, k4, h4, o4 = pst.gen_dims(*widths)
+    assert k == 3 * C + E and k4 > k and k4 % 4 == 0
     assert h4 >= H and o4 >= O and h4 % 4 == 0 and o4 % 4 == 0
     for kind in ('fwd', 'bwd'):
         tr = pst.gen_tile_rows(kind, S, *widths)
         assert 1 <= tr <= pst.GEN_TRMAX[S]
-        assert S * tr <= 16 * pst.GEN_RMAX
+        assert S * tr <= pst.GEN_NT // 16 * 4
         assert pst.gen_smem_bytes(kind, S, *widths, tr) <= pst.SMEM_PER_BLOCK
         if tr < pst.GEN_TRMAX[S]:
             assert pst.gen_smem_bytes(kind, S, *widths, tr + 1) \
                 > pst.SMEM_PER_BLOCK
-    # the NeuS widths keep full tiles
-    if widths == (36, 39, 256, 257):
-        assert pst.gen_tile_rows('bwd', S, *widths) == pst.GEN_TRMAX[S] \
-            or S == 1
+    # the NeuS widths keep full tiles, and two forward blocks a SM
+    if widths == (36, 39, 256, 257) and S == 7:
+        for kind in ('fwd', 'bwd'):
+            assert pst.gen_tile_rows(kind, S, *widths) == pst.GEN_TRMAX[S]
+        smem = pst.gen_smem_bytes('fwd', S, *widths, pst.GEN_TRMAX[S])
+        assert pst.gen_blocks_per_sm('fwd', smem) == 2
+
+
+@pytest.mark.parametrize('n', [1, 512, 4096, 131072])
+@pytest.mark.parametrize('widths', GEN_WIDTHS)
+def test_general_grid_covers_the_tiles(n, widths):
+    """At every N the main path gives the general kernels (a render
+    chunk's 512, a relight chunk's 4096, a 512^3 step's 131,072), every
+    width gets, in both row kernels and for S = 1 and 7, a block that fits
+    232,448 bytes with at least one tile, and a persistent grid of at
+    least one block and no more than the tiles (one block a SM in the
+    backward, at most two in the forward)."""
+    for S in (1, 7):
+        for kind in ('fwd', 'bwd'):
+            tr = pst.gen_tile_rows(kind, S, *widths)
+            smem = pst.gen_smem_bytes(kind, S, *widths, tr)
+            assert smem <= 232448 and tr >= 1
+            tiles = -(-n // tr)
+            grid = pst.gen_grid(kind, 132, S, *widths, n)
+            assert 1 <= grid <= tiles
+            per_sm = pst.gen_blocks_per_sm(kind, smem)
+            assert per_sm * (smem + 1024) <= pst.SMEM_PER_SM
+            assert grid == min(tiles, 132 * per_sm)
+            assert per_sm <= pst.GEN_BLOCKS_PER_SM[kind]
+
+
+@pytest.mark.parametrize('S', [1, 7])
+@pytest.mark.parametrize('widths', GEN_WIDTHS)
+def test_general_plan_fits_its_buffers(S, widths):
+    """The general kernels' work split at the tile each row kernel takes:
+    the forward's layer-1 units (4x8 each) and K groups fit the block's
+    threads and a ring slot, their partials the X^T region, and their
+    chunks cover every hidden row; the backward's dh groups' partials fit
+    one pass's dz^T buffer and their chunks a ring slot; the dX windows
+    cover every X column."""
+    for kind in ('fwd', 'bwd'):
+        p = pst.gen_plan(S, *widths, pst.gen_tile_rows(kind, S, *widths))
+        assert p['M'] <= 112 and p['MS'] % 4 == 0 and p['MS'] > p['M']
+        assert p['TRP'] % 4 == 0 and p['TRP'] >= p['TR']
+        # forward, layer 1
+        assert p['g1'] >= 1 and p['kq1'] >= 4
+        assert p['rg1'] * p['cgp'] * p['g1'] <= pst.GEN_NT
+        assert p['g1'] * p['kq1'] * p['owp'] <= pst.GEN_FSLOT
+        assert p['n1pass'] * p['owp'] >= p['O4']
+        assert (p['g1'] - 1) * p['TRP'] * p['owp'] <= p['r0f']
+        assert p['K4'] * p['MSF'] <= p['r0f'] and p['MSF'] >= p['M']
+        # backward, dh and dX
+        assert p['gd'] >= 1 and p['kqd'] >= 1
+        assert p['TRP'] // 4 * 16 * p['gd'] <= pst.GEN_NT
+        assert p['gd'] * p['TRP'] <= p['MS']
+        assert p['gd'] * p['kqd'] * pst.GEN_HW <= pst.GEN_BSLOT
+        assert p['nwin'] * pst.GEN_DXW >= p['K4']
+        assert p['npass'] * pst.GEN_HW >= p['H4']
 
 
 @pytest.mark.parametrize('S', [1, 7])
@@ -517,24 +574,29 @@ def test_general_tiles_and_shared_memory_fit(S, widths):
 def test_general_workspace_sizing(S, n):
     """The general backward's workspace holds X (with its ones column),
     dz, the centre h and cotangent of every tile, one dw1row partial a
-    tile and the split partials of dW0 and dW1, whose splits of at most
+    block (of the persistent grid), past one dX window a dX^T scratch a
+    block, and the split partials of dW0 and dW1, whose splits of at most
     1024 rows (a multiple of 32) cover every row once."""
-    widths = (36, 39, 256, 257)
-    tr = pst.gen_tile_rows('bwd', S, *widths)
-    _, k4, _, h4, o4 = pst.gen_dims(*widths)
-    tiles = -(-n // tr)
-    r0, r1 = tiles * S * tr, tiles * tr
-    for k in (r0, r1):
-        splits, chunk = pst.gen_splits(k)
-        assert chunk % 32 == 0 and chunk <= pst.GEN_AKMAX
-        assert (splits - 1) * chunk < k <= splits * chunk
-    total = pst.gen_workspace_bytes(S, *widths, n, tr)
-    assert total % 256 == 0
-    need = 4 * (r0 * (k4 + h4) + r1 * (h4 + o4) + tiles * h4
-                + pst.gen_splits(r0)[0] * k4 * h4
-                + pst.gen_splits(r1)[0] * h4 * o4)
-    assert need <= total < need + 7 * 256
-    assert pst.gen_workspace_bytes(S, *widths, n + tr, tr) > total
+    for widths in ((36, 39, 256, 257), (48, 39, 512, 257)):
+        tr = pst.gen_tile_rows('bwd', S, *widths)
+        grid = pst.gen_grid('bwd', 132, S, *widths, n)
+        p = pst.gen_plan(S, *widths, tr)
+        k4, h4, o4 = p['K4'], p['H4'], p['O4']
+        tiles = -(-n // tr)
+        r0, r1 = tiles * S * tr, tiles * tr
+        for k in (r0, r1):
+            splits, chunk = pst.gen_splits(k)
+            assert chunk % 32 == 0 and chunk <= pst.GEN_AKMAX
+            assert (splits - 1) * chunk < k <= splits * chunk
+        total = pst.gen_workspace_bytes(S, *widths, n, tr, grid)
+        assert total % 256 == 0
+        dxs = grid * k4 * p['MS'] if p['nwin'] > 1 else 0
+        assert (p['nwin'] > 1) == (widths[0] == 48)
+        need = 4 * (r0 * (k4 + h4) + r1 * (h4 + o4) + grid * h4 + dxs
+                    + pst.gen_splits(r0)[0] * k4 * h4
+                    + pst.gen_splits(r1)[0] * h4 * o4)
+        assert need <= total < need + 8 * 256
+        assert pst.gen_workspace_bytes(S, *widths, n + tr, tr, grid) > total
 
 
 @pytest.mark.parametrize('cd', [torch.float32, torch.bfloat16])
@@ -550,7 +612,7 @@ def test_pack_weights_general_round_trips(cd):
     b0 = torch.tensor(rng.randn(H).astype(np.float32))
     w1 = torch.tensor(rng.randn(H, O).astype(np.float32))
     w0p, w0t, b0p, w1p, w1t, w1row = pst.pack_weights_general(w0, b0, w1, cd)
-    _, k4, _, h4, o4 = pst.gen_dims(C, E, H, O)
+    _, k4, h4, o4 = pst.gen_dims(C, E, H, O)
     assert w0p.shape == (k4, h4) and w1p.shape == (h4, o4)
     assert torch.equal(w0t, w0p.t()) and torch.equal(w1t, w1p.t())
     assert torch.equal(w0p[:k0, :H], w0.to(cd).float())
@@ -593,19 +655,28 @@ def test_general_kernels_match_plain_on_the_card():
     pst.reset_launches()
     for cd in (torch.float32, torch.bfloat16):
         for S, B, n, w in ((7, 1, 1003, neus), (7, 2, 4096, neus),
-                           (1, 2, 1003, wide), (7, 1, 1003, b18)):
+                           (7, 2, 512, neus), (1, 2, 1003, wide),
+                           (7, 1, 1003, wide), (7, 1, 1003, b18)):
             chip_smoke.check_case(f'general S={S} B={B}', n, S, B, cd,
                                   seed=S + B, widths=w)
     assert pst.LAUNCHES == {'stencil_head_fwd': 0, 'stencil_head_bwd': 0}
     assert pst.GENERAL_LAUNCHES['stencil_head_general_bwd'] > 0
     chip_smoke.check_bwd_deterministic(4096, 7, 2, 12, widths=neus)
     lib = pst._gen_lib()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for S in (1, 7):
         for w in (neus, wide, b18):
             for kind in ('fwd', 'bwd'):
                 tr = pst.gen_tile_rows(kind, S, *w)
+                smem = pst.gen_smem_bytes(kind, S, *w, tr)
                 assert lib.stencil_gen_smem(int(kind == 'bwd'), S, *w, tr) \
-                    == pst.gen_smem_bytes(kind, S, *w, tr)
+                    == smem
+                # the card holds as many blocks a SM as the grid counts on
+                info = chip_smoke.gen_kernel_info(w, kind, S, 2, tr)
+                assert info['blocks_per_sm'] >= pst.gen_blocks_per_sm(kind,
+                                                                      smem)
+                assert info['smem_bytes'] == smem
             for n in (1003, 131072):
-                assert lib.stencil_gen_bwd_workspace(S, n, *w, tr) \
-                    == pst.gen_workspace_bytes(S, *w, n, tr)
+                grid = pst.gen_grid('bwd', n_sm, S, *w, n)
+                assert lib.stencil_gen_bwd_workspace(S, n, *w, tr, grid) \
+                    == pst.gen_workspace_bytes(S, *w, n, tr, grid)
