@@ -26,6 +26,7 @@ from .. import device_constant
 from ..ops import stencil
 from ..ops import tensor_field as tfield
 from ..ops.math import contraction, pe_dim, positional_encoding
+from ..utils.timing import span
 from . import mlp
 
 
@@ -216,8 +217,10 @@ def _stencil_split(params, cfg: SDFConfig, xyz, xyz01, aabb, level, packed,
     output layer at the centre and only its sdf column at the 6 offset
     points.  Returns (sdf [N], app [N, app_dim], s [3, 2, N])."""
     n = xyz.shape[0]
-    if packed is None:
-        packed = pack_field(params, cfg)
+    with span('tf.gather'):
+        if packed is None:
+            packed = pack_field(params, cfg)
+        feats = tfield.vm_stencil_features_split(packed, xyz01, d01, level)
     cd = _compute_dtype(cfg)
     w1, b1 = params['mlp'][1]['w'], params['mlp'][1]['b']
     # embedded coords of the 7 stencil points, stencil-major [7, N, E]
@@ -231,7 +234,6 @@ def _stencil_split(params, cfg: SDFConfig, xyz, xyz01, aabb, level, packed,
     else:
         xyz_in = xyz[None] + (offs01 * (aabb[1] - aabb[0])[None, :])[
             :, None, :]
-    feats = tfield.vm_stencil_features_split(packed, xyz01, d01, level)
     h = _mlp_head(params, cfg, [f.reshape(7 * n, f.shape[-1])
                                 for f in feats], xyz_in.reshape(7 * n, -1))
     h = h.reshape(7, n, -1)
@@ -246,9 +248,11 @@ def _stencil_kernel(params, cfg: SDFConfig, xyz, xyz01, aabb, level,
     (ops/stencil.py).  Returns (sdf [N], app [N, app_dim], s [3, 2, N])."""
     n = xyz.shape[0]
     w1, b1 = params['mlp'][1]['w'], params['mlp'][1]['b']
-    atlas = tfield.pack_vm_patches(params['field'], cfg.n_levels,
-                                   _gather_dtype(cfg))
-    pp, lp, fr, sigmas = tfield.vm_patch_gather(atlas, xyz01, d01, level)
+    with span('tf.gather'):
+        atlas = tfield.pack_vm_patches(params['field'], cfg.n_levels,
+                                       _gather_dtype(cfg))
+        pp, lp, fr, sigmas = tfield.vm_patch_gather(atlas, xyz01, d01,
+                                                    level)
     if cfg.sdf_multires > 0:
         if cfg.sdf_multires == 3:
             pe_c = positional_encoding(xyz01, cfg.sdf_multires)

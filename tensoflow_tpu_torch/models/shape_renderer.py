@@ -44,6 +44,7 @@ from ..ops.math import (charbonnier, safe_normalize, sample_pdf,
                         xla_linspace)
 from ..ops.tensor_field import gaussian_smooth_loss_vm, tv_loss_vm
 from ..parallel import sharding
+from ..utils.timing import span
 from . import secondary
 
 
@@ -336,22 +337,24 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
     # compact_samples_per_ray slots a ray; with 0 they are rendered
     # densely, as the hierarchical sampler's are
     compact = cfg.use_occ_grid and cfg.compact_samples_per_ray > 0
-    if cfg.use_occ_grid:
-        ss = step_size(cfg) * max(int(cfg.march_stride), 1)
-        t_starts, t_ends, valid = grid_mod.occ_grid_sampling(
-            occ_state, grid_mod.OccGridConfig(resolution=cfg.occ_grid_reso),
-            rays_o, dirs, near, far, ss, n_occ_candidates(cfg),
-            cfg.occ_max_samples,
-            noise['sample_jitter'] if is_train else None)
-        packed = None
-    else:
-        # one atlas for the sampler's and the occ march's field queries,
-        # neither of which carries a gradient
-        with torch.no_grad():
-            packed = tenso_sdf.pack_field(params['sdf'], cfg.sdf)
-        t_starts, t_ends, valid = sample_ray_hierarchical(
-            params, cfg, rays_o, dirs, near, far, radii, rays_cos,
-            noise['sample_jitter'] if is_train else None, packed=packed)
+    with span('tf.sampler'):
+        if cfg.use_occ_grid:
+            ss = step_size(cfg) * max(int(cfg.march_stride), 1)
+            t_starts, t_ends, valid = grid_mod.occ_grid_sampling(
+                occ_state,
+                grid_mod.OccGridConfig(resolution=cfg.occ_grid_reso),
+                rays_o, dirs, near, far, ss, n_occ_candidates(cfg),
+                cfg.occ_max_samples,
+                noise['sample_jitter'] if is_train else None)
+            packed = None
+        else:
+            # one atlas for the sampler's and the occ march's field
+            # queries, neither of which carries a gradient
+            with torch.no_grad():
+                packed = tenso_sdf.pack_field(params['sdf'], cfg.sdf)
+            t_starts, t_ends, valid = sample_ray_hierarchical(
+                params, cfg, rays_o, dirs, near, far, radii, rays_cos,
+                noise['sample_jitter'] if is_train else None, packed=packed)
 
     sn = t_starts.shape[1]
     mid = 0.5 * (t_starts + t_ends)
@@ -413,9 +416,12 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
     alpha_s = composite.neus_alpha(sdf, inv_s, iter_cos, s_dists)
 
     normals = safe_normalize(grads)
-    sampled_color, sampled_radiance, occ_info = shading_mod.apply_shading(
-        params['shading'], cfg.shading, mips, s_pts, normals, -s_dirs,
-        app_feat, s_hp, step=(step if radiance_on else None))
+    with span('tf.shading'):
+        sampled_color, sampled_radiance, occ_info = \
+            shading_mod.apply_shading(
+                params['shading'], cfg.shading, mips, s_pts, normals,
+                -s_dirs, app_feat, s_hp,
+                step=(step if radiance_on else None))
 
     mask_f = inner.to(alpha_s.dtype)
     slot_f = slot_mask.to(alpha_s.dtype)
@@ -523,10 +529,11 @@ def render_rays(params, cfg: ShapeRendererConfig, mips, occ_state,
                 score = _local_scores(score, slot_base, slot_mask.shape[0],
                                       plan.kept if compact else None)
             n_all = m if compact else rn_all * sn
-            outputs['loss_occ'] = _occ_loss(
-                cfg, s_pts, sdf, normals, s_dirs, occ_info, slot_mask,
-                score, inv_s, sdf_fun, mesh=mesh, n_all=n_all,
-                base=slot_base)
+            with span('tf.occ_loss'):
+                outputs['loss_occ'] = _occ_loss(
+                    cfg, s_pts, sdf, normals, s_dirs, occ_info, slot_mask,
+                    score, inv_s, sdf_fun, mesh=mesh, n_all=n_all,
+                    base=slot_base)
     if eval_extras:
         outputs.update(_eval_extras(params, cfg, mips, aabb, ray_batch,
                                     t_depth, inv_s, step))

@@ -54,6 +54,7 @@ from ..ops import grid as grid_mod
 from ..parallel import sharding
 from . import checkpoints, losses, metrics_vis
 from .checkpoints import named_leaves
+from ..utils.timing import span
 
 # the images render_image returns
 EVAL_KEYS = ('ray_rgb', 'normal', 'normal_vis', 'acc', 'depth', 'albedo',
@@ -345,14 +346,17 @@ class ShapeTrainer:
         returned is global."""
         self.opt.zero_grad()
         p = self.params
-        mips = light_mod.build_mips(p['shading']['envlight'],
-                                    self.rcfg.shading.env)
-        outputs = sr.train_step_outputs(p, self.rcfg, mips, self.occ_state,
-                                        batch, step, noise, radiance_on,
-                                        occ_on, alpha_mask=self.alpha_mask,
-                                        mesh=self.mesh)
-        total, terms = losses.total_loss_shape(outputs, weights, self.mesh)
-        total.backward()
+        with span('tf.forward'):
+            mips = light_mod.build_mips(p['shading']['envlight'],
+                                        self.rcfg.shading.env)
+            outputs = sr.train_step_outputs(
+                p, self.rcfg, mips, self.occ_state, batch, step, noise,
+                radiance_on, occ_on, alpha_mask=self.alpha_mask,
+                mesh=self.mesh)
+            total, terms = losses.total_loss_shape(outputs, weights,
+                                                   self.mesh)
+        with span('tf.backward'):
+            total.backward()
         terms = all_reduce_step(self.mesh, self.opt.params,
                                 {**terms, 'loss': total})
         self.opt.step()
@@ -495,27 +499,30 @@ class ShapeTrainer:
         end_step = min(self.start_step + total, self.cfg['total_step'])
         logs = []
         for step in range(self.start_step, end_step):
-            self.maybe_set_march_stride(step)
-            if self.rcfg.use_occ_grid and step % self.occ_update_interval == 0:
-                self.occ_update(step, prune=step >= self.occ_warmup_steps())
-            batch = _batch_to_device(
-                sharding.shard_batch(self.mesh, self.batcher.next_batch()),
-                self.device)
-            weights = losses.schedule_weights(self.cfg, step)
-            radiance_on, occ_on = self.phase_flags(step)
-            aux = self.train_step(step, batch, weights,
-                                  self.shard_noise(self.step_noise(step)),
-                                  radiance_on, occ_on)
-            if (step + 1) % log_every == 0 or step == self.start_step:
-                vals = torch.stack([v.float() for v in aux.values()])
-                host = dict(zip(aux, vals.tolist()))   # one device read
-                host['step'] = step + 1
-                logs.append(host)
-                if callback:
-                    callback(host)
-            self.maybe_adapt_budget(step, aux)
-            self.maybe_update_alpha_mask(step)
-            self.maybe_upsample(step)
+            with span('tf.step'):
+                self.maybe_set_march_stride(step)
+                if (self.rcfg.use_occ_grid
+                        and step % self.occ_update_interval == 0):
+                    self.occ_update(step,
+                                    prune=step >= self.occ_warmup_steps())
+                batch = _batch_to_device(sharding.shard_batch(
+                    self.mesh, self.batcher.next_batch()), self.device)
+                weights = losses.schedule_weights(self.cfg, step)
+                radiance_on, occ_on = self.phase_flags(step)
+                aux = self.train_step(
+                    step, batch, weights,
+                    self.shard_noise(self.step_noise(step)), radiance_on,
+                    occ_on)
+                if (step + 1) % log_every == 0 or step == self.start_step:
+                    vals = torch.stack([v.float() for v in aux.values()])
+                    host = dict(zip(aux, vals.tolist()))  # one device read
+                    host['step'] = step + 1
+                    logs.append(host)
+                    if callback:
+                        callback(host)
+                self.maybe_adapt_budget(step, aux)
+                self.maybe_update_alpha_mask(step)
+                self.maybe_upsample(step)
         self.start_step = end_step
         return logs
 

@@ -1,48 +1,34 @@
 """Timing, profiling and log helpers of the port (counterpart of
 tensoflow_tpu/utils/timing.py; ref: utils/base_utils.py:29-50,
 train/train_tools.py:93-108):
-  * ``Timing``: a wall-clock block timer that waits for the card
-    (``torch.cuda.synchronize``) when a tensor handed to ``sync_on`` lies
-    on it;
+  * ``span``: a named profiler range inside the training step (the
+    ``tf.*`` spans), recorded only while a profiler session is active;
   * ``profile_trace``: ``torch.profiler`` over the block, which
-    writes a Chrome trace (chrome://tracing, Perfetto) under ``logdir``;
+    writes a Chrome trace (chrome://tracing, Perfetto) under ``logdir``,
+    the spans included;
   * ``TrainLogger``: append-only text logs per split.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 
-class Timing:
-    """``with Timing('name') as t: ... t.sync_on(x)`` prints the block's
-    elapsed ms, after the card has finished the work behind ``x``."""
+# the one context every span returns while no profiler records
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self, name: str, enabled: bool = True):
-        self.name = name
-        self.enabled = enabled
-        self._sync_targets = []
 
-    def sync_on(self, *tensors):
-        self._sync_targets.extend(tensors)
-        return tensors[0] if len(tensors) == 1 else tensors
-
-    def __enter__(self):
-        if self.enabled:
-            self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.enabled:
-            for dev in {t.device for t in self._sync_targets
-                        if torch.is_tensor(t) and t.device.type == 'cuda'}:
-                torch.cuda.synchronize(dev)
-            dt = (time.perf_counter() - self.t0) * 1000
-            print(f'[timing] {self.name}: {dt:.2f} ms', flush=True)
-        return False
+def span(name: str):
+    """A named ``torch.profiler.record_function`` range over the block
+    while a profiler session records; otherwise one shared null context,
+    so that a span off costs one check of the profiler's state."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return record_function(name)
 
 
 @contextlib.contextmanager

@@ -8,13 +8,11 @@ the CPU, ValidationEvaluator and utils/timing against JAX.
 """
 import json
 import os
-import re
 import struct
 import sys
 import zlib
 
 import cv2
-import jax
 import numpy as np
 import pytest
 import torch
@@ -399,18 +397,9 @@ def test_validation_evaluator_matches_jax(tmp_path, monkeypatch, downsample):
     assert os.path.exists('data/train_vis/m-val/step3-1.jpg')
 
 
-def test_timing_and_train_logger_match_jax(tmp_path, capsys):
+def test_train_logger_matches_jax(tmp_path, capsys):
     from tensoflow_tpu.utils import timing as jt
     from tensoflow_tpu_torch.utils import timing as pt
-    for mod, x in ((jt, jax.numpy.ones(3)), (pt, torch.ones(3))):
-        with mod.Timing('blk') as t:
-            assert t.sync_on(x) is x
-        with mod.Timing('off', enabled=False):
-            pass
-    lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 2
-    assert all(re.fullmatch(r'\[timing\] blk: \d+\.\d\d ms', ln)
-               for ln in lines)
     res = {'loss': 0.123456789, 'step_ms': 12.5, 'n': 3, 'tag': 'x'}
     for name, mod in (('j', jt), ('p', pt)):
         log = mod.TrainLogger(str(tmp_path / name))
