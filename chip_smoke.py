@@ -1482,7 +1482,8 @@ def phase_background(card, steps=5):
           + ', '.join(f'{r["loss"]:.6f}' for r in logs)
           + f' (all finite); the first step moved all {len(bg0)} background '
           f'leaves; {step_ms:.1f} ms/step over steps 2-{steps} = '
-          f'{cfg["train_ray_num"] / (step_ms / 1e3):.0f} rays/s', flush=True)
+          f'{cfg["train_ray_num"] / (step_ms / 1e3):.0f} rays/s (steps by '
+          f'path {trainer.graph_stats})', flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2001,7 +2002,8 @@ def phase_datasets(card, geo):
           + ', '.join(f'{r["loss"]:.6f}' for r in logs)
           + '; step 1 terms equal to the ToyDatabase-fed trainer\'s; '
           f'launches {shape_launches}; {shape_ms:.1f} ms/step over steps '
-          f'2-4 on {card}', flush=True)
+          f'2-4 on {card} (steps by path {trainer.graph_stats})',
+          flush=True)
     del trainer
 
     # shoe.yaml publishes nerfDataType true, but CustomDatabase gives w2c
@@ -2031,7 +2033,8 @@ def phase_datasets(card, geo):
           f'poses): {trainer.batcher.n} of {n_rays} rays, predict_BG '
           f'{cfg["predict_BG"]}; loss per step '
           + ', '.join(f'{r["loss"]:.6f}' for r in logs)
-          + f'; {bg_ms:.1f} ms/step over steps 2-4 on {card}', flush=True)
+          + f'; {bg_ms:.1f} ms/step over steps 2-4 on {card} (steps by '
+          f'path {trainer.graph_stats})', flush=True)
     del trainer
 
     name, ddir = layouts['tensoSDF']
@@ -2576,7 +2579,8 @@ def phase_human_light(card, steps=5):
           + f' (finite); the first step moved all {len(hl0)} human_light '
           f'leaves; light weight non-zero on {max(share):.4f} of the first '
           f'step\'s shaded samples; launches {launches}; {step_ms:.1f} '
-          f'ms/step over steps 2-{steps} on {card}', flush=True)
+          f'ms/step over steps 2-{steps} on {card} (steps by path '
+          f'{trainer.graph_stats})', flush=True)
     return trainer, step_ms, launches
 
 
@@ -2598,7 +2602,9 @@ def check_split_route(card, hier):
     package's 'xla' route (a line texel sums thousands of contributions
     of both signs: the FD gradient's +-offset taps cancel).  The split
     route runs twice: the difference of its two runs (atomic index_add_
-    order) is printed beside.  Both routes timed with CUDA events."""
+    order) is printed beside.  Both routes timed with CUDA events.  The
+    step spied on runs eagerly: a replay of the trainer's graph runs no
+    Python."""
     from tensoflow_tpu_torch.fields import tenso_sdf
     from tensoflow_tpu_torch.ops import stencil as st
     from tensoflow_tpu_torch.train.trainer import named_leaves
@@ -2611,8 +2617,12 @@ def check_split_route(card, hier):
                        level=None if level is None else level.detach().clone())
         return orig(params, cfg, xyz, aabb, level, **kw)
     tenso_sdf.sdf_with_grad_hessian = spy
-    hier.train(n_steps=1, log_every=1)
-    tenso_sdf.sdf_with_grad_hessian = orig
+    hier.graph_engages = lambda: False
+    try:
+        hier.train(n_steps=1, log_every=1)
+    finally:
+        del hier.graph_engages
+        tenso_sdf.sdf_with_grad_hessian = orig
     xyz, aabb, level = got['xyz'], got['aabb'], got['level']
     cfg_k = hier.rcfg.sdf
     cfg_x = cfg_k._replace(stencil_impl='xla')
@@ -3134,6 +3144,12 @@ def _launches():
     return {**st.LAUNCHES, **st.GENERAL_LAUNCHES}
 
 
+def _paths(trainer, before):
+    """The trainer's steps by path (replayed, eager) and its captures
+    since ``before``, a copy of its graph_stats."""
+    return {k: n - before[k] for k, n in trainer.graph_stats.items()}
+
+
 def _expect_route(launches, route, fwd, bwd, what):
     """launches (fast and general) of a path: fwd / bwd on ``route``
     ('' for the fast kernels, 'general_'), none on the other."""
@@ -3149,11 +3165,12 @@ def phase_general(card, hier_ms, timed_steps=5, occ_steps=4):
     points.  (a) card_vs_cpu at NeuS_SMALL (hierarchical sampler, the
     full NeuS head widths) and at the small dense occupancy-grid config;
     (b) compressor.yaml with NEUS_WIDTHS over phase 3c's schedule cut to
-    six steps (128^3 -> 512^3), launches counted from zero, then
-    ``timed_steps`` steps at 512^3 (B=2) beside phase 3c's published
-    widths, the general kernels on a 512^3 step's own inputs, a rendered
-    view and the mesh at 128^3 (its SDF query, sdf_only, takes the field's
-    plain head: no stencil); (c) stage 2 on a checkpoint at these widths
+    six steps (128^3 -> 512^3), launches counted from zero, two more
+    (the graph is captured at the second), then ``timed_steps`` replayed
+    steps at 512^3 (B=2) beside phase 3c's published widths, the general
+    kernels on a 512^3 step's own inputs, a rendered view and the mesh at
+    128^3 (its SDF query, sdf_only, takes the field's plain head: no
+    stencil); (c) stage 2 on a checkpoint at these widths
     (card vs CPU, a render and a relight_view chunk); (d)
     compressor_occ.yaml without compaction at NEUS_WIDTHS: an occupancy
     update, then ``occ_steps`` timed steps at 128^3.  Returns the
@@ -3213,18 +3230,26 @@ def phase_general(card, hier_ms, timed_steps=5, occ_steps=4):
           f'{widths}; cuts {HIER_CUTS}): loss per step ' + ', '.join(
               f'{r["loss"]:.6f}' for r in logs) + f'; launches {launches}; '
           f'mip branches per step {spy.bs}', flush=True)
+    # step 5 was the first at the 512^3 key: step 6 is its second eager
+    # step, step 7 its capture, so that the timed steps are replays
+    trainer.train(n_steps=2, log_every=2)
+    before = dict(trainer.graph_stats)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     timed = trainer.train(n_steps=timed_steps, log_every=timed_steps)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
     _check_finite(timed)
+    paths = _paths(trainer, before)
+    if paths['replayed'] != timed_steps:
+        raise AssertionError(f'NeuS widths: timed steps by path {paths}')
     rays = cfg['train_ray_num']
     print(f'[general] {timed_steps} steps at 512^3 (B=2) at the NeuS widths '
-          f'on {card}: {step_ms:.1f} ms/step = {rays / (step_ms / 1e3):.0f} '
-          f'rays/s, beside {hier_ms:.1f} ms/step at the published widths '
-          f'(phase 3c, fast kernels); loss {timed[-1]["loss"]:.6f}',
-          flush=True)
+          f'on {card}, all graph replays (steps 8-{7 + timed_steps}; '
+          f'captured at step 7): {step_ms:.1f} ms/step = '
+          f'{rays / (step_ms / 1e3):.0f} rays/s, beside {hier_ms:.1f} '
+          f'ms/step at the published widths (phase 3c, fast kernels); loss '
+          f'{timed[-1]["loss"]:.6f}', flush=True)
     d = _captured_inputs(spy.captured, trainer.params['sdf']['mlp'][1]['b'])
     spy.captured = None
     n = d['fr'].shape[0]

@@ -712,13 +712,23 @@ def build_alpha_mask(params, cfg: ShapeRendererConfig,
     return grid_mod.AlphaGridMask(aabb=aabb_tensor(cfg, dev), volume=vol)
 
 
+def cos_anneal_ratio(cfg: ShapeRendererConfig, step: int) -> float:
+    """NeuS's cosine anneal ratio at ``step``: step / anneal_end up to 1,
+    1 throughout for a negative anneal_end."""
+    return min(1.0, step / cfg.anneal_end) if cfg.anneal_end >= 0 else 1.0
+
+
 def train_step_outputs(params, cfg: ShapeRendererConfig, mips, occ_state,
                        ray_batch, step: int, noise, radiance_on: bool,
-                       occ_loss_on: bool, alpha_mask=None, mesh=None):
+                       occ_loss_on: bool, alpha_mask=None, mesh=None,
+                       anneal=None):
     """Training forward: render + rgb/psnr/mask losses
     (ref: shapeRenderer.py:777-794).  With an active mesh, psnr is the
-    global batch's and loss_mask this rank's share of the global mean."""
-    anneal = min(1.0, step / cfg.anneal_end) if cfg.anneal_end >= 0 else 1.0
+    global batch's and loss_mask this rank's share of the global mean.
+    ``anneal`` (default cos_anneal_ratio at ``step``) may be a 0-d tensor
+    on the device, as the trainer's CUDA graph feeds it."""
+    if anneal is None:
+        anneal = cos_anneal_ratio(cfg, step)
     outputs = render_rays(params, cfg, mips, occ_state, ray_batch, step,
                           anneal, noise, True, radiance_on, occ_loss_on,
                           alpha_mask=alpha_mask, mesh=mesh)

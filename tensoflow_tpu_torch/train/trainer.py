@@ -1,7 +1,9 @@
 """Stage-1 (shape) trainer of the port (counterpart of
 tensoflow_tpu/train/trainer.py).
 
-One eager PyTorch step per training iteration: build the envlight mips,
+One PyTorch step per training iteration (on the card, on the
+hierarchical sampler, its forward and backward replayed as one CUDA
+graph: ``ShapeTrainer.train_step``): build the envlight mips,
 render the ray batch through the sampler (the occupancy grid, or the NeuS
 hierarchical sampler with its alpha mask and, with predict_BG, the NeRF++
 background), the TensoSDF stencil head and the split-sum shading, sum the
@@ -36,6 +38,7 @@ share of the held-out views.
 """
 from __future__ import annotations
 
+import gc
 import math
 from typing import Any, Dict, Optional
 
@@ -51,10 +54,11 @@ from ..fields import shading as shading_mod
 from ..fields import tenso_sdf
 from ..models import shape_renderer as sr
 from ..ops import grid as grid_mod
+from ..ops import stencil
 from ..parallel import sharding
 from . import checkpoints, losses, metrics_vis
 from .checkpoints import named_leaves
-from ..utils.timing import span
+from ..utils.timing import recording, span
 
 # the images render_image returns
 EVAL_KEYS = ('ray_rgb', 'normal', 'normal_vis', 'acc', 'depth', 'albedo',
@@ -66,6 +70,10 @@ EVAL_KEYS = ('ray_rgb', 'normal', 'normal_vis', 'acc', 'depth', 'albedo',
 # package)
 BUDGET_BUCKETS = (16, 24, 32, 48, 64, 96, 128)
 BUDGET_MARGIN = 1.5
+
+# eager steps at a new step key before the step is captured (PyTorch's
+# whole-network capture warms up on a side stream the same way)
+GRAPH_WARMUP_STEPS = 2
 
 
 def build_shape_config(cfg: Dict[str, Any], grid_size, n_levels: int
@@ -233,6 +241,95 @@ def with_human_light(rcfg: sr.ShapeRendererConfig
     return rcfg._replace(shading=rcfg.shading._replace(human_light=True))
 
 
+def step_scalars(rcfg: sr.ShapeRendererConfig, step: int,
+                 weights: Dict[str, float]):
+    """The step's scalars that change from step to step, in the order the
+    captured step reads them (scalar_views): the cosine anneal ratio,
+    then the schedule weights."""
+    return [sr.cos_anneal_ratio(rcfg, step), *weights.values()]
+
+
+def scalar_views(scalars: torch.Tensor, weight_keys):
+    """(anneal ratio, weights) as 0-d views of step_scalars' values held in
+    one tensor."""
+    return scalars[0], dict(zip(weight_keys, scalars[1:].unbind(0)))
+
+
+def _on_side_stream(fn):
+    """fn() on a side stream ordered after the current stream's work, and
+    the current stream ordered after it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return out
+
+
+class StepGraph:
+    """The stage-1 step's forward, loss sum and backward at one step key
+    (ShapeTrainer.step_key), captured once as a CUDA graph and replayed.
+
+    The capture reads static copies of the batch, the draws and the
+    step's scalars (step_scalars), which each replay refreshes; the
+    gradients it writes stay the leaves' ``.grad`` (a leaf the backward
+    does not reach gets zeros, as Adam's step gives it); the returned terms
+    are stacked in one static tensor, cloned after each replay.  The
+    port's stencil-head launch counters are credited with the captured
+    step's launches on each replay, since the kernels run once a replay.
+    ``refs`` holds the objects whose ids the key holds, so that no other
+    object takes one of those ids while the graph lives."""
+
+    def __init__(self, key, refs):
+        self.key, self.refs = key, refs
+        self.warm = 0
+        self.graph = None
+
+    def capture(self, body, batch, noise, scalars, leaves):
+        """Capture ``body(batch, noise, scalars) -> (keys, stacked terms)``
+        on static copies of the inputs; the leaves' grads must be None."""
+        self.inputs = [v.clone() for v in (*batch.values(),
+                                           *noise.values())]
+        self.scalars = scalars.clone()
+        nb = len(batch)
+        sbatch = dict(zip(batch, self.inputs[:nb]))
+        snoise = dict(zip(noise, self.inputs[nb:]))
+        self.counters = (stencil.LAUNCHES, stencil.GENERAL_LAUNCHES)
+        before = [dict(c) for c in self.counters]
+        self.graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: a dead cycle holding
+        # another CUDA graph, freed there, would end the capture
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.keys, self.out = body(sbatch, snoise, self.scalars)
+        finally:
+            if gc_on:
+                gc.enable()
+        # the capture ran no kernel: count its launches on each replay
+        self.credit = [{k: c[k] - b[k] for k in c}
+                       for c, b in zip(self.counters, before)]
+        for c, b in zip(self.counters, before):
+            c.update(b)
+        self.grads = [t.grad if t.grad is not None else torch.zeros_like(t)
+                      for t in leaves]
+
+    def replay(self, batch, noise, scalars, leaves):
+        """Copy the step's inputs in, replay, and return its terms."""
+        torch._foreach_copy_(self.inputs, [*batch.values(),
+                                           *noise.values()])
+        self.scalars.copy_(torch.tensor(scalars, dtype=torch.float32,
+                                        pin_memory=True), non_blocking=True)
+        self.graph.replay()
+        for c, d in zip(self.counters, self.credit):
+            for k, n in d.items():
+                c[k] += n
+        for t, g in zip(leaves, self.grads):
+            t.grad = g
+        return dict(zip(self.keys, self.out.clone().unbind(0)))
+
+
 class ShapeTrainer:
     """End-to-end stage-1 training (geometry reconstruction)."""
 
@@ -261,6 +358,9 @@ class ShapeTrainer:
         self.best_para = 0.0
         self.occ_update_interval = 100
         self._budget_ema = None
+        # steps by path, and captures (train_step)
+        self.graph_stats = {'replayed': 0, 'eager': 0, 'captures': 0}
+        self._graph = None
         self.set_params(params)
 
     def set_params(self, params, reset_step: int = 0):
@@ -341,10 +441,81 @@ class ShapeTrainer:
                    weights: Dict[str, float], noise, radiance_on: bool,
                    occ_on: bool) -> Dict[str, torch.Tensor]:
         """Forward, backward and one Adam step; returns the detached loss
-        terms (``loss`` = their sum), psnr, std and sample_num.  On a mesh
-        the batch and noise are this rank's (shard_noise) and everything
-        returned is global."""
-        self.opt.zero_grad()
+        terms (``loss`` = their sum), psnr, std and sample_num, each step
+        its own tensors.  On a mesh the batch and noise are this rank's
+        (shard_noise) and everything returned is global.
+
+        Where graph_engages, the forward, loss sum and backward run as the
+        replay of one CUDA graph (StepGraph) while the step key
+        (step_key) holds: at a new key, GRAPH_WARMUP_STEPS eager steps on
+        a side stream, then a capture.  Adam stays eager.  Elsewhere (on
+        the CPU, on a mesh, on the occupancy-grid route, under a profiler)
+        the step runs eagerly.  The occupancy-grid route stays eager
+        because its grid refresh replaces ``occ_state`` and its budget and
+        stride can change every occ_update_interval steps; no benchmark
+        cell times it yet."""
+        if not self.graph_engages():
+            self.graph_stats['eager'] += 1
+            return self._eager_step(step, batch, weights, noise,
+                                    radiance_on, occ_on)
+        key = self.step_key(step, batch, weights, noise, radiance_on, occ_on)
+        g = self._graph
+        if g is None or g.key != key:
+            self._graph = None          # the old graph's memory goes first
+            g = self._graph = StepGraph(key, (self.opt.params,
+                                              self.alpha_mask))
+        if g.graph is None and g.warm < GRAPH_WARMUP_STEPS:
+            g.warm += 1
+            self.graph_stats['eager'] += 1
+            return _on_side_stream(lambda: self._eager_step(
+                step, batch, weights, noise, radiance_on, occ_on))
+        scalars = step_scalars(self.rcfg, step, weights)
+        if g.graph is None:
+            self.opt.zero_grad()
+
+            def body(b, n, s):
+                return self._graph_body(step, b, n, s, tuple(weights),
+                                        radiance_on, occ_on)
+            g.capture(body, batch, noise,
+                      torch.tensor(scalars, dtype=torch.float32,
+                                   device=self.device), self.opt.params)
+            self.graph_stats['captures'] += 1
+        aux = g.replay(batch, noise, scalars, self.opt.params)
+        self.graph_stats['replayed'] += 1
+        self.opt.step()
+        return aux
+
+    def graph_engages(self) -> bool:
+        """Whether train_step replays a CUDA graph: on the card, without a
+        mesh, on the hierarchical sampler, while no profiler records (a
+        replay records no host ranges for the profile to read)."""
+        return (self.device.type == 'cuda' and not sharding.active(self.mesh)
+                and not self.rcfg.use_occ_grid and not recording())
+
+    def step_key(self, step: int, batch, weights, noise, radiance_on: bool,
+                 occ_on: bool):
+        """Everything that picks the step's Python control flow or the
+        identity of a tensor it reads, beside its inputs' values: the
+        renderer config (grid, levels, widths, route), the parameter
+        leaves (an upsample replaces them), the alpha mask's volume, the
+        phase gates, the weights' keys and the inputs' shapes."""
+        rc = self.rcfg
+        return (rc, tuple(map(id, self.opt.params)),
+                None if self.alpha_mask is None
+                else id(self.alpha_mask.volume),
+                radiance_on, occ_on,
+                rc.freeze_inv_s_step is not None
+                and step < rc.freeze_inv_s_step,
+                step > rc.gaussian_loss_step, step > rc.radiance_field_step,
+                tuple(weights),
+                tuple((k, tuple(v.shape)) for k, v in batch.items()),
+                tuple((k, tuple(v.shape)) for k, v in noise.items()))
+
+    def _forward_backward(self, step, batch, weights, noise, radiance_on,
+                          occ_on, anneal=None):
+        """The step's forward, loss sum and backward; returns (psnr, std
+        and sample_num; the loss terms with their sum, ``loss``), both
+        undetached and this rank's."""
         p = self.params
         with span('tf.forward'):
             mips = light_mod.build_mips(p['shading']['envlight'],
@@ -352,17 +523,33 @@ class ShapeTrainer:
             outputs = sr.train_step_outputs(
                 p, self.rcfg, mips, self.occ_state, batch, step, noise,
                 radiance_on, occ_on, alpha_mask=self.alpha_mask,
-                mesh=self.mesh)
+                mesh=self.mesh, anneal=anneal)
             total, terms = losses.total_loss_shape(outputs, weights,
                                                    self.mesh)
         with span('tf.backward'):
             total.backward()
-        terms = all_reduce_step(self.mesh, self.opt.params,
-                                {**terms, 'loss': total})
+        return ({k: outputs[k] for k in ('psnr', 'std', 'sample_num')},
+                {**terms, 'loss': total})
+
+    def _eager_step(self, step, batch, weights, noise, radiance_on, occ_on):
+        self.opt.zero_grad()
+        extra, terms = self._forward_backward(step, batch, weights, noise,
+                                              radiance_on, occ_on)
+        terms = all_reduce_step(self.mesh, self.opt.params, terms)
         self.opt.step()
-        aux = {'psnr': outputs['psnr'], 'std': outputs['std'],
-               'sample_num': outputs['sample_num'], **terms}
-        return {k: v.detach() for k, v in aux.items()}
+        return {k: v.detach() for k, v in {**extra, **terms}.items()}
+
+    def _graph_body(self, step, batch, noise, scalars, weight_keys,
+                    radiance_on, occ_on):
+        """What the CUDA graph holds: _forward_backward with the anneal
+        ratio and the weights read from ``scalars`` (step_scalars' values
+        in one tensor); returns the terms' keys and their values stacked."""
+        anneal, weights = scalar_views(scalars, weight_keys)
+        extra, terms = self._forward_backward(step, batch, weights, noise,
+                                              radiance_on, occ_on, anneal)
+        aux = {**extra, **terms}
+        return list(aux), torch.stack([v.detach().float().reshape(())
+                                       for v in aux.values()])
 
     # ------------------------------------------------------------------
     def occ_warmup_steps(self) -> int:

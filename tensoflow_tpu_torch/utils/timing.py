@@ -2,7 +2,8 @@
 tensoflow_tpu/utils/timing.py; ref: utils/base_utils.py:29-50,
 train/train_tools.py:93-108):
   * ``span``: a named profiler range inside the training step (the
-    ``tf.*`` spans), recorded only while a profiler session is active;
+    ``tf.*`` spans), recorded only while a profiler session is active
+    (``recording``);
   * ``profile_trace``: ``torch.profiler`` over the block, which
     writes a Chrome trace (chrome://tracing, Perfetto) under ``logdir``,
     the spans included;
@@ -20,6 +21,12 @@ from torch.profiler import record_function
 
 # the one context every span returns while no profiler records
 _NO_SPAN = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a profiler session records (the spans record then, and the
+    stage-1 step runs eagerly, so that its ranges are there to read)."""
+    return _profiler_enabled()
 
 
 def span(name: str):
