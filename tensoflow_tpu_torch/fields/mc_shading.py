@@ -49,6 +49,7 @@ from ..ops.samplers import (direction_table, direction_to_angle,
                             sample_diffuse_directions,
                             sample_specular_directions)
 from ..parallel import sharding
+from ..utils.timing import span
 from . import flow as flow_mod
 from . import light as light_mod
 from . import mlp
@@ -297,14 +298,16 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
     if sharding.active(mesh):
         n_rays = n_rays * mesh.size
 
-    outer = predict_outer_lights(params, cfg, o, d)
-    if cfg.human_lights and human_poses is not None:
-        # one pose [3,4] per point serves its rays: [pn, sn, 3] rays
-        # against [pn, 3, 4] poses in a batched product, never a
-        # [pn * sn, 3, 4] copy
-        hl, hw = get_human_light(params, o.view(shape + (3,)),
-                                 d.view(shape + (3,)), human_poses)
-        outer = outer * (1.0 - hw.reshape(-1, 1)) + (hl * hw).reshape(-1, 3)
+    with span('tf.lights'):
+        outer = predict_outer_lights(params, cfg, o, d)
+        if cfg.human_lights and human_poses is not None:
+            # one pose [3,4] per point serves its rays: [pn, sn, 3] rays
+            # against [pn, 3, 4] poses in a batched product, never a
+            # [pn * sn, 3, 4] copy
+            hl, hw = get_human_light(params, o.view(shape + (3,)),
+                                     d.view(shape + (3,)), human_poses)
+            outer = outer * (1.0 - hw.reshape(-1, 1)) \
+                + (hl * hw).reshape(-1, 3)
 
     if callable(grid):
         with torch.no_grad():
@@ -315,7 +318,8 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
         return lights.reshape(*shape, 3), hit.reshape(shape)
 
     packed = isinstance(grid, sdf_trace.PackedSDFGrid)
-    with torch.no_grad():
+    budgeted = packed and 0.0 < cfg.secondary_budget < 1.0
+    with span('tf.sec_trace'), torch.no_grad():
         d_ng = d.detach()
         o_trace = o.detach() + 2.0 * unit_size * d_ng
         h0 = None
@@ -329,12 +333,10 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
                 shape + (3,)).reshape(-1, 3)
             o_trace = o_trace + 1.5 * m_cell * nrm
             h0 = torch.sum(d_ng * nrm, -1)
-
-    if packed and 0.0 < cfg.secondary_budget < 1.0:
-        # budgeted trace: dense launch certification + ONE shared
-        # compaction for trace refinement AND the inner-light MLP
-        m = sdf_trace.budget_slots(n_rays, cfg.secondary_budget)
-        with torch.no_grad():
+        if budgeted:
+            # budgeted trace: dense launch certification + ONE shared
+            # compaction for trace refinement AND the inner-light MLP
+            m = sdf_trace.budget_slots(n_rays, cfg.secondary_budget)
             vis_rows = None
             # per-point cache rows are only sound when the bake reserved
             # an apex pad covering the 2*unit_size ray-direction offset
@@ -370,59 +372,68 @@ def get_lights(params, cfg: MCShadingConfig, grid, unit_size, points,
                     torch.sum(res.a1_need.float())])) / n_rays
                 stats['secondary_cand_rate'], stats['secondary_hit_rate'], \
                     stats['secondary_a1_rate'] = counts.unbind(0)
-        if 0.0 < cfg.inner_light_budget < 1.0:
-            # second compaction: the 4x256 inner-light MLP only runs on
-            # HIT slots; overflow beyond the hit budget falls back to the
-            # outer light (visibility stays exact, only the light value
-            # degrades)
-            m2 = sdf_trace.budget_slots(
-                n_rays, min(cfg.inner_light_budget, cfg.secondary_budget))
-            src2, mask2, dest2 = compact_indices_mesh(hit_slots, m2, mesh)
-            m2 = src2.shape[0]
-            pay = torch.cat([res.inters, res.view_out, res.normals], -1)
-            pm2 = compact_take(pay, src2, dest2, mask2)
-            inner2 = get_inner_lights(params, cfg, pm2[:, 0:3],
-                                      pm2[:, 3:6], pm2[:, 6:9])
-            inner_m = scatter_back(inner2, dest2, src=src2, slot_mask=mask2)
-            use_inner_m = hit_slots & (dest2 < m2)
         else:
-            inner_m = get_inner_lights(params, cfg, res.inters,
-                                       res.view_out, res.normals)
-            use_inner_m = res.hit_m
-        # ONE wide expansion for lights + depth + hit
-        payload_m = torch.cat(
-            [inner_m, res.depth_m[:, None],
-             res.hit_m[:, None].to(inner_m.dtype),
-             use_inner_m[:, None].to(inner_m.dtype)], -1)
-        full = scatter_back(payload_m, res.dest, src=res.src,
-                            slot_mask=res.slot_mask)
-        hit = full[:, 4] > 0.5                  # overflow/miss -> fill 0
-        depth = torch.where(hit, full[:, 3], torch.full_like(
-            full[:, 3], sdf_trace.MISS_DEPTH))[:, None].detach()
-        lights = torch.where(full[:, 5:6] > 0.5, full[:, 0:3], outer)
-        lights = _near_masked(lights, depth, eps)
+            # dense fallback: trace every ray at full fidelity
+            inters, t_normals, depth, hit = sdf_trace.sphere_trace(
+                grid, o_trace, d_ng)
+
+    if budgeted:
+        with span('tf.lights'):
+            if 0.0 < cfg.inner_light_budget < 1.0:
+                # second compaction: the 4x256 inner-light MLP only runs
+                # on HIT slots; overflow beyond the hit budget falls back
+                # to the outer light (visibility stays exact, only the
+                # light value degrades)
+                m2 = sdf_trace.budget_slots(
+                    n_rays, min(cfg.inner_light_budget,
+                                cfg.secondary_budget))
+                src2, mask2, dest2 = compact_indices_mesh(hit_slots, m2,
+                                                          mesh)
+                m2 = src2.shape[0]
+                pay = torch.cat([res.inters, res.view_out, res.normals], -1)
+                pm2 = compact_take(pay, src2, dest2, mask2)
+                inner2 = get_inner_lights(params, cfg, pm2[:, 0:3],
+                                          pm2[:, 3:6], pm2[:, 6:9])
+                inner_m = scatter_back(inner2, dest2, src=src2,
+                                       slot_mask=mask2)
+                use_inner_m = hit_slots & (dest2 < m2)
+            else:
+                inner_m = get_inner_lights(params, cfg, res.inters,
+                                           res.view_out, res.normals)
+                use_inner_m = res.hit_m
+        with span('tf.sec_trace'):
+            # ONE wide expansion for lights + depth + hit
+            payload_m = torch.cat(
+                [inner_m, res.depth_m[:, None],
+                 res.hit_m[:, None].to(inner_m.dtype),
+                 use_inner_m[:, None].to(inner_m.dtype)], -1)
+            full = scatter_back(payload_m, res.dest, src=res.src,
+                                slot_mask=res.slot_mask)
+            hit = full[:, 4] > 0.5              # overflow/miss -> fill 0
+            depth = torch.where(hit, full[:, 3], torch.full_like(
+                full[:, 3], sdf_trace.MISS_DEPTH))[:, None].detach()
+            lights = torch.where(full[:, 5:6] > 0.5, full[:, 0:3], outer)
+            lights = _near_masked(lights, depth, eps)
         return lights.reshape(*shape, 3), hit.reshape(shape)
 
-    # dense fallback: trace every ray at full fidelity
-    with torch.no_grad():
-        inters, t_normals, depth, hit = sdf_trace.sphere_trace(
-            grid, o_trace, d_ng)
-    if 0.0 < cfg.inner_light_budget < 1.0:
-        # compact hit rays before the inner-light MLP; overflow beyond the
-        # budget falls back to the outer light
-        src, slot_mask, dest = compact_indices_mesh(
-            hit, max(int(n_rays * cfg.inner_light_budget), 1), mesh)
-        m = src.shape[0]
-        payload = torch.cat([inters, -d, t_normals], dim=-1)
-        pm = compact_take(payload, src, dest, slot_mask)
-        inner_m = get_inner_lights(params, cfg, pm[:, 0:3], pm[:, 3:6],
-                                   pm[:, 6:9])
-        inner = scatter_back(inner_m, dest, src=src, slot_mask=slot_mask)
-        lights = torch.where((hit & (dest < m))[:, None], inner, outer)
-    else:
-        inner = get_inner_lights(params, cfg, inters, -d, t_normals)
-        lights = torch.where(hit[:, None], inner, outer)
-    lights = _near_masked(lights, depth, eps)
+    with span('tf.lights'):
+        if 0.0 < cfg.inner_light_budget < 1.0:
+            # compact hit rays before the inner-light MLP; overflow beyond
+            # the budget falls back to the outer light
+            src, slot_mask, dest = compact_indices_mesh(
+                hit, max(int(n_rays * cfg.inner_light_budget), 1), mesh)
+            m = src.shape[0]
+            payload = torch.cat([inters, -d, t_normals], dim=-1)
+            pm = compact_take(payload, src, dest, slot_mask)
+            inner_m = get_inner_lights(params, cfg, pm[:, 0:3], pm[:, 3:6],
+                                       pm[:, 6:9])
+            inner = scatter_back(inner_m, dest, src=src,
+                                 slot_mask=slot_mask)
+            lights = torch.where((hit & (dest < m))[:, None], inner, outer)
+        else:
+            inner = get_inner_lights(params, cfg, inters, -d, t_normals)
+            lights = torch.where(hit[:, None], inner, outer)
+        lights = _near_masked(lights, depth, eps)
     return lights.reshape(*shape, 3), hit.reshape(shape)
 
 
@@ -562,10 +573,11 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     d_dirs2, _, d_prob2, d_half2 = sample_diffuse_directions(
         dtable, normals, view_dirs, az.get('az_diffuse'))
     if phase.nis_sample_diffuse:
-        d_dirs1, _, d_prob1, d_half1, _ = _flow_sample_halfvec(
-            flow_diffuse_copy, fcfg, pts, aabb, view_angles01, roughness,
-            normals, view_dirs, cfg.nis_diffuse_sample_num, is_train,
-            noise.get('flow_diffuse'))
+        with span('tf.flow'):
+            d_dirs1, _, d_prob1, d_half1, _ = _flow_sample_halfvec(
+                flow_diffuse_copy, fcfg, pts, aabb, view_angles01,
+                roughness, normals, view_dirs, cfg.nis_diffuse_sample_num,
+                is_train, noise.get('flow_diffuse'))
         diffuse_dirs = torch.cat([d_dirs1, d_dirs2], 1)
         diffuse_prob = torch.cat([d_prob1, d_prob2], 1)
         diffuse_half = torch.cat([d_half1, d_half2], 1)
@@ -581,10 +593,12 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     # with the flow samples when the specular flow copy is live
     # (ref fields.py:1160-1206)
     if phase.nis_sample_specular:
-        spec_dirs, _, spec_prob, spec_half, _ = _flow_sample_halfvec(
-            flow_specular_copy, fcfg, pts, aabb, view_angles01, roughness,
-            normals, view_dirs, cfg.nis_specular_sample_num, is_train,
-            noise.get('flow_specular'))
+        with span('tf.flow'):
+            spec_dirs, _, spec_prob, spec_half, _ = _flow_sample_halfvec(
+                flow_specular_copy, fcfg, pts, aabb, view_angles01,
+                roughness, normals, view_dirs,
+                cfg.nis_specular_sample_num, is_train,
+                noise.get('flow_specular'))
     else:
         stable = direction_table(cfg.specular_sample_num, dev)
         spec_dirs, _, spec_prob, spec_half = sample_specular_directions(
@@ -684,9 +698,10 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     if phase.nis_loss_diffuse and cfg.use_nis_diffuse:
         sn = cfg.nis_diffuse_sample_num
         theta = diffuse_half[:, :sn, 1:2]
-        _, logqx_ = flow_mod.flow_log_density(
-            params['flow_diffuse'], fcfg, pts, aabb, view_angles01,
-            roughness, _halfvec_x(diffuse_half[:, :sn]))
+        with span('tf.flow'):
+            _, logqx_ = flow_mod.flow_log_density(
+                params['flow_diffuse'], fcfg, pts, aabb, view_angles01,
+                roughness, _halfvec_x(diffuse_half[:, :sn]))
         logqx = logqx_ - torch.log(torch.clamp(
             4 * math.pi ** 2 * hov_diff[:, :sn] * torch.sin(theta),
             min=EPS))
@@ -704,9 +719,10 @@ def shade_mixed(params, cfg: MCShadingConfig, grid, unit_size, aabb,
 
     if phase.nis_loss_specular and cfg.use_nis_specular:
         theta = spec_half[..., 1:2]
-        _, logqx_ = flow_mod.flow_log_density(
-            params['flow_specular'], fcfg, pts, aabb, view_angles01,
-            roughness, _halfvec_x(spec_half))
+        with span('tf.flow'):
+            _, logqx_ = flow_mod.flow_log_density(
+                params['flow_specular'], fcfg, pts, aabb, view_angles01,
+                roughness, _halfvec_x(spec_half))
         logqx = logqx_ - torch.log(torch.clamp(
             4 * math.pi ** 2 * hov_spec * torch.sin(theta), min=EPS))
         sp = torch.clamp(spec_prob, min=EPS)
@@ -743,10 +759,11 @@ def shade_mixed_all(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     dirs2, _, prob2, half2 = sample_diffuse_directions(
         dtable, normals, view_dirs, az.get('az_all'))
     if phase.nis_sample_diffuse and flow_all_copy is not None:
-        dirs1, _, prob1, half1, _ = _flow_sample_halfvec(
-            flow_all_copy, fcfg, pts, aabb, view_angles01, roughness,
-            normals, view_dirs, cfg.nis_sample_num, is_train,
-            noise.get('flow_all'))
+        with span('tf.flow'):
+            dirs1, _, prob1, half1, _ = _flow_sample_halfvec(
+                flow_all_copy, fcfg, pts, aabb, view_angles01, roughness,
+                normals, view_dirs, cfg.nis_sample_num, is_train,
+                noise.get('flow_all'))
         directions = torch.cat([dirs1, dirs2], 1)
         prob = torch.cat([prob1, prob2], 1)
         angles_half = torch.cat([half1, half2], 1)
@@ -813,9 +830,10 @@ def shade_mixed_all(params, cfg: MCShadingConfig, grid, unit_size, aabb,
     if (phase.nis_loss_diffuse or phase.nis_loss_specular) \
             and cfg.use_nis_all:
         theta = angles_half[..., 1:2]
-        _, logqx_ = flow_mod.flow_log_density(
-            params['flow_all'], fcfg, pts, aabb, view_angles01, roughness,
-            _halfvec_x(angles_half))
+        with span('tf.flow'):
+            _, logqx_ = flow_mod.flow_log_density(
+                params['flow_all'], fcfg, pts, aabb, view_angles01,
+                roughness, _halfvec_x(angles_half))
         logqx = logqx_ - torch.log(torch.clamp(
             4 * math.pi ** 2 * hov * torch.sin(theta), min=EPS))
         outputs['loss_nis'] = -sharding.mean_share(
@@ -834,7 +852,9 @@ def mc_forward(params, cfg: MCShadingConfig, grid, unit_size, aabb, pts,
     copy from the diffuse-copy slot.  noise, mesh: see shade_mixed."""
     view_dirs = safe_normalize(view_dirs)
     normals = safe_normalize(normals)
-    metallic, roughness, albedo = predict_materials(params, cfg, pts, aabb)
+    with span('tf.mat_field'):
+        metallic, roughness, albedo = predict_materials(params, cfg, pts,
+                                                        aabb)
     if cfg.shade_fn == 'shade_mixed_all':
         colors, outputs = shade_mixed_all(
             params, cfg, grid, unit_size, aabb, pts, normals, view_dirs,

@@ -16,7 +16,11 @@ tensoflow_tpu/train/trainer_mat.py).
     slot, before flow_diffuse's (which then overwrites it);
   * render_image / validate render held-out views in chunks of 512 rays:
     primary trace, the analytic eval pass and, once the flow copies exist,
-    the ``_nis`` pass.
+    the ``_nis`` pass;
+  * the spans ``tf.step`` (one step of ``train``), ``tf.forward`` and
+    ``tf.backward`` (utils/timing.span; inside the forward,
+    fields/mc_shading.py opens ``tf.mat_field``, ``tf.flow``,
+    ``tf.sec_trace`` and ``tf.lights``) record only under a profiler.
 
 Entry points run on the card: ``MaterialTrainer(cfg, path)`` means CUDA and
 raises when CUDA is absent; the CPU runs only with ``device='cpu'``.
@@ -42,6 +46,7 @@ from ..data import database as db_mod
 from ..data import rays as rays_mod
 from ..fields import mc_shading, tenso_sdf
 from ..models import material_renderer as mr
+from ..utils.timing import span
 from . import checkpoints, losses, metrics_vis
 from .checkpoints import named_leaves
 from .trainer import ScheduledAdam, _batch_to_device, all_reduce_step
@@ -258,13 +263,15 @@ class MaterialTrainer:
         rates, all still on the device.  On a mesh the batch and noise
         are this rank's and everything returned is global."""
         self.opt.zero_grad()
-        outputs = mr.train_step_outputs(
-            self.params, self.rcfg, self.grid, batch, phase, noise, step,
-            self.flow_copies.get('diffuse'),
-            self.flow_copies.get('specular'), mesh=self.mesh)
-        total, terms = losses.total_loss_material(outputs, weights,
-                                                  self.mesh)
-        total.backward()
+        with span('tf.forward'):
+            outputs = mr.train_step_outputs(
+                self.params, self.rcfg, self.grid, batch, phase, noise,
+                step, self.flow_copies.get('diffuse'),
+                self.flow_copies.get('specular'), mesh=self.mesh)
+            total, terms = losses.total_loss_material(outputs, weights,
+                                                      self.mesh)
+        with span('tf.backward'):
+            total.backward()
         terms = all_reduce_step(self.mesh, self.opt.params,
                                 {**terms, 'loss': total})
         self.opt.step()
@@ -286,23 +293,25 @@ class MaterialTrainer:
         end_step = min(self.start_step + total, self.cfg['total_step'])
         logs = []
         for step in range(self.start_step, end_step):
-            self.update_flow_copies(step)
-            phase = self.phase(step)
-            host_batch = self.batcher.next_batch()
-            batch = _batch_to_device(sharding.shard_batch(
-                self.mesh, {k: host_batch[k] for k in self.step_keys()}),
-                self.device)
-            weights = losses.schedule_weights(self.cfg, step)
-            aux = self.train_step(
-                step, batch, weights,
-                self.shard_noise(self.step_noise(step, phase)), phase)
-            if ((step + 1) % SEC_BUDGET_INTERVAL == 0
-                    and 'secondary_cand_rate' in aux):
-                # the JAX step hands its trainer the candidate and hit
-                # rates only, so the a1 budget keeps its configured value
-                self._adapt_secondary_budget(
-                    float(aux['secondary_cand_rate']),
-                    float(aux['secondary_hit_rate']))
+            with span('tf.step'):
+                self.update_flow_copies(step)
+                phase = self.phase(step)
+                host_batch = self.batcher.next_batch()
+                batch = _batch_to_device(sharding.shard_batch(
+                    self.mesh, {k: host_batch[k]
+                                for k in self.step_keys()}), self.device)
+                weights = losses.schedule_weights(self.cfg, step)
+                aux = self.train_step(
+                    step, batch, weights,
+                    self.shard_noise(self.step_noise(step, phase)), phase)
+                if ((step + 1) % SEC_BUDGET_INTERVAL == 0
+                        and 'secondary_cand_rate' in aux):
+                    # the JAX step hands its trainer the candidate and hit
+                    # rates only, so the a1 budget keeps its configured
+                    # value
+                    self._adapt_secondary_budget(
+                        float(aux['secondary_cand_rate']),
+                        float(aux['secondary_hit_rate']))
             if (step + 1) % log_every == 0 or step == self.start_step:
                 vals = torch.stack([v.float() for v in aux.values()])
                 host = dict(zip(aux, vals.tolist()))   # one device read
