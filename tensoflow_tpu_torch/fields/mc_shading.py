@@ -877,10 +877,11 @@ def mc_forward(params, cfg: MCShadingConfig, grid, unit_size, aabb, pts,
 def material_regularization(params, cfg: MCShadingConfig, pts, normals,
                             metallic, roughness, albedo,
                             reg_minmax_on: float, mesh=None):
-    """TV on the material field (+ early saturation clamps, gated by the
-    host with reg_minmax_on = 1.0 while step < 2000).  On an active mesh
-    this rank's share: the TV of the replicated field counts on rank 0
-    only, the clamps sum this rank's points."""
+    """TV on the material field (+ early saturation clamps, gated by
+    reg_minmax_on = 1.0 while step < 2000: a float, or a 0-d tensor under
+    the trainer's CUDA graph).  On an active mesh this rank's share: the
+    TV of the replicated field counts on rank 0 only, the clamps sum this
+    rank's points."""
     own = 0.0 if sharding.active(mesh) and not mesh.is_main else 1.0
     reg = tfield.tv_loss_vm(params['mat_field']) * (0.1 * own)
     if cfg.reg_min_max:

@@ -166,15 +166,25 @@ def diffuse_light_regularization(diffuse_lights, lam: float):
         -1) * lam
 
 
+def reg_minmax_factor(step: int) -> float:
+    """The material clamps' factor at ``step``: on (1.0) while step <
+    2000, then off."""
+    return 1.0 if step < 2000 else 0.0
+
+
 def train_step_outputs(params, cfg: MaterialRendererConfig, grid, batch,
                        phase: mc_shading.ShadePhase, noise, step: int,
                        flow_diffuse_copy=None, flow_specular_copy=None,
-                       mesh=None):
+                       mesh=None, reg_minmax=None):
     """Training forward on precomputed surface hits
     (ref: materialRenderer.py:537-564).  noise: mc_shading.draw_shade_noise's
     dict.  mesh: on an active mesh the hits and noise are this rank's
     shard, psnr is global and the losses are this rank's shares
-    (mc_shading.shade_mixed)."""
+    (mc_shading.shade_mixed).  ``reg_minmax`` (default reg_minmax_factor
+    at ``step``) may be a 0-d tensor on the device, as the trainer's CUDA
+    graph feeds it."""
+    if reg_minmax is None:
+        reg_minmax = reg_minmax_factor(step)
     pts = batch['inters']
     aabb = aabb_tensor(cfg, pts.device)
     normals = batch['normals']
@@ -192,8 +202,7 @@ def train_step_outputs(params, cfg: MaterialRendererConfig, grid, batch,
     if cfg.reg_mat:
         outputs['loss_mat_reg'] = mc_shading.material_regularization(
             params, cfg.shader, pts, normals, outputs['metallic'],
-            outputs['roughness'], outputs['albedo'],
-            1.0 if step < 2000 else 0.0, mesh)
+            outputs['roughness'], outputs['albedo'], reg_minmax, mesh)
     if cfg.reg_diffuse_light:
         outputs['loss_diffuse_light'] = diffuse_light_regularization(
             outputs['diffuse_light'], cfg.reg_diffuse_light_lambda)

@@ -250,8 +250,9 @@ def step_scalars(rcfg: sr.ShapeRendererConfig, step: int,
 
 
 def scalar_views(scalars: torch.Tensor, weight_keys):
-    """(anneal ratio, weights) as 0-d views of step_scalars' values held in
-    one tensor."""
+    """(the first scalar, the weights) as 0-d views of a step's scalars
+    held in one tensor (step_scalars here and in trainer_mat: the anneal
+    ratio, or the material clamps' factor, then the weights)."""
     return scalars[0], dict(zip(weight_keys, scalars[1:].unbind(0)))
 
 
@@ -267,8 +268,9 @@ def _on_side_stream(fn):
 
 
 class StepGraph:
-    """The stage-1 step's forward, loss sum and backward at one step key
-    (ShapeTrainer.step_key), captured once as a CUDA graph and replayed.
+    """A training step's forward, loss sum and backward at one step key
+    (ShapeTrainer.step_key, MaterialTrainer.step_key), captured once as a
+    CUDA graph and replayed.
 
     The capture reads static copies of the batch, the draws and the
     step's scalars (step_scalars), which each replay refreshes; the
@@ -328,6 +330,34 @@ class StepGraph:
         for t, g in zip(leaves, self.grads):
             t.grad = g
         return dict(zip(self.keys, self.out.clone().unbind(0)))
+
+
+def graphed_step(trainer, key, refs, eager, body, batch, noise, scalars):
+    """One training step of ``trainer`` (its ``_graph``, ``graph_stats``,
+    ``opt`` and ``device``) at step key ``key``, where its graph engages:
+    at a new key GRAPH_WARMUP_STEPS steps of ``eager()`` on a side stream,
+    then the capture of ``body`` (StepGraph.capture; ``refs`` as there),
+    then replays, each followed by the eager Adam step; returns the step's
+    terms.  ``scalars`` are the step's per-step values that body reads as
+    one tensor."""
+    g = trainer._graph
+    if g is None or g.key != key:
+        trainer._graph = None          # the old graph's memory goes first
+        g = trainer._graph = StepGraph(key, refs)
+    if g.graph is None and g.warm < GRAPH_WARMUP_STEPS:
+        g.warm += 1
+        trainer.graph_stats['eager'] += 1
+        return _on_side_stream(eager)
+    if g.graph is None:
+        trainer.opt.zero_grad()
+        g.capture(body, batch, noise,
+                  torch.tensor(scalars, dtype=torch.float32,
+                               device=trainer.device), trainer.opt.params)
+        trainer.graph_stats['captures'] += 1
+    aux = g.replay(batch, noise, scalars, trainer.opt.params)
+    trainer.graph_stats['replayed'] += 1
+    trainer.opt.step()
+    return aux
 
 
 class ShapeTrainer:
@@ -446,7 +476,7 @@ class ShapeTrainer:
         (shard_noise) and everything returned is global.
 
         Where graph_engages, the forward, loss sum and backward run as the
-        replay of one CUDA graph (StepGraph) while the step key
+        replay of one CUDA graph (graphed_step) while the step key
         (step_key) holds: at a new key, GRAPH_WARMUP_STEPS eager steps on
         a side stream, then a capture.  Adam stays eager.  Elsewhere (on
         the CPU, on a mesh, on the occupancy-grid route, under a profiler)
@@ -458,32 +488,17 @@ class ShapeTrainer:
             self.graph_stats['eager'] += 1
             return self._eager_step(step, batch, weights, noise,
                                     radiance_on, occ_on)
-        key = self.step_key(step, batch, weights, noise, radiance_on, occ_on)
-        g = self._graph
-        if g is None or g.key != key:
-            self._graph = None          # the old graph's memory goes first
-            g = self._graph = StepGraph(key, (self.opt.params,
-                                              self.alpha_mask))
-        if g.graph is None and g.warm < GRAPH_WARMUP_STEPS:
-            g.warm += 1
-            self.graph_stats['eager'] += 1
-            return _on_side_stream(lambda: self._eager_step(
-                step, batch, weights, noise, radiance_on, occ_on))
-        scalars = step_scalars(self.rcfg, step, weights)
-        if g.graph is None:
-            self.opt.zero_grad()
 
-            def body(b, n, s):
-                return self._graph_body(step, b, n, s, tuple(weights),
-                                        radiance_on, occ_on)
-            g.capture(body, batch, noise,
-                      torch.tensor(scalars, dtype=torch.float32,
-                                   device=self.device), self.opt.params)
-            self.graph_stats['captures'] += 1
-        aux = g.replay(batch, noise, scalars, self.opt.params)
-        self.graph_stats['replayed'] += 1
-        self.opt.step()
-        return aux
+        def body(b, n, s):
+            return self._graph_body(step, b, n, s, tuple(weights),
+                                    radiance_on, occ_on)
+        return graphed_step(
+            self, self.step_key(step, batch, weights, noise, radiance_on,
+                                occ_on),
+            (self.opt.params, self.alpha_mask),
+            lambda: self._eager_step(step, batch, weights, noise,
+                                     radiance_on, occ_on),
+            body, batch, noise, step_scalars(self.rcfg, step, weights))
 
     def graph_engages(self) -> bool:
         """Whether train_step replays a CUDA graph: on the card, without a

@@ -6,10 +6,12 @@ tensoflow_tpu/train/trainer_mat.py).
   * all training rays are traced against the baked SDF in chunks on the
     device; misses are dropped on the host (one-time preprocessing, ref:
     materialRenderer.py:383-417);
-  * per step: slice ``train_ray_num`` hits, one eager shade + loss +
-    backward + Adam step; the only host-to-device copy of a step is its
-    batch, and the trace statistics are read by the host only every
-    SEC_BUDGET_INTERVAL steps and at ``log_every``;
+  * per step: slice ``train_ray_num`` hits, shade, sum the loss terms,
+    backpropagate and take one eager Adam step; on the card the shade,
+    loss sum and backward are the replay of one CUDA graph
+    (``MaterialTrainer.train_step``); the only host-to-device copy of a
+    step is its batch, and the trace statistics are read by the host
+    only every SEC_BUDGET_INTERVAL steps and at ``log_every``;
   * frozen flow copies are refreshed on the reference schedule
     (ref: fields.py:1050-1065): detached clones the optimizer never sees;
     with ``use_nis_all`` the combined flow's copy takes the 'diffuse'
@@ -46,10 +48,11 @@ from ..data import database as db_mod
 from ..data import rays as rays_mod
 from ..fields import mc_shading, tenso_sdf
 from ..models import material_renderer as mr
-from ..utils.timing import span
+from ..utils.timing import recording, span
 from . import checkpoints, losses, metrics_vis
 from .checkpoints import named_leaves
-from .trainer import ScheduledAdam, _batch_to_device, all_reduce_step
+from .trainer import (ScheduledAdam, _batch_to_device, all_reduce_step,
+                      graphed_step, scalar_views)
 
 # adaptive secondary-trace budget: the trainer re-buckets the slot budget
 # to the measured candidate rate, so that compaction cost tracks the
@@ -115,6 +118,26 @@ def _clone_tree(tree):
     return checkpoints.tree_map(lambda t: t.detach().clone(), tree)
 
 
+def step_scalars(step: int, weights: Dict[str, float]):
+    """The stage-2 step's scalars that change from step to step, in the
+    order the captured step reads them (trainer.scalar_views): the
+    material clamps' factor, then the schedule weights."""
+    return [mr.reg_minmax_factor(step), *weights.values()]
+
+
+def _step_terms(outputs, terms):
+    """What train_step returns, undetached: psnr, variance, the loss
+    terms, the trace rates, then ``loss``."""
+    aux = {'psnr': outputs['psnr'], 'variance': outputs['variance'],
+           **{k: v for k, v in terms.items() if k != 'loss'}}
+    for k in ('secondary_cand_rate', 'secondary_hit_rate',
+              'secondary_a1_rate'):
+        if k in outputs:
+            aux[k] = outputs[k]
+    aux['loss'] = terms['loss']
+    return aux
+
+
 class MaterialTrainer:
     def __init__(self, cfg: Dict[str, Any], geo_ckpt_path: str, device=None,
                  mesh=None):
@@ -137,6 +160,9 @@ class MaterialTrainer:
         self.flow_copies: Dict[str, Any] = {}
         self.start_step = 0
         self.best_para = 0.0
+        # steps by path, and captures (train_step)
+        self.graph_stats = {'replayed': 0, 'eager': 0, 'captures': 0}
+        self._graph = None
         self.set_params(mc_shading.init_mc_shading(
             self.init_gen, self.rcfg.shader, self.device))
 
@@ -260,29 +286,86 @@ class MaterialTrainer:
                    ) -> Dict[str, torch.Tensor]:
         """Forward, backward and one Adam step; returns the detached loss
         terms (``loss`` = their sum), psnr, variance and the trace
-        rates, all still on the device.  On a mesh the batch and noise
-        are this rank's and everything returned is global."""
-        self.opt.zero_grad()
+        rates, all still on the device, each step its own tensors.  On a
+        mesh the batch and noise are this rank's and everything returned
+        is global.
+
+        Where graph_engages, the forward, loss sum and backward run as the
+        replay of one CUDA graph (trainer.graphed_step) while the step key
+        (step_key) holds: at a new key, GRAPH_WARMUP_STEPS eager steps on
+        a side stream, then a capture.  Adam stays eager.  Elsewhere (on
+        the CPU, on a mesh, under a profiler) the step runs eagerly."""
+        if not self.graph_engages():
+            self.graph_stats['eager'] += 1
+            return self._eager_step(step, batch, weights, noise, phase)
+
+        def body(b, n, s):
+            return self._graph_body(step, b, n, s, tuple(weights), phase)
+        return graphed_step(
+            self, self.step_key(step, batch, weights, noise, phase),
+            (self.opt.params, dict(self.flow_copies), self.grid),
+            lambda: self._eager_step(step, batch, weights, noise, phase),
+            body, batch, noise, step_scalars(step, weights))
+
+    def graph_engages(self) -> bool:
+        """Whether train_step replays a CUDA graph: on the card, without a
+        mesh, while no profiler records (a replay records no host ranges
+        for the profile to read)."""
+        return (self.device.type == 'cuda' and not sharding.active(self.mesh)
+                and not recording())
+
+    def step_key(self, step: int, batch, weights, noise, phase):
+        """Everything that picks the step's Python control flow or the
+        identity of a tensor it reads, beside its inputs' values: the
+        renderer config (widths and the slot budgets, which an adaptation
+        re-buckets), the parameter leaves, the frozen flow copies' leaves
+        (update_flow_copies replaces them with fresh clones), the baked
+        grid, the phase flags, the weights' keys and the inputs' shapes.
+        The material clamps' factor is a scalar of the step
+        (step_scalars), not a part of the key."""
+        copies = tuple((slot, tuple(id(t) for _, t in named_leaves(tree)))
+                       for slot, tree in sorted(self.flow_copies.items()))
+        return (self.rcfg, tuple(map(id, self.opt.params)), copies,
+                id(self.grid), phase, tuple(weights),
+                tuple((k, tuple(v.shape)) for k, v in batch.items()),
+                tuple((k, tuple(v.shape)) for k, v in noise.items()))
+
+    def _forward_backward(self, step, batch, weights, noise, phase,
+                          reg_minmax=None):
+        """The step's forward, loss sum and backward; returns (the
+        renderer's outputs, the loss terms with their sum, ``loss``), both
+        undetached and this rank's."""
         with span('tf.forward'):
             outputs = mr.train_step_outputs(
                 self.params, self.rcfg, self.grid, batch, phase, noise,
                 step, self.flow_copies.get('diffuse'),
-                self.flow_copies.get('specular'), mesh=self.mesh)
+                self.flow_copies.get('specular'), mesh=self.mesh,
+                reg_minmax=reg_minmax)
             total, terms = losses.total_loss_material(outputs, weights,
                                                       self.mesh)
         with span('tf.backward'):
             total.backward()
-        terms = all_reduce_step(self.mesh, self.opt.params,
-                                {**terms, 'loss': total})
+        return outputs, {**terms, 'loss': total}
+
+    def _eager_step(self, step, batch, weights, noise, phase):
+        self.opt.zero_grad()
+        outputs, terms = self._forward_backward(step, batch, weights, noise,
+                                                phase)
+        terms = all_reduce_step(self.mesh, self.opt.params, terms)
         self.opt.step()
-        aux = {'psnr': outputs['psnr'], 'variance': outputs['variance'],
-               **{k: v for k, v in terms.items() if k != 'loss'}}
-        for k in ('secondary_cand_rate', 'secondary_hit_rate',
-                  'secondary_a1_rate'):
-            if k in outputs:
-                aux[k] = outputs[k]
-        aux['loss'] = terms['loss']
-        return {k: v.detach() for k, v in aux.items()}
+        return {k: v.detach() for k, v in _step_terms(outputs, terms).items()}
+
+    def _graph_body(self, step, batch, noise, scalars, weight_keys, phase):
+        """What the CUDA graph holds: _forward_backward with the clamps'
+        factor and the weights read from ``scalars`` (step_scalars' values
+        in one tensor); returns the terms' keys and their values
+        stacked."""
+        reg_minmax, weights = scalar_views(scalars, weight_keys)
+        outputs, terms = self._forward_backward(step, batch, weights, noise,
+                                                phase, reg_minmax)
+        aux = _step_terms(outputs, terms)
+        return list(aux), torch.stack([v.detach().float().reshape(())
+                                       for v in aux.values()])
 
     # ------------------------------------------------------------------
     def train(self, n_steps: Optional[int] = None, log_every: int = 100,
