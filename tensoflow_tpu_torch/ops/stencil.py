@@ -40,6 +40,7 @@ from typing import Sequence
 import torch
 
 from ..fields.mlp import softplus100
+from ..utils.timing import launch_counter
 from . import cuda_build
 from .tensor_field import FRAC_STRIDE as FS, MAT_MODE, VEC_MODE
 
@@ -47,11 +48,13 @@ _PVAR_SIGN = ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1))
 _LVAR_SIGN = (0, 1, -1)
 _STENCIL = ((None, 0), (0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
 
-# launches of each kernel wrapper (read by chip_smoke.py): the fast
-# kernels', and beside them the general-width kernels'
-LAUNCHES = {'stencil_head_fwd': 0, 'stencil_head_bwd': 0}
-GENERAL_LAUNCHES = {'stencil_head_general_fwd': 0,
-                    'stencil_head_general_bwd': 0}
+# launches of each kernel wrapper, the fast kernels' and beside them the
+# general-width kernels' (read by the benchmark's launch counts, the card
+# tests and chip_smoke.py; a replayed CUDA graph credits them through
+# utils/timing.launch_counter)
+LAUNCHES = launch_counter({'stencil_head_fwd': 0, 'stencil_head_bwd': 0})
+GENERAL_LAUNCHES = launch_counter({'stencil_head_general_fwd': 0,
+                                   'stencil_head_general_bwd': 0})
 
 
 def reset_launches():

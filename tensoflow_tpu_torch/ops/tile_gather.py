@@ -28,11 +28,12 @@ import functools
 
 import torch
 
+from ..utils.timing import launch_counter
 from . import cuda_build
 from .stencil import check_current_device
 
-LAUNCHES = {'row_gather_tile': 0, 'row_gather_grid': 0,
-            'lane_gather_tile': 0, 'row_gather_tile_bf16': 0}
+LAUNCHES = launch_counter({'row_gather_tile': 0, 'row_gather_grid': 0,
+                           'lane_gather_tile': 0, 'row_gather_tile_bf16': 0})
 N_SM = 132                   # the H100's SMs
 CHUNK_BYTES = 512            # a warp's share of one row (tile_gather.cu)
 LANE_THREADS = 256           # at most, lane gather

@@ -74,8 +74,8 @@ def dryrun_stage1(mesh: sharding.Mesh) -> float:
     from ..models import shape_renderer as sr
     from ..ops import grid as grid_mod
     from ..train import losses
-    from ..train.trainer import ScheduledAdam, all_reduce_step, \
-        build_shape_config
+    from ..train.engine import ScheduledAdam, all_reduce_step
+    from ..train.trainer import build_shape_config, param_group_label
     n = mesh.size
     cfg = _tiny_cfg(8 * n)
     cfg.update({'use_occ_grid': True, 'occ_grid_reso': 16,
@@ -91,7 +91,7 @@ def dryrun_stage1(mesh: sharding.Mesh) -> float:
         t.requires_grad_(True)
     occ_state = grid_mod.init_occ_grid(grid_mod.OccGridConfig(resolution=16),
                                        dev)
-    opt = ScheduledAdam(cfg, params, 0)
+    opt = ScheduledAdam(cfg, params, 0, param_group_label)
     batch = _to_device(sharding.shard_batch(
         mesh, _example_batch(cfg['train_ray_num'])), dev)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -120,7 +120,7 @@ def dryrun_stage2(mesh: sharding.Mesh) -> float:
     from ..models import material_renderer as mr
     from ..ops import sdf_trace
     from ..train import losses
-    from ..train.trainer import ScheduledAdam, all_reduce_step
+    from ..train.engine import ScheduledAdam, all_reduce_step
     from ..train.trainer_mat import (build_material_config,
                                      mat_param_group_label)
     rays = 8 * mesh.size

@@ -1,6 +1,10 @@
 """Stage-2 (material) trainer of the port (counterpart of
 tensoflow_tpu/train/trainer_mat.py).
 
+Stage 2's own parts live here (config, Adam groups, forward and backward,
+draws, step-key part, flow copies, budget adaptation, ``train``'s body,
+``load``, rendering); the step's engine is train/engine.py's.
+
   * the stage-1 checkpoint is loaded and its SDF baked to the packed trace
     grid once;
   * all training rays are traced against the baked SDF in chunks on the
@@ -24,16 +28,11 @@ tensoflow_tpu/train/trainer_mat.py).
     fields/mc_shading.py opens ``tf.mat_field``, ``tf.flow``,
     ``tf.sec_trace`` and ``tf.lights``) record only under a profiler.
 
-Entry points run on the card: ``MaterialTrainer(cfg, path)`` means CUDA and
-raises when CUDA is absent; the CPU runs only with ``device='cpu'``.
-
 ``mesh=`` (parallel/sharding.py) trains one rank of a data mesh: the hit
 batch is sharded; params, flow copies, the baked SDF grid and the frozen
 geometry are replicated (every rank traces the same hits in
 ``init_dataset``); the shader's slot budgets come from the global ray
-count and its trace rates are global; gradients and logged terms are
-summed in one all-reduce before Adam.  Only rank 0 writes checkpoints;
-every rank validates its share of the held-out views.
+count and its trace rates are global (the rest: train/engine.py).
 """
 from __future__ import annotations
 
@@ -42,17 +41,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
 from ..parallel import sharding
-from ..data import database as db_mod
 from ..data import rays as rays_mod
 from ..fields import mc_shading, tenso_sdf
 from ..models import material_renderer as mr
-from ..utils.timing import recording, span
-from . import checkpoints, losses, metrics_vis
+from ..utils.timing import span
+from . import checkpoints, losses
 from .checkpoints import named_leaves
-from .trainer import (ScheduledAdam, _batch_to_device, all_reduce_step,
-                      graphed_step, scalar_views)
+from .engine import StageTrainer, batch_to_device
 
 # adaptive secondary-trace budget: the trainer re-buckets the slot budget
 # to the measured candidate rate, so that compaction cost tracks the
@@ -118,37 +114,15 @@ def _clone_tree(tree):
     return checkpoints.tree_map(lambda t: t.detach().clone(), tree)
 
 
-def step_scalars(step: int, weights: Dict[str, float]):
-    """The stage-2 step's scalars that change from step to step, in the
-    order the captured step reads them (trainer.scalar_views): the
-    material clamps' factor, then the schedule weights."""
-    return [mr.reg_minmax_factor(step), *weights.values()]
+class MaterialTrainer(StageTrainer):
+    """End-to-end stage-2 training (materials, lights, the flow sampler)
+    over a stage-1 checkpoint's frozen geometry."""
 
+    group_label = staticmethod(mat_param_group_label)
 
-def _step_terms(outputs, terms):
-    """What train_step returns, undetached: psnr, variance, the loss
-    terms, the trace rates, then ``loss``."""
-    aux = {'psnr': outputs['psnr'], 'variance': outputs['variance'],
-           **{k: v for k, v in terms.items() if k != 'loss'}}
-    for k in ('secondary_cand_rate', 'secondary_hit_rate',
-              'secondary_a1_rate'):
-        if k in outputs:
-            aux[k] = outputs[k]
-    aux['loss'] = terms['loss']
-    return aux
-
-
-class MaterialTrainer:
     def __init__(self, cfg: Dict[str, Any], geo_ckpt_path: str, device=None,
                  mesh=None):
-        self.mesh = mesh
-        self.device = resolve_device(
-            mesh.device if mesh is not None and device is None else device)
-        self.cfg = cfg
-        self.init_gen = torch.Generator().manual_seed(cfg['random_seed'])
-        self.gen = torch.Generator(device=self.device).manual_seed(
-            cfg['random_seed'])
-
+        super().__init__(cfg, device, mesh)
         geo_ckpt = checkpoints.load_checkpoint(geo_ckpt_path)
         self.rcfg = build_material_config(cfg, geo_ckpt['kwargs'])
         self.geo_params = checkpoints.tree_map(
@@ -156,41 +130,14 @@ class MaterialTrainer:
             {'sdf': geo_ckpt['params']['sdf'],
              'deviation': geo_ckpt['params']['deviation']})
         self.grid = mr.bake_geometry(self.geo_params, self.rcfg, self.device)
-
         self.flow_copies: Dict[str, Any] = {}
-        self.start_step = 0
-        self.best_para = 0.0
-        # steps by path, and captures (train_step)
-        self.graph_stats = {'replayed': 0, 'eager': 0, 'captures': 0}
-        self._graph = None
         self.set_params(mc_shading.init_mc_shading(
             self.init_gen, self.rcfg.shader, self.device))
-
-    def set_params(self, params, reset_step: int = 0):
-        """Install a parameter tree (e.g. convert.params_from_jax) and a
-        fresh optimizer rebased at ``reset_step``; on a mesh, rank 0's
-        tree is broadcast to every rank."""
-        sharding.replicate_tree(self.mesh, params)
-        for _, t in named_leaves(params):
-            t.requires_grad_(True)
-        self.params = params
-        self.opt = ScheduledAdam(self.cfg, params, reset_step,
-                                 label_fn=mat_param_group_label)
 
     # ------------------------------------------------------------------
     def init_dataset(self, max_train_rays: Optional[int] = None):
         cfg = self.cfg
-        self.database = db_mod.parse_database_name(
-            cfg['database_name'], cfg['dataset_dir'],
-            isWhiteBG=cfg['isBGWhite'])
-        train_ids, test_ids = db_mod.get_database_split(
-            self.database, split_manul=cfg['split_manul'])
-        self.train_ids, self.test_ids = list(train_ids), list(test_ids)
-        info = rays_mod.build_imgs_info(self.database, self.train_ids)
-        if cfg['nerfDataType']:
-            batch, rn, _, _ = rays_mod.construct_ray_batch_nerf(info)
-        else:
-            batch, rn, _, _ = rays_mod.construct_ray_batch_w2c(info)
+        batch, rn = self._open_split()
         batch = {'rays_o': batch['rays_o'], 'rays_d': batch['dirs'],
                  'rgb': batch['rgbs'], 'human_poses': batch['human_poses']}
         if max_train_rays is not None and rn > max_train_rays:
@@ -273,62 +220,30 @@ class MaterialTrainer:
             self.gen, self.rcfg.shader, self.cfg['train_ray_num'], phase,
             self.device)
 
-    def shard_noise(self, noise):
-        """This rank's slice of the step's draws (each has the points'
-        axis first)."""
-        if not sharding.active(self.mesh):
-            return noise
-        lo, hi = sharding.shard_range(self.mesh, self.cfg['train_ray_num'])
-        return {k: v[lo:hi] for k, v in noise.items()}
-
     def train_step(self, step: int, batch: Dict[str, torch.Tensor],
                    weights: Dict[str, float], noise, phase
                    ) -> Dict[str, torch.Tensor]:
-        """Forward, backward and one Adam step; returns the detached loss
-        terms (``loss`` = their sum), psnr, variance and the trace
-        rates, all still on the device, each step its own tensors.  On a
-        mesh the batch and noise are this rank's and everything returned
-        is global.
+        """Forward, backward and one Adam step (engine.StageTrainer._step)
+        on this rank's batch and draws; returns the detached loss terms
+        (``loss`` = their sum), psnr, variance and the trace rates, all
+        still on the device."""
+        return self._step(step, batch, weights, noise, phase)
 
-        Where graph_engages, the forward, loss sum and backward run as the
-        replay of one CUDA graph (trainer.graphed_step) while the step key
-        (step_key) holds: at a new key, GRAPH_WARMUP_STEPS eager steps on
-        a side stream, then a capture.  Adam stays eager.  Elsewhere (on
-        the CPU, on a mesh, under a profiler) the step runs eagerly."""
-        if not self.graph_engages():
-            self.graph_stats['eager'] += 1
-            return self._eager_step(step, batch, weights, noise, phase)
+    def step_scalars(self, step: int) -> Dict[str, float]:
+        """The stage-2 step's own scalar that changes from step to step:
+        the material clamps' factor, by _forward_backward's name for it
+        (so that its flip at step 2000 keeps the step key)."""
+        return {'reg_minmax': mr.reg_minmax_factor(step)}
 
-        def body(b, n, s):
-            return self._graph_body(step, b, n, s, tuple(weights), phase)
-        return graphed_step(
-            self, self.step_key(step, batch, weights, noise, phase),
-            (self.opt.params, dict(self.flow_copies), self.grid),
-            lambda: self._eager_step(step, batch, weights, noise, phase),
-            body, batch, noise, step_scalars(step, weights))
-
-    def graph_engages(self) -> bool:
-        """Whether train_step replays a CUDA graph: on the card, without a
-        mesh, while no profiler records (a replay records no host ranges
-        for the profile to read)."""
-        return (self.device.type == 'cuda' and not sharding.active(self.mesh)
-                and not recording())
-
-    def step_key(self, step: int, batch, weights, noise, phase):
-        """Everything that picks the step's Python control flow or the
-        identity of a tensor it reads, beside its inputs' values: the
-        renderer config (widths and the slot budgets, which an adaptation
-        re-buckets), the parameter leaves, the frozen flow copies' leaves
-        (update_flow_copies replaces them with fresh clones), the baked
-        grid, the phase flags, the weights' keys and the inputs' shapes.
-        The material clamps' factor is a scalar of the step
-        (step_scalars), not a part of the key."""
+    def _stage_key(self, step: int, phase):
+        """step_key's stage-2 part: the renderer config (widths, slot
+        budgets), the frozen flow copies' leaves (a refresh clones them
+        anew), the baked grid and the phase flags; and the copies and the
+        grid, whose ids it holds."""
         copies = tuple((slot, tuple(id(t) for _, t in named_leaves(tree)))
                        for slot, tree in sorted(self.flow_copies.items()))
-        return (self.rcfg, tuple(map(id, self.opt.params)), copies,
-                id(self.grid), phase, tuple(weights),
-                tuple((k, tuple(v.shape)) for k, v in batch.items()),
-                tuple((k, tuple(v.shape)) for k, v in noise.items()))
+        return ((self.rcfg, copies, id(self.grid), phase),
+                (dict(self.flow_copies), self.grid))
 
     def _forward_backward(self, step, batch, weights, noise, phase,
                           reg_minmax=None):
@@ -347,40 +262,27 @@ class MaterialTrainer:
             total.backward()
         return outputs, {**terms, 'loss': total}
 
-    def _eager_step(self, step, batch, weights, noise, phase):
-        self.opt.zero_grad()
-        outputs, terms = self._forward_backward(step, batch, weights, noise,
-                                                phase)
-        terms = all_reduce_step(self.mesh, self.opt.params, terms)
-        self.opt.step()
-        return {k: v.detach() for k, v in _step_terms(outputs, terms).items()}
-
-    def _graph_body(self, step, batch, noise, scalars, weight_keys, phase):
-        """What the CUDA graph holds: _forward_backward with the clamps'
-        factor and the weights read from ``scalars`` (step_scalars' values
-        in one tensor); returns the terms' keys and their values
-        stacked."""
-        reg_minmax, weights = scalar_views(scalars, weight_keys)
-        outputs, terms = self._forward_backward(step, batch, weights, noise,
-                                                phase, reg_minmax)
-        aux = _step_terms(outputs, terms)
-        return list(aux), torch.stack([v.detach().float().reshape(())
-                                       for v in aux.values()])
+    def _step_terms(self, outputs, terms):
+        """What train_step returns, undetached: psnr, variance, the loss
+        terms, the trace rates, then ``loss``."""
+        aux = {'psnr': outputs['psnr'], 'variance': outputs['variance'],
+               **terms}
+        aux.update((k, outputs[k]) for k in (
+            'secondary_cand_rate', 'secondary_hit_rate', 'secondary_a1_rate')
+            if k in outputs)
+        aux['loss'] = aux.pop('loss')
+        return aux
 
     # ------------------------------------------------------------------
     def train(self, n_steps: Optional[int] = None, log_every: int = 100,
               callback=None):
-        if not hasattr(self, 'batcher'):
-            self.init_dataset()
-        total = n_steps if n_steps is not None else self.cfg['total_step']
-        end_step = min(self.start_step + total, self.cfg['total_step'])
-        logs = []
-        for step in range(self.start_step, end_step):
+        logs, steps = [], self._steps(n_steps)
+        for step in steps:
             with span('tf.step'):
                 self.update_flow_copies(step)
                 phase = self.phase(step)
                 host_batch = self.batcher.next_batch()
-                batch = _batch_to_device(sharding.shard_batch(
+                batch = batch_to_device(sharding.shard_batch(
                     self.mesh, {k: host_batch[k]
                                 for k in self.step_keys()}), self.device)
                 weights = losses.schedule_weights(self.cfg, step)
@@ -395,14 +297,8 @@ class MaterialTrainer:
                     self._adapt_secondary_budget(
                         float(aux['secondary_cand_rate']),
                         float(aux['secondary_hit_rate']))
-            if (step + 1) % log_every == 0 or step == self.start_step:
-                vals = torch.stack([v.float() for v in aux.values()])
-                host = dict(zip(aux, vals.tolist()))   # one device read
-                host['step'] = step + 1
-                logs.append(host)
-                if callback:
-                    callback(host)
-        self.start_step = end_step
+            self._log(step, aux, log_every, logs, callback)
+        self.start_step = steps.stop
         return logs
 
     # ------------------------------------------------------------------
@@ -465,24 +361,12 @@ class MaterialTrainer:
         Every image is zeroed where the primary ray misses; ``rgb_pr``
         (not ``rgb_pr_nis``) gets the white background there.  Returns
         [h, w, k] images on the host and ``hit_mask`` [h, w, 1]."""
-        info = {'imgs': np.zeros((1, h, w, 3), np.float32),
-                'Ks': np.asarray(K, np.float32)[None],
-                'poses': np.asarray(pose, np.float32)[None]}
-        if self.cfg['nerfDataType']:
-            batch, rn, _, _ = rays_mod.construct_ray_batch_nerf(info)
-        else:
-            batch, rn, _, _ = rays_mod.construct_ray_batch_w2c(info)
+        batch, rn = self._view_rays(pose, K, h, w)
         rays = {'o': batch['rays_o'], 'd': batch['dirs']}
         with_nis = 'diffuse' in self.flow_copies
         cols, widths = [], {}
-        for ri in range(0, rn, chunk):
-            sub = {k: v[ri:ri + chunk] for k, v in rays.items()}
-            n_real = len(sub['o'])
-            if n_real < chunk:
-                sub = {k: np.concatenate(
-                    [v, np.repeat(v[-1:], chunk - n_real, 0)], 0)
-                    for k, v in sub.items()}
-            sub = _batch_to_device(sub, self.device)
+        for sub, n_real in self._chunks(rays, rn, chunk):
+            sub = batch_to_device(sub, self.device)
             res = self.render_chunk(sub['o'], sub['d'], with_nis)
             widths = {k: v.shape[1] for k, v in res.items()}
             # one device-to-host copy a chunk
@@ -498,30 +382,12 @@ class MaterialTrainer:
         img['hit_mask'] = hit.reshape(h, w, 1)
         return img
 
-    def validate(self, max_views: Optional[int] = None,
-                 downsample: float = 1.0) -> float:
-        """Mean PSNR over the held-out split at full resolution by default
-        (ref: trainer_mat.py validate), of ``rgb_pr_nis`` with the white
-        background added once the flow copies exist, else of ``rgb_pr``;
-        max_views / downsample subsample it.  On a mesh rank r renders
-        views r, r + size, ... and every rank gets the mean over all of
-        them (one all-reduce)."""
-        vids = self.test_ids if max_views is None else \
-            self.test_ids[:max_views]
-        return sharding.global_mean(self.mesh, [
-            self._view_psnr(vid, downsample)
-            for vid in sharding.rank_share(self.mesh, vids)])
-
     def _view_psnr(self, vid, downsample) -> float:
-        gt = self.database.get_image(vid).astype(np.float32) / 255.0
-        K = np.asarray(self.database.get_K(vid), np.float32).copy()
-        pose = self.database.get_pose(vid)
-        h, w = gt.shape[:2]
-        if downsample != 1.0:
-            h, w = int(h * downsample), int(w * downsample)
-            gt = metrics_vis.resize_linear(gt, h, w)
-            K = np.diag([downsample, downsample, 1.0]).astype(
-                np.float32) @ K
+        """validate's PSNR of one view (ref: trainer_mat.py validate), at
+        full resolution by default, of ``rgb_pr_nis`` with the white
+        background once the flow copies exist, else of ``rgb_pr``."""
+        gt, pose, K, h, w = self._view(
+            vid, 1.0 if downsample is None else downsample)
         out = self.render_image(pose, K, h, w)
         key = 'rgb_pr_nis' if 'rgb_pr_nis' in out else 'rgb_pr'
         pr = out[key]
@@ -531,25 +397,14 @@ class MaterialTrainer:
         return float(-10.0 * np.log10(max(mse, 1e-10)))
 
     # ------------------------------------------------------------------
-    def save(self, path: str):
-        """Write the checkpoint (on a mesh: rank 0 writes, every rank
-        waits for it)."""
-        if self.mesh is None or self.mesh.is_main:
-            self._write(path)
-        sharding.barrier(self.mesh)
-
-    def _write(self, path: str):
-        checkpoints.save_checkpoint(path, {
-            'step': self.start_step,
-            'best_para': self.best_para,
-            'params': self.params,
-            'opt_state': self.opt.state(),
+    def _checkpoint(self):
+        return {
             'flow_copies': self.flow_copies,
             'kwargs': {
                 'aabb': [list(a) for a in self.rcfg.aabb],
                 'grid_size': list(self.rcfg.sdf.grid_size),
             },
-        })
+        }
 
     def load(self, path: str, reset_flows: bool = True):
         """Resume.  With ``reset_flows`` (the reference's resume semantics,
@@ -558,8 +413,7 @@ class MaterialTrainer:
         moments and the frozen sampling copies are cleared; pass False to
         restore them exactly."""
         ckpt = checkpoints.load_checkpoint(path)
-        to_dev = lambda t: t.to(self.device)   # noqa: E731
-        restored = checkpoints.tree_map(to_dev, ckpt['params'])
+        restored = self._to_device(ckpt['params'])
         if reset_flows:
             fresh = mc_shading.init_mc_shading(
                 self.init_gen, self.rcfg.shader, self.device)
@@ -568,15 +422,9 @@ class MaterialTrainer:
                     restored[name] = fresh[name]
             self.flow_copies = {}
         else:
-            self.flow_copies = checkpoints.tree_map(
-                to_dev, ckpt.get('flow_copies', {}))
-        self.start_step = ckpt['step']
-        self.best_para = ckpt.get('best_para', 0.0)
+            self.flow_copies = self._to_device(ckpt.get('flow_copies', {}))
         # stage 2 never reshapes params: restore the Adam moments +
         # schedule count against reset_step=0 (ref: trainer_inv.py:108-113)
-        self.set_params(restored, 0)
-        zero_if = (lambda path: str(path[0]).startswith('flow')) \
-            if reset_flows else None
-        if not checkpoints.restore_opt_state(ckpt.get('opt_state'),
-                                             self.opt, zero_if):
-            self.set_params(restored, self.start_step)
+        self._restore(ckpt, restored, 0, (
+            lambda path: str(path[0]).startswith('flow'))
+            if reset_flows else None)

@@ -7,7 +7,10 @@ train/train_tools.py:93-108):
   * ``profile_trace``: ``torch.profiler`` over the block, which
     writes a Chrome trace (chrome://tracing, Perfetto) under ``logdir``,
     the spans included;
-  * ``TrainLogger``: append-only text logs per split.
+  * ``TrainLogger``: append-only text logs per split;
+  * ``launch_counter``: the registry of the hand-written kernels' launch
+    counters (``LAUNCH_COUNTERS``), which a replayed CUDA graph credits
+    (train/engine.StepGraph).
 """
 from __future__ import annotations
 
@@ -21,6 +24,16 @@ from torch.profiler import record_function
 
 # the one context every span returns while no profiler records
 _NO_SPAN = contextlib.nullcontext()
+
+# the launch counters ({kernel: launches}, each bumped by its launcher) of
+# the port's hand-written kernels, in the order their modules registered
+LAUNCH_COUNTERS = []
+
+
+def launch_counter(counts: dict) -> dict:
+    """Register a kernel module's launch counter; returns it."""
+    LAUNCH_COUNTERS.append(counts)
+    return counts
 
 
 def recording() -> bool:

@@ -1,9 +1,9 @@
 """The stage-2 step as a CUDA graph (MaterialTrainer.train_step through
-trainer.graphed_step and StepGraph).
+train/engine.py's StageTrainer and StepGraph).
 
 On the CPU, at tests/test_torch_mat_reference.py's tiny widths: the
 graph's body, which reads the material clamps' factor and the schedule
-weights from one tensor, against the eager step, which takes them as
+weights as 0-d views by name of one tensor, against the eager step, which takes them as
 Python floats, in each NIS phase and past the clamps' end at step 2000;
 and the step key, which must hold over steady NIS-sampling steps and
 change wherever the step's control flow or the tensors it reads change.
@@ -17,7 +17,7 @@ import torch
 
 from tensoflow_tpu_torch import config as pconfig
 from tensoflow_tpu_torch.fields import mc_shading
-from tensoflow_tpu_torch.train import losses
+from tensoflow_tpu_torch.train import engine, losses
 from tensoflow_tpu_torch.train import trainer_mat
 from tensoflow_tpu_torch.train.checkpoints import named_leaves
 from tensoflow_tpu_torch.train.trainer import ShapeTrainer
@@ -70,10 +70,9 @@ def test_device_scalars_step_matches_float_scalars_step(geo_path, name):
     assert eager.graph_stats == {'replayed': 0, 'eager': 1, 'captures': 0}
 
     dev.opt.zero_grad()
-    scalars = torch.tensor(trainer_mat.step_scalars(step, weights))
-    assert float(scalars[0]) == (1.0 if step < 2000 else 0.0)
-    keys, vals = dev._graph_body(step, batch, noise, scalars,
-                                 tuple(weights), phase)
+    _, scalars = engine.scalar_views({**dev.step_scalars(step), **weights})
+    assert float(scalars['reg_minmax']) == (1.0 if step < 2000 else 0.0)
+    keys, vals = dev._graph_body(step, batch, noise, scalars, phase)
     dev.opt.step()
     got = dict(zip(keys, vals.unbind(0)))
     assert list(aux) == keys
@@ -85,6 +84,41 @@ def test_device_scalars_step_matches_float_scalars_step(geo_path, name):
     for a, b in zip(eager.opt.params, dev.opt.params):
         assert _rel(a.grad, b.grad) <= 1e-6
         assert _rel(a.detach(), b.detach()) <= 1e-6
+
+
+@pytest.mark.parametrize('stage', ['shape', 'material'])
+def test_trainers_keep_the_benchmarks_contract(geo_path, stage):
+    """What bench_port/ reaches of the trainers: train.trainer's
+    ScheduledAdam is the engine's, the class both trainers' optimizers
+    instantiate (the benchmark's tests patch its step there); train_step
+    keeps its signature; and train() calls an instance-level train_step
+    once a step (the benchmark wraps that attribute to time and capture
+    steps), on the CPU at tiny widths."""
+    import inspect
+    from tensoflow_tpu_torch.train import trainer
+    assert trainer.ScheduledAdam is engine.ScheduledAdam
+    if stage == 'shape':
+        t = ShapeTrainer(pconfig.load_config(
+            os.path.join(ROOT, 'configs/shape/syn/compressor_occ.yaml'),
+            overrides=GEO + ['train_ray_num=64']), device='cpu')
+        flags = ['radiance_on', 'occ_on']
+    else:
+        t = _trainer(geo_path)
+        flags = ['phase']
+    assert list(inspect.signature(type(t).train_step).parameters) == [
+        'self', 'step', 'batch', 'weights', 'noise', *flags]
+    assert isinstance(t.opt, trainer.ScheduledAdam)
+    calls, inner = [], t.train_step
+
+    def wrapped(step, *args):
+        calls.append(step)
+        return inner(step, *args)
+    t.train_step = wrapped
+    logs = t.train(n_steps=3, log_every=100)
+    assert calls == [0, 1, 2] and t.start_step == 3
+    assert [h['step'] for h in logs] == [1]
+    assert isinstance(t.opt, trainer.ScheduledAdam) and t.opt.count == 3
+    assert t.graph_stats == {'replayed': 0, 'eager': 3, 'captures': 0}
 
 
 def test_step_key_holds_over_steady_sampling_steps(geo_path):
@@ -101,9 +135,8 @@ def test_step_key_holds_over_steady_sampling_steps(geo_path):
                           t.step_noise(step, phase), phase)
     k = key(1000)
     assert all(key(s) == k for s in (1001, 1500, 1998, 1999, 2000, 2500))
-    w = losses.schedule_weights(t.cfg, 1999)
-    assert trainer_mat.step_scalars(1999, w)[0] == 1.0
-    assert trainer_mat.step_scalars(2000, w)[0] == 0.0
+    assert t.step_scalars(1999) == {'reg_minmax': 1.0}
+    assert t.step_scalars(2000) == {'reg_minmax': 0.0}
 
 
 def test_step_key_changes_with_the_step(geo_path):

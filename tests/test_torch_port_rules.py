@@ -18,6 +18,9 @@
     its source (csrc/), never from the JAX package's native/.
   * The kernel wrappers take the plain version only for CPU tensors, and
     no ``try`` stands around a build or a launch.
+  * The trainers' seam: train/trainer_mat.py imports nothing from
+    train/trainer.py, and train/engine.py, which both run, imports no
+    module of ops/ and neither trainer module, and names no kernel.
   * A training step, of either stage and on either stage-1 sampler,
     copies nothing from the host but its ray batch.
   * Nothing of stage 1 raises NotImplementedError for the hierarchical
@@ -243,6 +246,37 @@ def test_tile_gather_has_no_try_and_counts_only_at_launches():
     lines = src.splitlines()
     for n in bumps:
         assert 'cuda_build.check(err' in lines[n.lineno - 2]
+
+
+def _package_imports(path):
+    """The dotted names ``path`` imports directly, relative imports
+    resolved: each imported module, and each module or name taken from
+    one."""
+    pkg = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg[:len(pkg) - node.level + 1] if node.level else []
+            mod = '.'.join(base + (node.module or '').split('.')).strip('.')
+            yield mod
+            yield from (f'{mod}.{a.name}' for a in node.names)
+
+
+def test_trainers_share_an_engine_that_names_no_kernel():
+    train = os.path.join(PKG, 'train')
+    stage2 = set(_package_imports(os.path.join(train, 'trainer_mat.py')))
+    assert 'tensoflow_tpu_torch.train.engine' in stage2
+    assert not [m for m in stage2 if m == 'tensoflow_tpu_torch.train.trainer'
+                or m.startswith('tensoflow_tpu_torch.train.trainer.')]
+    path = os.path.join(train, 'engine.py')
+    bad = [m for m in _package_imports(path)
+           if m.startswith(('tensoflow_tpu_torch.ops',
+                            'tensoflow_tpu_torch.train.trainer'))]
+    assert not bad, bad
+    src = open(path).read()
+    assert not [w for w in ('stencil', 'tile_gather', 'LAUNCHES')
+                if w in src]
 
 
 def test_stencil_head_cpu_tensors_take_the_plain_version():

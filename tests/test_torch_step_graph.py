@@ -1,7 +1,8 @@
-"""The stage-1 step as a CUDA graph (ShapeTrainer.train_step, StepGraph).
+"""The stage-1 step as a CUDA graph (ShapeTrainer.train_step through
+train/engine.py's StageTrainer and StepGraph).
 
 On the CPU: the graph's body, which reads the anneal ratio and the
-schedule weights from one tensor, against the eager step, which takes
+schedule weights as 0-d views by name of one tensor, against the eager step, which takes
 them as Python floats, over the cut schedule of the benchmark's cell
 (upsamples after steps 2 and 4, the alpha mask after step 2, the phases
 at 3); and the step key, which must hold over steady steps and change
@@ -15,8 +16,7 @@ import torch
 
 from tensoflow_tpu_torch import config as pconfig
 from tensoflow_tpu_torch.ops import stencil
-from tensoflow_tpu_torch.train import losses
-from tensoflow_tpu_torch.train import trainer as trainer_mod
+from tensoflow_tpu_torch.train import engine, losses
 from tensoflow_tpu_torch.train.trainer import ShapeTrainer
 
 torch.set_num_threads(1)
@@ -72,10 +72,10 @@ def test_device_scalars_step_matches_float_scalars_step():
     def device_scalars_step(step, batch, weights, noise, radiance_on,
                             occ_on):
         dev.opt.zero_grad()
-        scalars = torch.tensor(trainer_mod.step_scalars(dev.rcfg, step,
-                                                        weights))
+        _, scalars = engine.scalar_views({**dev.step_scalars(step),
+                                          **weights})
         keys, vals = dev._graph_body(step, batch, noise, scalars,
-                                     tuple(weights), radiance_on, occ_on)
+                                     radiance_on, occ_on)
         dev.opt.step()
         return dict(zip(keys, vals.unbind(0)))
     got = _recorded(dev, device_scalars_step)
@@ -104,7 +104,7 @@ def test_step_key_holds_over_steady_steps_and_changes_with_the_step():
     t = ShapeTrainer(cfg, device='cpu')
     t.init_dataset()
     assert not t.graph_engages()
-    batch = trainer_mod._batch_to_device(t.batcher.next_batch(), t.device)
+    batch = engine.batch_to_device(t.batcher.next_batch(), t.device)
     noise = t.step_noise(0)
 
     def key(step):
@@ -133,30 +133,39 @@ def test_step_key_holds_over_steady_steps_and_changes_with_the_step():
     assert t.graph_stats == {'replayed': 0, 'eager': 1, 'captures': 0}
 
 
+def _fake_cuda_graph(monkeypatch):
+    """A stand-in for the CUDA graph on the CPU: the capture runs the body
+    eagerly, a replay runs nothing."""
+    import contextlib
+
+    class FakeGraph:
+        def replay(self):
+            pass
+    monkeypatch.setattr(torch.cuda, 'CUDAGraph', FakeGraph)
+    monkeypatch.setattr(torch.cuda, 'graph',
+                        lambda g: contextlib.nullcontext())
+
+
 def test_capture_runs_without_garbage_collection(monkeypatch):
     """StepGraph.capture turns the cyclic garbage collector off around the
     capture (freeing another CUDA graph there would end it) and back on
     after it, also when the body raises; a stand-in for the CUDA graph
-    records what the body saw."""
-    import contextlib
+    records what the body saw, the step's scalars by name."""
     import gc
 
-    class FakeGraph:
-        pass
-    monkeypatch.setattr(torch.cuda, 'CUDAGraph', FakeGraph)
-    monkeypatch.setattr(torch.cuda, 'graph',
-                        lambda g: contextlib.nullcontext())
+    _fake_cuda_graph(monkeypatch)
     seen = []
 
     def body(batch, noise, scalars):
         seen.append(gc.isenabled())
-        return ['loss'], (batch['rays_o'] * scalars[0]).sum().reshape(1)
+        return ['loss'], (batch['rays_o'] * scalars['anneal']).sum(
+        ).reshape(1)
 
     leaf = torch.ones(3, requires_grad=True)
-    g = trainer_mod.StepGraph(key=None, refs=())
+    g = engine.StepGraph(key=None, refs=())
     assert gc.isenabled()
     g.capture(body, {'rays_o': torch.ones(4)}, {'jitter': torch.zeros(2)},
-              torch.tensor([2.0]), [leaf])
+              {'anneal': 2.0}, [leaf])
     assert seen == [False] and gc.isenabled()
     assert float(g.out[0]) == 8.0 and not g.grads[0].any()
 
@@ -164,10 +173,48 @@ def test_capture_runs_without_garbage_collection(monkeypatch):
         seen.append(gc.isenabled())
         raise RuntimeError('capture failed')
     with pytest.raises(RuntimeError):
-        trainer_mod.StepGraph(None, ()).capture(
-            failing, {'rays_o': torch.ones(4)}, {}, torch.tensor([1.0]),
+        engine.StepGraph(None, ()).capture(
+            failing, {'rays_o': torch.ones(4)}, {}, {'anneal': 1.0},
             [leaf])
     assert seen == [False, False] and gc.isenabled()
+
+
+def test_replay_credits_registered_launch_counters(monkeypatch):
+    """The kernels' launch counters are registered with utils/timing
+    (ops/stencil.py's two, ops/tile_gather.py's), and StepGraph credits
+    whatever is registered: a stand-in counter bumped in the capture is
+    set back after it and credited with those launches once a replay;
+    each replay copies the step's inputs and scalars in."""
+    from tensoflow_tpu_torch.ops import tile_gather
+    from tensoflow_tpu_torch.utils import timing
+
+    registered = timing.LAUNCH_COUNTERS
+    for counts in (stencil.LAUNCHES, stencil.GENERAL_LAUNCHES,
+                   tile_gather.LAUNCHES):
+        assert sum(c is counts for c in registered) == 1
+    _fake_cuda_graph(monkeypatch)
+    fake = timing.launch_counter({'fake_fwd': 5, 'fake_bwd': 1})
+    try:
+        def body(batch, noise, scalars):
+            fake['fake_fwd'] += 2          # the launcher's count
+            return ['loss'], (batch['rays_o'] * scalars['anneal']).sum(
+            ).reshape(1)
+
+        leaf = torch.ones(3, requires_grad=True)
+        g = engine.StepGraph(key=None, refs=())
+        g.capture(body, {'rays_o': torch.ones(4)}, {'jitter': torch.zeros(2)},
+                  {'anneal': 2.0}, [leaf])
+        assert fake == {'fake_fwd': 5, 'fake_bwd': 1}
+        for n in range(1, 4):
+            aux = g.replay({'rays_o': torch.full((4,), float(n))},
+                           {'jitter': torch.ones(2)}, {'anneal': 0.5 * n},
+                           [leaf])
+            assert fake == {'fake_fwd': 5 + 2 * n, 'fake_bwd': 1}
+            assert list(aux) == ['loss'] and float(aux['loss']) == 8.0
+            assert torch.equal(g.inputs[0], torch.full((4,), float(n)))
+            assert float(g.scalars[0]) == 0.5 * n
+    finally:
+        registered.remove(fake)
 
 
 def _snapshot(t):
@@ -255,7 +302,7 @@ def test_graphed_step_matches_eager_on_the_card(monkeypatch):
 
     # one 512^3 step from one state: replayed, then eager
     step = g.start_step
-    batch = trainer_mod._batch_to_device(g.batcher.next_batch(), g.device)
+    batch = engine.batch_to_device(g.batcher.next_batch(), g.device)
     noise = g.step_noise(step)
     args = (step, batch, losses.schedule_weights(cfg, step), noise,
             *g.phase_flags(step))
